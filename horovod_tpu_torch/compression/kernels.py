@@ -1,0 +1,262 @@
+"""Max-min quantization kernels: CUDA wrappers, plain versions, launch counts.
+
+Counterpart of ``horovod_tpu/compression/pallas_kernels.py`` for B1
+(``maxmin_quantize_pallas``), B3 (``maxmin_dequantize_sum_pallas``) and B4
+(``maxmin_dequantize_pallas``). The kernels are CUDA C++ for Hopper in
+``horovod_tpu_torch/csrc/maxmin.cu``, built with ``nvcc`` into a shared
+library with a plain C interface at first use and loaded with ctypes.
+
+Each wrapper takes the plain PyTorch version beside it for a tensor on the
+CPU, launches its kernel for a CUDA tensor, and raises for any other device:
+there is no fallback. ``LAUNCHES`` counts kernel launches, so a run can show
+that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+SOURCE = _PKG_DIR / "csrc" / "maxmin.cu"
+BUILD_DIR = _PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES: Dict[str, int] = {
+    "maxmin_quantize": 0,
+    "maxmin_dequantize": 0,
+    "maxmin_dequantize_sum": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc was not found on PATH or in /usr/local/cuda; "
+                       "the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile ``csrc/maxmin.cu`` unless a library for its current content
+    and flags exists, and return the library's path. It is written under a
+    temporary name and renamed, so ranks that build at once never load a
+    half-written file."""
+    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    path = BUILD_DIR / f"libmaxmin-{key.hexdigest()[:16]}.so"
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc exited {proc.returncode} building "
+                           f"{SOURCE.name}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.hvd_maxmin_quantize.argtypes = [ptr, i64, i64, i32, i32, ptr, ptr,
+                                        ptr, ptr]
+    lib.hvd_maxmin_quantize.restype = i32
+    lib.hvd_maxmin_dequantize.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
+    lib.hvd_maxmin_dequantize.restype = i32
+    lib.hvd_maxmin_dequantize_sum.argtypes = [ptr, ptr, ptr, i32, i64, i32,
+                                              ptr, ptr]
+    lib.hvd_maxmin_dequantize_sum.restype = i32
+    lib.hvd_cuda_error_string.argtypes = [i32]
+    lib.hvd_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int) -> bool:
+    """Validate a kernel argument; True when it lies on the CPU (the plain
+    version runs), False for CUDA (the kernel runs). Raises otherwise."""
+    if t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what} must have {ndim} dims, got {tuple(t.shape)}")
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} lies on {t.device}: the kernel runs on CUDA "
+                         "and its plain version on the CPU only")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    return False
+
+
+def _same_device(first: torch.Tensor, *others: torch.Tensor) -> None:
+    for t in others:
+        if t.device != first.device:
+            raise ValueError(f"arguments lie on {first.device} and "
+                             f"{t.device}")
+
+
+def _launch(name: str, fn, *args) -> None:
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = _lib().hvd_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# B1: max-min quantize
+# ---------------------------------------------------------------------------
+
+def bucketize(flat: torch.Tensor, bucket_size: int) -> torch.Tensor:
+    """Zero-pad a flat vector and view it as ``(n_buckets, bucket_size)``
+    (``quantize.py:98-103`` ``_bucketize`` in the JAX package): the padding
+    counts in the last bucket's min and max."""
+    n = flat.shape[0]
+    n_buckets = -(-n // bucket_size)
+    padded = torch.nn.functional.pad(flat, (0, n_buckets * bucket_size - n))
+    return padded.view(n_buckets, bucket_size)
+
+
+def maxmin_quantize_plain(flat: torch.Tensor, bits: int, bucket_size: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of B1 (the XLA path of ``MaxMinQuantizer.compress``)."""
+    buckets = bucketize(flat, bucket_size)
+    mn = buckets.amin(dim=1, keepdim=True)
+    mx = buckets.amax(dim=1, keepdim=True)
+    levels = (1 << bits) - 1
+    # A tensor divisor: PyTorch on CUDA turns division by a Python scalar
+    # into a multiply by its reciprocal, which is not the IEEE quotient.
+    unit = (mx - mn) / torch.full_like(mx, levels)
+    safe = torch.where(unit == 0, torch.ones_like(unit), unit)
+    # A NaN in a bucket makes its min and unit NaN (amin/amax pass it
+    # through) and its codes 0: NaN has no defined uint8 cast.
+    q = torch.round((buckets - mn) / safe).nan_to_num_(0.0).clamp_(0, levels)
+    return q.to(torch.uint8), mn[:, 0], unit[:, 0]
+
+
+def maxmin_quantize(flat: torch.Tensor, bits: int, bucket_size: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B1: quantize a flat fp32 vector bucket-wise to ``bits`` bits.
+
+    Returns codes ``[n_buckets, bucket_size]`` uint8 (one per byte; the
+    zero padding of the last bucket is coded too), and ``min`` and ``unit``
+    ``[n_buckets]`` fp32."""
+    if bits not in (1, 2, 4, 8):
+        raise ValueError("bits must be one of 1, 2, 4, 8")
+    if bucket_size < 1:
+        raise ValueError("bucket_size must be positive")
+    if _check(flat, "flat", torch.float32, 1):
+        return maxmin_quantize_plain(flat, bits, bucket_size)
+    n = flat.shape[0]
+    n_buckets = -(-n // bucket_size)
+    q = torch.empty((n_buckets, bucket_size), dtype=torch.uint8,
+                    device=flat.device)
+    mn = torch.empty((n_buckets,), dtype=torch.float32, device=flat.device)
+    unit = torch.empty_like(mn)
+    if n_buckets:
+        with torch.cuda.device(flat.device):
+            _launch("maxmin_quantize", _lib().hvd_maxmin_quantize,
+                    flat.data_ptr(), n, n_buckets, bucket_size, bits,
+                    q.data_ptr(), mn.data_ptr(), unit.data_ptr())
+    return q, mn, unit
+
+
+# ---------------------------------------------------------------------------
+# B4: max-min dequantize
+# ---------------------------------------------------------------------------
+
+def maxmin_dequantize_plain(q: torch.Tensor, mn: torch.Tensor,
+                            unit: torch.Tensor) -> torch.Tensor:
+    """Plain version of B4: ``min + q * unit`` per bucket."""
+    return mn[:, None] + q.to(torch.float32) * unit[:, None]
+
+
+def _check_meta(q: torch.Tensor, mn: torch.Tensor, unit: torch.Tensor,
+                lead: Tuple[int, ...]) -> bool:
+    on_cpu = _check(q, "q", torch.uint8, len(lead) + 1)
+    _check(mn, "min", torch.float32, len(lead))
+    _check(unit, "unit", torch.float32, len(lead))
+    if tuple(mn.shape) != lead or tuple(unit.shape) != lead:
+        raise ValueError(f"min {tuple(mn.shape)} and unit "
+                         f"{tuple(unit.shape)} must both be {lead}")
+    _same_device(q, mn, unit)
+    return on_cpu
+
+
+def maxmin_dequantize(q: torch.Tensor, mn: torch.Tensor, unit: torch.Tensor
+                      ) -> torch.Tensor:
+    """B4: codes ``[n_buckets, bucket]`` uint8 with ``min``/``unit``
+    ``[n_buckets]`` -> fp32 ``[n_buckets, bucket]``."""
+    if q.dim() != 2:
+        raise ValueError(f"q must be [n_buckets, bucket], got "
+                         f"{tuple(q.shape)}")
+    n_buckets, bucket = q.shape
+    if _check_meta(q, mn, unit, (n_buckets,)):
+        return maxmin_dequantize_plain(q, mn, unit)
+    out = torch.empty((n_buckets, bucket), dtype=torch.float32,
+                      device=q.device)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            _launch("maxmin_dequantize", _lib().hvd_maxmin_dequantize,
+                    q.data_ptr(), mn.data_ptr(), unit.data_ptr(), n_buckets,
+                    bucket, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B3: fused dequantize-sum over ranks
+# ---------------------------------------------------------------------------
+
+def maxmin_dequantize_sum_plain(q: torch.Tensor, mn: torch.Tensor,
+                                unit: torch.Tensor) -> torch.Tensor:
+    """Plain version of B3: decode each rank and add, rank by rank, in the
+    order of the JAX package's per-rank loop (``reducers.py:68-72``)."""
+    total = torch.zeros(q.shape[1:], dtype=torch.float32, device=q.device)
+    for r in range(q.shape[0]):
+        total = total + maxmin_dequantize_plain(q[r], mn[r], unit[r])
+    return total
+
+
+def maxmin_dequantize_sum(q: torch.Tensor, mn: torch.Tensor,
+                          unit: torch.Tensor) -> torch.Tensor:
+    """B3: codes ``[n_ranks, n_buckets, bucket]`` uint8 with per-rank
+    ``min``/``unit`` ``[n_ranks, n_buckets]`` -> the fp32 sum over ranks of
+    the decoded values, ``[n_buckets, bucket]``."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be [n_ranks, n_buckets, bucket], got "
+                         f"{tuple(q.shape)}")
+    n_ranks, n_buckets, bucket = q.shape
+    if _check_meta(q, mn, unit, (n_ranks, n_buckets)):
+        return maxmin_dequantize_sum_plain(q, mn, unit)
+    out = torch.empty((n_buckets, bucket), dtype=torch.float32,
+                      device=q.device)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            _launch("maxmin_dequantize_sum", _lib().hvd_maxmin_dequantize_sum,
+                    q.data_ptr(), mn.data_ptr(), unit.data_ptr(), n_ranks,
+                    n_buckets, bucket, out.data_ptr())
+    return out

@@ -1,0 +1,16 @@
+"""Framework exceptions (counterpart of ``horovod_tpu/exceptions.py``).
+
+Reference: ``horovod/common/exceptions.py``. The port keeps its own copy so
+that importing it never runs the JAX package's ``__init__``.
+"""
+
+from __future__ import annotations
+
+
+class NotInitializedError(RuntimeError):
+    """An API was called before ``init()`` (reference: basics.py check)."""
+
+    def __init__(self, what: str = "horovod_tpu_torch"):
+        super().__init__(
+            f"{what} has not been initialized; call "
+            "horovod_tpu_torch.init() first.")

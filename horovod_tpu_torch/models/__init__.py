@@ -1,0 +1,4 @@
+"""Models of the PyTorch port (counterpart of ``horovod_tpu.models``)."""
+
+from .resnet import (BottleneckResNetBlock, ResNet, ResNet18,  # noqa: F401
+                     ResNet34, ResNet50, ResNet101, ResNet152, ResNetBlock)

@@ -1,0 +1,220 @@
+"""Distributed optimizer: data-parallel gradient reduction for torch.optim.
+
+Counterpart of ``horovod_tpu/parallel/optimizer.py`` (``DistributedOptimizer``
+:171, its quantized route ``_compressed_reduce`` :290-362,
+``broadcast_parameters`` :422, ``broadcast_optimizer_state`` :429), in the
+torch-side shape of ``horovod_tpu/torch/optimizer.py``: the wrapper is a
+dynamic subclass of the wrapped optimizer's class (reference:
+``horovod/torch/optimizer.py:383``), so ``isinstance`` and LR schedulers keep
+working.
+
+``step()`` calls ``synchronize()``, which reduces all gradients at once: one
+fused ``compressed_grouped_allreduce`` per quantizer, and one fused
+``grouped_allreduce`` for the gradients left dense. Each rank is one process,
+so every gradient is this rank's own and compression always applies.
+Error-feedback residuals live in the optimizer's ``state`` and so travel in
+its ``state_dict``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional, Tuple, Union
+
+import torch
+
+from .. import runtime
+from ..compression import (CompressionConfig, Compressor, MaxMinQuantizer,
+                           init_error_feedback)
+from ..compression.reducers import compressed_grouped_allreduce
+from ..ops import collectives as C
+
+_RESIDUAL = "hvd_residual"
+
+
+class _DistributedOptimizer(torch.optim.Optimizer):
+    def __init__(self, params, named_parameters, compression, op,
+                 prescale_factor: float, postscale_factor: float):
+        super(self.__class__, self).__init__(params)
+        self._op = op
+        self._prescale = prescale_factor
+        self._postscale = postscale_factor
+        # None or a wire compressor (Compression.fp16/bf16) keeps every
+        # gradient dense; a quantizer or a config sends them through the
+        # compressed reducers.
+        self._config = None
+        self._wire = None
+        if isinstance(compression, CompressionConfig):
+            self._config = compression
+        elif isinstance(compression, MaxMinQuantizer):
+            self._config = CompressionConfig(default_compressor=compression)
+        else:
+            self._wire = compression
+        if self._config is not None and op not in (C.ReduceOp.SUM,
+                                                   C.ReduceOp.AVERAGE):
+            raise ValueError(f"op={op!r} is not supported with quantized "
+                             "compression (the compressed reducers are "
+                             "sum-based, like the reference's)")
+
+        # Index-based names for every param, overridden by named_parameters
+        # (never id(p): names must agree across processes).
+        self._names: Dict[int, str] = {}
+        for gi, group in enumerate(self.param_groups):
+            for pi, p in enumerate(group["params"]):
+                self._names[id(p)] = f"allreduce.noname.{gi}.{pi}"
+        if named_parameters is not None:
+            named_parameters = list(named_parameters)
+            names = [n for n, _ in named_parameters]
+            if len(set(names)) != len(names):
+                raise ValueError("parameter names in named_parameters must "
+                                 "be unique")
+            known = {id(p) for g in self.param_groups for p in g["params"]}
+            named = {id(p) for _, p in named_parameters}
+            if known - named:
+                raise ValueError("named_parameters was given, but one or more "
+                                 "model parameters were not named")
+            for name, p in named_parameters:
+                self._names[id(p)] = name
+
+    def _params(self) -> List[torch.nn.Parameter]:
+        return [p for g in self.param_groups for p in g["params"]
+                if p.requires_grad]
+
+    def synchronize(self) -> None:
+        """Reduce every gradient across ranks and write the result into
+        ``p.grad``. A parameter without a gradient contributes zeros, so
+        every rank joins every collective."""
+        params = self._params()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self._config is None:
+            self._reduce_dense(params, self._wire)
+            return
+        # Dense gradients group by wire compressor, quantized ones by
+        # quantizer config: one fused reduction per group.
+        dense: Dict[object, List[torch.nn.Parameter]] = {}
+        quantized: Dict[object, List[torch.nn.Parameter]] = {}
+        for p in params:
+            comp = self._config.for_name(self._names[id(p)])
+            if comp is None or (isinstance(comp, type) and
+                                issubclass(comp, Compressor)):
+                dense.setdefault(comp, []).append(p)
+            else:
+                quantized.setdefault(comp, []).append(p)
+        for comp, ps in dense.items():
+            self._reduce_dense(ps, comp)
+        for comp, ps in quantized.items():
+            self._reduce_compressed(ps, comp)
+
+    def _reduce_dense(self, params, wire) -> None:
+        reduced = C.grouped_allreduce([p.grad for p in params], op=self._op,
+                                      prescale_factor=self._prescale,
+                                      postscale_factor=self._postscale,
+                                      compression=wire)
+        for p, g in zip(params, reduced):
+            p.grad.copy_(g)
+
+    def _reduce_compressed(self, params, comp) -> None:
+        grads = [p.grad for p in params]
+        kwargs = dict(reduction=self._config.reduction, op=self._op,
+                      prescale_factor=self._prescale,
+                      postscale_factor=self._postscale)
+        if not self._config.error_feedback:
+            reduced = compressed_grouped_allreduce(grads, comp, **kwargs)
+        else:
+            missing = [p for p in params if _RESIDUAL not in self.state[p]]
+            for p, r in zip(missing, init_error_feedback(missing)):
+                self.state[p][_RESIDUAL] = r
+            residuals = [self.state[p][_RESIDUAL] for p in params]
+            reduced, new_res = compressed_grouped_allreduce(
+                grads, comp, residuals=residuals, **kwargs)
+            for p, r in zip(params, new_res):
+                self.state[p][_RESIDUAL] = r
+        for p, g in zip(params, reduced):
+            p.grad.copy_(g)
+
+    def step(self, closure=None):
+        self.synchronize()
+        return super(self.__class__, self).step(closure)
+
+
+def DistributedOptimizer(optimizer: torch.optim.Optimizer,
+                         named_parameters: Optional[
+                             Iterable[Tuple[str, torch.nn.Parameter]]] = None,
+                         compression=None,
+                         op: C.ReduceOp = C.ReduceOp.AVERAGE,
+                         gradient_predivide_factor: float = 1.0,
+                         prescale_factor: Optional[float] = None,
+                         postscale_factor: Optional[float] = None
+                         ) -> torch.optim.Optimizer:
+    """Wrap a torch optimizer so ``step()`` uses gradients reduced across
+    ranks (reference: ``hvd.DistributedOptimizer``,
+    ``horovod/torch/optimizer.py:383``).
+
+    * ``compression``: ``None``/``Compression.fp16``/``bf16`` (dense, cast on
+      the wire), a :class:`MaxMinQuantizer`, or a
+      :class:`CompressionConfig` (per-name quantizers, the reducer, and
+      error feedback).
+    * ``op``: ``Average`` (default) or ``Sum``; dense gradients also take
+      ``Min``/``Max``/``Product``.
+    * ``gradient_predivide_factor`` f splits the averaging: gradients are
+      scaled by f/size before the sum and by 1/f after (op must be
+      Average); otherwise ``prescale_factor``/``postscale_factor`` scale
+      before and after.
+    """
+    if gradient_predivide_factor != 1.0:
+        if op != C.ReduceOp.AVERAGE:
+            raise ValueError("gradient_predivide_factor not supported with "
+                             "op != Average")
+        pre = gradient_predivide_factor / runtime.size()
+        post = 1.0 / gradient_predivide_factor
+        op = C.ReduceOp.SUM
+    else:
+        pre = 1.0 if prescale_factor is None else prescale_factor
+        post = 1.0 if postscale_factor is None else postscale_factor
+    cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
+               dict(_DistributedOptimizer.__dict__))
+    return cls(optimizer.param_groups, named_parameters, compression, op,
+               pre, post)
+
+
+def _tensors(params) -> List[torch.Tensor]:
+    if isinstance(params, dict):
+        params = params.items()
+    out = []
+    for item in params:
+        t = item[1] if isinstance(item, tuple) else item
+        out.append(t.data if isinstance(t, torch.nn.Parameter) else t)
+    return out
+
+
+def broadcast_parameters(params: Union[dict, Iterable], root_rank: int = 0
+                         ) -> None:
+    """Broadcast parameters or buffers from ``root_rank`` in place
+    (reference: ``horovod/torch/functions.py:30``). Takes a ``state_dict``,
+    ``named_parameters()`` or a list of tensors."""
+    for t in _tensors(params):
+        C.broadcast_(t, root_rank)
+
+
+def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
+                              root_rank: int = 0) -> None:
+    """Broadcast an optimizer's state tensors and hyperparameters from
+    ``root_rank`` in place (reference: ``horovod/torch/functions.py:62``).
+    Every rank must hold state for the same parameters."""
+    hyper = [{k: v for k, v in g.items() if k != "params"}
+             for g in optimizer.param_groups]
+    torch.distributed.broadcast_object_list(hyper, src=root_rank)
+    for group, values in zip(optimizer.param_groups, hyper):
+        group.update(values)
+    dev = runtime.device()
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            for value in optimizer.state.get(p, {}).values():
+                if not torch.is_tensor(value):
+                    continue
+                if value.device == dev:
+                    C.broadcast_(value, root_rank)
+                else:
+                    # e.g. Adam's step count, kept on the CPU.
+                    value.copy_(C.broadcast(value.to(dev), root_rank))

@@ -1,0 +1,63 @@
+"""Environment-variable knobs the port reads.
+
+A copy of the part of ``horovod_tpu/utils/envvars.py`` this slice needs: the
+topology the ``hvdrun`` launcher exports (reference: ``HOROVOD_RANK``/...
+from ``horovod/runner/gloo_run.py:70-95``), the rendezvous address, the
+compression factory's knobs (reference: ``mpi_compressed_operations.cc:12-75``)
+and the log level.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+HVDTPU_RANK = "HVDTPU_RANK"
+HVDTPU_SIZE = "HVDTPU_SIZE"
+HVDTPU_LOCAL_RANK = "HVDTPU_LOCAL_RANK"
+HVDTPU_LOCAL_SIZE = "HVDTPU_LOCAL_SIZE"
+HVDTPU_CROSS_RANK = "HVDTPU_CROSS_RANK"
+HVDTPU_CROSS_SIZE = "HVDTPU_CROSS_SIZE"
+HVDTPU_CONTROLLER_ADDR = "HVDTPU_CONTROLLER_ADDR"
+HVDTPU_CONTROLLER_PORT = "HVDTPU_CONTROLLER_PORT"
+
+# torchrun's names, read when the hvdrun ones are absent.
+RANK = "RANK"
+WORLD_SIZE = "WORLD_SIZE"
+LOCAL_RANK = "LOCAL_RANK"
+LOCAL_WORLD_SIZE = "LOCAL_WORLD_SIZE"
+MASTER_ADDR = "MASTER_ADDR"
+MASTER_PORT = "MASTER_PORT"
+
+HVDTPU_LOG_LEVEL = "HVDTPU_LOG_LEVEL"
+
+HVDTPU_COMPRESSION = "HVDTPU_COMPRESSION"
+HVDTPU_REDUCTION = "HVDTPU_REDUCTION"
+HVDTPU_QUANTIZATION_BITS = "HVDTPU_QUANTIZATION_BITS"
+HVDTPU_COMPRESSION_BUCKET_SIZE = "HVDTPU_COMPRESSION_BUCKET_SIZE"
+HVDTPU_COMPRESSION_ERROR_FEEDBACK = "HVDTPU_COMPRESSION_ERROR_FEEDBACK"
+HVDTPU_COMPRESSION_CONFIG_FILE = "HVDTPU_COMPRESSION_CONFIG_FILE"
+
+
+def get_int(name: str, default: Optional[int]) -> Optional[int]:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer, got {v!r}") from None
+
+
+def get_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def get_str(name: str, default: Optional[str] = None) -> Optional[str]:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v

@@ -1,0 +1,149 @@
+"""Guards of the port: it imports no JAX, it never falls back to the CPU on
+its own, and its kernel wrappers refuse tensors they cannot serve. The tests
+marked ``cuda`` hold each CUDA kernel against its plain version on the card
+(``python -m pytest --noconftest -m cuda tests/test_torch_port_guards.py``
+on a machine with an NVIDIA GPU); elsewhere they skip."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import horovod_tpu_torch as thvd
+from horovod_tpu_torch.compression import kernels
+from horovod_tpu_torch.exceptions import NotInitializedError
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in _FORBIDDEN
+
+
+def test_import_pulls_in_no_jax():
+    from conftest import subprocess_env
+    code = ("import sys\n"
+            "import horovod_tpu_torch\n"
+            "import horovod_tpu_torch.models.convert\n"
+            "import horovod_tpu_torch.compression.kernels\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{_FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], env=subprocess_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "horovod_tpu_torch"])
+def test_sources_import_no_jax(path):
+    full = os.path.join(REPO, path)
+    files = [full] if full.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(full) for f in fs
+        if f.endswith(".py")]
+    for f in files:
+        with open(f) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            assert not any(_forbidden(n) for n in names), (f, names)
+
+
+def test_init_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        thvd.init()
+    assert not thvd.is_initialized()
+
+
+def test_topology_on_the_cpu():
+    with pytest.raises(NotInitializedError):
+        thvd.rank()
+    thvd.init(device="cpu")
+    try:
+        assert (thvd.rank(), thvd.size(), thvd.local_rank(),
+                thvd.local_size()) == (0, 1, 0, 1)
+        assert thvd.device() == torch.device("cpu")
+        x = torch.arange(6.0)
+        np.testing.assert_array_equal(thvd.allreduce(x).numpy(), x.numpy())
+        np.testing.assert_array_equal(thvd.broadcast(x, 0).numpy(),
+                                      x.numpy())
+        outs = thvd.grouped_allreduce([x, torch.ones(2, 2)], op=thvd.Sum,
+                                      postscale_factor=2.0)
+        np.testing.assert_array_equal(outs[1].numpy(), np.full((2, 2), 2.0))
+    finally:
+        thvd.shutdown()
+
+
+def _meta_args(name):
+    m = dict(device="meta")
+    if name == "maxmin_quantize":
+        return (torch.empty(100, **m), 4, 64)
+    q = torch.empty(2, 64, dtype=torch.uint8, **m)
+    v = torch.empty(2, **m)
+    if name == "maxmin_dequantize":
+        return (q, v, v)
+    return (q[None], v[None], v[None])
+
+
+@pytest.mark.parametrize("name", sorted(kernels.LAUNCHES))
+def test_wrappers_refuse_other_devices(name):
+    """A tensor that is neither on the CPU nor on CUDA raises; it is never
+    handed to the plain version."""
+    with pytest.raises(ValueError, match="meta"):
+        getattr(kernels, name)(*_meta_args(name))
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode)")
+    return torch.device("cuda")
+
+
+def _assert_bitwise(got, want):
+    """Equal values, and NaN exactly where the other has NaN."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,bucket", [(1, 64), (1000, 64), (4097, 512)])
+def test_cuda_quantize_matches_plain(bits, n, bucket):
+    """A constant first bucket; past it (where there is room) a bucket
+    with a NaN and one with an inf."""
+    dev = _cuda()
+    x = torch.randn(n, generator=torch.Generator().manual_seed(n)).to(dev)
+    x[:bucket] = 0.5
+    x[bucket + 1:bucket + 2] = float("nan")
+    x[2 * bucket + 3:2 * bucket + 4] = float("inf")
+    got = kernels.maxmin_quantize(x, bits, bucket)
+    want = kernels.maxmin_quantize_plain(x, bits, bucket)
+    for g, w in zip(got, want):
+        _assert_bitwise(g, w)
+    back = kernels.maxmin_dequantize(*got)
+    _assert_bitwise(back, kernels.maxmin_dequantize_plain(*got))
+    if n > 2 * bucket:
+        assert torch.isnan(back[1:3]).all() and torch.isfinite(back[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ranks", [1, 2, 4])
+def test_cuda_dequantize_sum_matches_plain(n_ranks):
+    dev = _cuda()
+    g = torch.Generator().manual_seed(n_ranks)
+    q = torch.randint(0, 16, (n_ranks, 33, 512), generator=g,
+                      dtype=torch.uint8).to(dev)
+    mn = torch.randn(n_ranks, 33, generator=g).to(dev)
+    unit = torch.rand(n_ranks, 33, generator=g).to(dev) / 15
+    torch.testing.assert_close(
+        kernels.maxmin_dequantize_sum(q, mn, unit),
+        kernels.maxmin_dequantize_sum_plain(q, mn, unit), rtol=1e-5, atol=0)

@@ -1,0 +1,185 @@
+"""The port's packing, max-min quantizer, kernels' plain versions and error
+feedback, held against the JAX package on the same numpy inputs.
+
+Against the JAX package's XLA path (``use_pallas=False``, what its
+``compress``/``decompress`` run on the CPU) codes and packed bytes are
+bitwise equal, min/unit exact and decoded values bitwise equal.
+
+Against the Pallas kernels in interpret mode codes and min are bitwise
+equal, but unit only within 1 ulp and decoded values within one rounding
+of the product and one of the sum: inside the
+interpreted kernel XLA computes ``unit`` as ``(max-min) * fl(1/levels)``
+and ``min + q*unit`` as one fused multiply-add, where the XLA path and the
+port round the quotient, the product and the sum each on its own. The
+fused dequantize-sum kernel B3 also adds in another order (``Σ q·unit +
+Σ min`` against rank by rank), so it is held to rtol 1e-5, as
+``tests/test_compression.py`` holds it.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu.compression import MaxMinQuantizer as JaxMaxMin
+from horovod_tpu.compression import compress_with_feedback as jax_feedback
+from horovod_tpu.compression import pallas_kernels as pk
+from horovod_tpu.compression.quantize import pack_bits as jax_pack
+from horovod_tpu.compression.quantize import unpack_bits as jax_unpack
+from horovod_tpu_torch.compression import (MaxMinQuantizer,
+                                           compress_with_feedback, kernels,
+                                           pack_bits, unpack_bits)
+
+
+def _data(n, seed, constant_bucket=0):
+    """Gradient-like values; the first ``constant_bucket`` values equal."""
+    x = np.random.RandomState(seed).randn(n).astype(np.float32)
+    x[:constant_bucket] = 0.75
+    return x
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 7, 64, 1001])
+def test_pack_unpack_bytes_equal(bits, n):
+    vals = np.random.RandomState(n).randint(0, 1 << bits, n).astype(np.uint8)
+    packed = pack_bits(torch.from_numpy(vals), bits)
+    want = np.asarray(jax_pack(jnp.asarray(vals), bits))
+    np.testing.assert_array_equal(packed.numpy(), want)
+    out = unpack_bits(packed, bits, n)
+    np.testing.assert_array_equal(
+        out.numpy(), np.asarray(jax_unpack(jnp.asarray(want), bits, n)))
+    np.testing.assert_array_equal(out.numpy(), vals)
+
+
+def test_pack_rows_equal_per_row():
+    """The row form packs each row as the JAX package packs a vector."""
+    rows = np.random.RandomState(3).randint(0, 4, (3, 11)).astype(np.uint8)
+    packed = pack_bits(torch.from_numpy(rows), 2)
+    for r in range(3):
+        np.testing.assert_array_equal(
+            packed[r].numpy(), np.asarray(jax_pack(jnp.asarray(rows[r]), 2)))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("bucket", [64, 125, 512])
+def test_compress_matches_jax(bits, bucket):
+    """Ragged tail (3 buckets + 37) and a constant first bucket."""
+    x = _data(3 * bucket + 37, bits * 1000 + bucket, constant_bucket=bucket)
+    payload, ctx = MaxMinQuantizer(bits, bucket).compress(torch.from_numpy(x))
+    want, want_ctx = JaxMaxMin(bits, bucket, use_pallas=False).compress(
+        jnp.asarray(x))
+    np.testing.assert_array_equal(payload["q"].numpy(), np.asarray(want["q"]))
+    np.testing.assert_array_equal(payload["min"].numpy(),
+                                  np.asarray(want["min"]))
+    np.testing.assert_array_equal(payload["unit"].numpy(),
+                                  np.asarray(want["unit"]))
+    assert payload["unit"][0] == 0  # the constant bucket
+    out = MaxMinQuantizer(bits, bucket).decompress(payload, ctx)
+    ref = JaxMaxMin(bits, bucket, use_pallas=False).decompress(want,
+                                                               want_ctx)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("bits,bucket", [(1, 64), (2, 512), (4, 512),
+                                         (8, 64), (4, 125)])
+def test_quantize_plain_matches_pallas_kernel(bits, bucket):
+    """The plain B1 against ``maxmin_quantize_pallas`` in interpret mode."""
+    x = _data(2 * bucket + 5, bits + bucket, constant_bucket=bucket)
+    q, mn, unit = kernels.maxmin_quantize(torch.from_numpy(x), bits, bucket)
+    wq, wmn, wunit = pk.maxmin_quantize_pallas(jnp.asarray(x), bits, bucket,
+                                               True)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(wq))
+    np.testing.assert_array_equal(mn.numpy(), np.asarray(wmn))
+    np.testing.assert_array_max_ulp(unit.numpy(), np.asarray(wunit), 1)
+
+
+def test_nonfinite_buckets_match_jax():
+    """A NaN passes through a bucket's min and unit, an inf makes the unit
+    infinite; such buckets code as 0 and decode to NaN, as in the JAX
+    package's XLA path and its Pallas kernel."""
+    x = _data(4 * 64 + 9, 21)
+    x[3] = np.nan
+    x[64 + 5] = np.inf
+    x[128 + 7] = -np.inf
+    x[192 + 1], x[192 + 2] = np.inf, -np.inf
+    q, mn, unit = kernels.maxmin_quantize(torch.from_numpy(x), 4, 64)
+    want, _ = JaxMaxMin(4, 64, use_pallas=False).compress(jnp.asarray(x))
+    wq, wmn, wunit = pk.maxmin_quantize_pallas(jnp.asarray(x), 4, 64, True)
+    np.testing.assert_array_equal(mn.numpy(), np.asarray(want["min"]))
+    np.testing.assert_array_equal(unit.numpy(), np.asarray(want["unit"]))
+    np.testing.assert_array_equal(mn.numpy(), np.asarray(wmn))
+    # The interpreted kernel's unit is within 1 ulp (module docstring).
+    np.testing.assert_array_equal(unit[:4].numpy(), np.asarray(wunit)[:4])
+    np.testing.assert_array_max_ulp(unit[4:].numpy(), np.asarray(wunit)[4:],
+                                    1)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(wq))
+    np.testing.assert_array_equal(pack_bits(q.view(-1), 4).numpy(),
+                                  np.asarray(want["q"]))
+    assert torch.isnan(mn[0]) and torch.isinf(unit[1:4]).all()
+    assert (q[:4] == 0).all() and torch.isfinite(mn[4]) and unit[4] > 0
+    back = kernels.maxmin_dequantize(q, mn, unit)
+    assert torch.isnan(back[:4]).all() and torch.isfinite(back[4]).all()
+
+
+@pytest.mark.parametrize("bucket", [64, 512])
+def test_dequantize_plain_matches_pallas_kernel(bucket):
+    x = _data(3 * bucket, bucket)
+    q, mn, unit = kernels.maxmin_quantize(torch.from_numpy(x), 4, bucket)
+    out = kernels.maxmin_dequantize(q, mn, unit)
+    want = pk.maxmin_dequantize_pallas(jnp.asarray(q.numpy()),
+                                       jnp.asarray(mn.numpy()),
+                                       jnp.asarray(unit.numpy()), bucket,
+                                       True)
+    # One fused multiply-add against a rounded product and a rounded sum:
+    # they differ by at most one rounding of each.
+    prod = q.numpy().astype(np.float32) * unit.numpy()[:, None]
+    bound = np.spacing(np.abs(prod)) + np.spacing(np.abs(out.numpy()))
+    assert (np.abs(out.numpy() - np.asarray(want)) <= bound).all()
+
+
+@pytest.mark.parametrize("n_ranks", [1, 2, 4])
+def test_dequantize_sum_plain_matches_pallas_kernel(n_ranks):
+    rng = np.random.RandomState(n_ranks)
+    q = rng.randint(0, 16, (n_ranks, 5, 64)).astype(np.uint8)
+    mn = rng.randn(n_ranks, 5).astype(np.float32)
+    unit = np.abs(rng.randn(n_ranks, 5)).astype(np.float32) / 15
+    out = kernels.maxmin_dequantize_sum(torch.from_numpy(q),
+                                        torch.from_numpy(mn),
+                                        torch.from_numpy(unit))
+    want = pk.maxmin_dequantize_sum_pallas(jnp.asarray(q), jnp.asarray(mn),
+                                           jnp.asarray(unit), True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5)
+
+
+def test_error_feedback_matches_jax():
+    x = _data(1000, 11)
+    res = _data(1000, 12) * 0.01
+    payload, ctx, new_res = compress_with_feedback(
+        MaxMinQuantizer(4, 64), torch.from_numpy(x), torch.from_numpy(res))
+    want, _, want_res = jax_feedback(JaxMaxMin(4, 64, use_pallas=False),
+                                     jnp.asarray(x), jnp.asarray(res))
+    np.testing.assert_array_equal(payload["q"].numpy(), np.asarray(want["q"]))
+    np.testing.assert_array_equal(new_res.numpy(), np.asarray(want_res))
+
+
+def test_compress_rows_quantizes_each_row_alone():
+    """The row form equals compressing each row on its own (jax.vmap)."""
+    rows = _data(3 * 100, 5).reshape(3, 100)
+    quant = MaxMinQuantizer(2, 64)
+    payload, ctx = quant.compress_rows(torch.from_numpy(rows))
+    for r in range(3):
+        want, _ = JaxMaxMin(2, 64, use_pallas=False).compress(
+            jnp.asarray(rows[r]))
+        for k in ("q", "min", "unit"):
+            np.testing.assert_array_equal(payload[k][r].numpy(),
+                                          np.asarray(want[k]))
+    back = quant.decompress_rows(payload, ctx)
+    for r in range(3):
+        one = {k: v[r] for k, v in payload.items()}
+        np.testing.assert_array_equal(back[r].numpy(),
+                                      quant.decompress(one, ctx).numpy())
+
+
+def test_stochastic_waits_for_b2():
+    with pytest.raises(NotImplementedError, match="B2"):
+        MaxMinQuantizer(4, 512, stochastic=True)

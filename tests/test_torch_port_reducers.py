@@ -1,0 +1,335 @@
+"""The port's compressed reducers, held against the JAX package's.
+
+Each case runs at world 1 in this process and at world 2 as two spawned
+gloo ranks (this file is also their worker: ``python <file> --worker``,
+which imports no JAX). The JAX reducers run inside ``hvd.run_step`` on a
+1- and a 2-device CPU mesh with the same per-rank numpy inputs.
+
+Tolerance. The port computes what the JAX package computes op by op:
+``unit = (max-min)/levels`` as an IEEE quotient, and ``min + q*unit`` as a
+rounded product and a rounded sum (``test_torch_port_quantize.py`` holds
+that bitwise). Inside ``run_step``'s compiled program XLA instead multiplies
+by ``fl(1/levels)`` and fuses ``min + q*unit`` into one FMA
+(``test_jit_rewrites_the_quantizer_arithmetic`` pins both). So against the
+compiled reducers every value agrees to 1e-6 (absolute, plus 1e-6 relative
+for the sums) except where a value within an ulp of a rounding midpoint
+took the neighbouring code: at most 1% of the values, each off by at most
+one quantization unit of its bucket. One case runs the JAX reducer op by op
+(``jax.disable_jit``, as slow as it is exact) and must agree to 1e-6
+everywhere.
+"""
+
+import os
+import subprocess
+import sys
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import horovod_tpu_torch as thvd
+from horovod_tpu_torch.compression import (MaxMinQuantizer,
+                                           compressed_allreduce,
+                                           compressed_grouped_allreduce)
+
+BITS, BUCKET = 4, 64
+SHAPES = {"single": [(1001,)], "grouped": [(33, 7), (5,), (201,)]}
+CASES = {
+    # name: (reduction, op, shapes, residual, prescale, postscale)
+    "allgather": ("allgather", "sum", "single", False, 1.0, 1.0),
+    "allgather-ef": ("allgather", "sum", "single", True, 1.0, 1.0),
+    "scatter_allgather": ("scatter_allgather", "sum", "single", False, 1.0,
+                          1.0),
+    "scatter_allgather-ef": ("scatter_allgather", "sum", "single", True, 1.0,
+                             1.0),
+    "ps": ("ps", "sum", "single", False, 1.0, 1.0),
+    "ps-ef": ("ps", "sum", "single", True, 1.0, 1.0),
+    "grouped-scatter_allgather-avg-ef-scaled": (
+        "scatter_allgather", "avg", "grouped", True, 0.5, 3.0),
+    "grouped-allgather-sum": ("allgather", "sum", "grouped", False, 1.0, 1.0),
+    "grouped-ps-avg-ef": ("ps", "avg", "grouped", True, 1.0, 1.0),
+}
+TOL = 1e-6
+
+
+def _inputs(name, rank):
+    """This rank's leaves and residuals, from a seed of (case, rank)."""
+    rng = np.random.RandomState(zlib.crc32(name.encode()) % 10000 + rank)
+    shapes = SHAPES[CASES[name][2]]
+    xs = [rng.randn(*s).astype(np.float32) for s in shapes]
+    res = [0.05 * rng.randn(*s).astype(np.float32) for s in shapes]
+    return xs, res
+
+
+def _run_port(name, rank):
+    reduction, op, kind, residual, pre, post = CASES[name]
+    xs, res = _inputs(name, rank)
+    xs = [torch.from_numpy(x) for x in xs]
+    res = [torch.from_numpy(r) for r in res] if residual else None
+    quant = MaxMinQuantizer(BITS, BUCKET)
+    op = thvd.Sum if op == "sum" else thvd.Average
+    if kind == "grouped":
+        result = compressed_grouped_allreduce(
+            xs, quant, reduction=reduction, op=op, residuals=res,
+            prescale_factor=pre, postscale_factor=post)
+        outs, new_res = result if residual else (result, None)
+    else:
+        result = compressed_allreduce(xs[0], quant, reduction=reduction,
+                                      op=op,
+                                      residual=res[0] if residual else None)
+        outs, new_res = ([result[0]], [result[1]]) if residual else \
+            ([result], None)
+    arrays = {f"out{i}": o.numpy() for i, o in enumerate(outs)}
+    if new_res is not None:
+        arrays.update({f"res{i}": r.numpy() for i, r in enumerate(new_res)})
+    return arrays
+
+
+def _dense_inputs(rank):
+    rng = np.random.RandomState(100 + rank)
+    return {"a": rng.randn(3, 4).astype(np.float32),
+            "b": rng.randn(5).astype(np.float32),
+            "i": rng.randint(-50, 50, 6).astype(np.int32),
+            "rows": rng.randn(4, 3).astype(np.float32)}
+
+
+def _run_dense(rank):
+    """The dense collectives and a dense DistributedOptimizer step."""
+    d = {k: torch.from_numpy(v) for k, v in _dense_inputs(rank).items()}
+    a, b = thvd.grouped_allreduce([d["a"], d["b"]], prescale_factor=0.5,
+                                  postscale_factor=3.0)
+    p = torch.nn.Parameter(torch.zeros(3, 4))
+    opt = thvd.DistributedOptimizer(torch.optim.SGD([p], lr=1.0))
+    p.grad = d["a"].clone()
+    opt.step()
+    # Rank-dependent state, then everything from rank 1.
+    q = torch.nn.Parameter(torch.full((3,), float(rank)))
+    sgd = torch.optim.SGD([q], lr=0.1 * (rank + 1), momentum=0.9)
+    q.grad = torch.full((3,), rank + 1.0)
+    sgd.step()
+    thvd.broadcast_optimizer_state(sgd, root_rank=1)
+    thvd.broadcast_parameters({"q": q}, root_rank=1)
+    return {"bcast_state": np.array(
+                [sgd.param_groups[0]["lr"],
+                 *sgd.state[q]["momentum_buffer"].tolist(),
+                 *q.detach().tolist()], dtype=np.float32),
+            "grouped_a": a.numpy(), "grouped_b": b.numpy(),
+            "sum_int": thvd.allreduce(d["i"], op=thvd.Sum).numpy(),
+            "allgather": thvd.allgather(d["rows"]).numpy(),
+            "broadcast": thvd.broadcast(d["rows"], root_rank=1).numpy(),
+            "alltoall": thvd.alltoall(d["rows"]).numpy(),
+            "optimizer": p.detach().numpy()}
+
+
+def _worker(out_dir):
+    thvd.init(device="cpu")
+    try:
+        rank = thvd.rank()
+        for name in CASES:
+            np.savez(os.path.join(out_dir, f"{name}.{rank}.npz"),
+                     **_run_port(name, rank))
+        np.savez(os.path.join(out_dir, f"dense.{rank}.npz"),
+                 **_run_dense(rank))
+    finally:
+        thvd.shutdown()
+
+
+def _run_jax(name, n, make_runtime, compiled=True):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    from horovod_tpu.compression import MaxMinQuantizer as JaxMaxMin
+    from horovod_tpu.compression import compressed_allreduce as jax_car
+    from horovod_tpu.compression import compressed_grouped_allreduce as \
+        jax_cgar
+
+    hvd = make_runtime(mesh_shape={"dp": n}, devices=jax.devices()[:n])
+    reduction, op, kind, residual, pre, post = CASES[name]
+    per_rank = [_inputs(name, r) for r in range(n)]
+    xs = tuple(jnp.asarray(np.stack([pr[0][i] for pr in per_rank]))
+               for i in range(len(SHAPES[kind])))
+    rs = tuple(jnp.asarray(np.stack([pr[1][i] for pr in per_rank]))
+               for i in range(len(SHAPES[kind])))
+    quant = JaxMaxMin(BITS, BUCKET, use_pallas=False)
+    op = hvd.Sum if op == "sum" else hvd.Average
+
+    def reduce(leaves, res):
+        if kind == "grouped":
+            out = jax_cgar(leaves, quant, reduction=reduction, op=op,
+                           residuals=res, prescale_factor=pre,
+                           postscale_factor=post)
+            return out if res is not None else (out, None)
+        out = jax_car(leaves[0], quant, reduction=reduction, op=op,
+                      residual=None if res is None else res[0])
+        return ((out[0],), (out[1],)) if res is not None else ((out,), None)
+
+    if residual:
+        @hvd.run_step(in_specs=(P("dp"), P("dp")), out_specs=(P(), P("dp")))
+        def step(x, r):
+            outs, new_res = reduce(tuple(a[0] for a in x),
+                                   tuple(a[0] for a in r))
+            return tuple(outs), tuple(a[None] for a in new_res)
+        with jax.disable_jit(not compiled):
+            outs, new_res = step(xs, rs)
+    else:
+        @hvd.run_step(in_specs=P("dp"), out_specs=P())
+        def step(x):
+            return tuple(reduce(tuple(a[0] for a in x), None)[0])
+        with jax.disable_jit(not compiled):
+            outs, new_res = step(xs), None
+    arrays = {f"out{i}": np.asarray(o) for i, o in enumerate(outs)}
+    if new_res is not None:
+        arrays.update({f"res{i}": np.asarray(r) for i, r in
+                       enumerate(new_res)})
+    return arrays
+
+
+LEVELS = (1 << BITS) - 1
+FLIP_SHARE = 0.01
+
+
+def _assert_match(name, port_by_rank, jax_arrays, exact):
+    """See the module docstring for the tolerance."""
+    per_rank = [_inputs(name, r) for r in range(len(port_by_rank))]
+    for key, want in jax_arrays.items():
+        leaf = int(key[3:])
+        for rank, port in enumerate(port_by_rank):
+            got = port[key]
+            if key.startswith("res"):
+                want = jax_arrays[key][rank]
+                # A flipped first-stage code moves the residual by one unit
+                # of a bucket of x + residual.
+                staged = per_rank[rank][0][leaf] + per_rank[rank][1][leaf]
+            else:
+                # ... and the output by one unit of a bucket of the sum.
+                staged = want
+            msg = f"{name}: {key} on rank {rank}"
+            if exact:
+                np.testing.assert_allclose(got, want, rtol=0, atol=TOL,
+                                           err_msg=msg)
+                continue
+            diff = np.abs(got - want)
+            off = diff > TOL + TOL * np.abs(want)
+            unit = np.ptp(staged) / LEVELS
+            assert off.mean() <= FLIP_SHARE, (msg, off.sum())
+            assert (diff[off] <= unit * 1.01 + TOL).all(), (msg, diff.max())
+
+
+@pytest.fixture(scope="module")
+def world1():
+    thvd.init(device="cpu")
+    yield
+    thvd.shutdown()
+
+
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory):
+    from conftest import free_port, subprocess_env
+    out_dir = str(tmp_path_factory.mktemp("torch_port_world2"))
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        env = subprocess_env()
+        env.update({"HVDTPU_RANK": str(rank), "HVDTPU_SIZE": "2",
+                    "HVDTPU_LOCAL_RANK": str(rank), "HVDTPU_LOCAL_SIZE": "2",
+                    "HVDTPU_CONTROLLER_ADDR": "127.0.0.1",
+                    "HVDTPU_CONTROLLER_PORT": str(port)})
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", out_dir],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    return {name: [dict(np.load(os.path.join(out_dir, f"{name}.{r}.npz")))
+                   for r in range(2)] for name in list(CASES) + ["dense"]}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_world1_matches_jax(name, world1, make_runtime):
+    _assert_match(name, [_run_port(name, 0)],
+                  _run_jax(name, 1, make_runtime), exact=False)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_world2_matches_jax(name, world2, make_runtime):
+    _assert_match(name, world2[name], _run_jax(name, 2, make_runtime),
+                  exact=False)
+
+
+def _dense_expected(rank):
+    ins = [_dense_inputs(r) for r in range(2)]
+    mean_a = (ins[0]["a"] * 0.5 + ins[1]["a"] * 0.5) / 2 * 3.0
+    mean_b = (ins[0]["b"] * 0.5 + ins[1]["b"] * 0.5) / 2 * 3.0
+    return {"grouped_a": mean_a, "grouped_b": mean_b,
+            "sum_int": ins[0]["i"] + ins[1]["i"],
+            "allgather": np.concatenate([ins[0]["rows"], ins[1]["rows"]]),
+            "broadcast": ins[1]["rows"],
+            "alltoall": np.concatenate([ins[0]["rows"][2 * rank:2 * rank + 2],
+                                        ins[1]["rows"][2 * rank:2 * rank + 2]]),
+            "optimizer": -(ins[0]["a"] + ins[1]["a"]) / 2,
+            # rank 1's lr, momentum buffer (its gradient) and stepped param
+            "bcast_state": np.array([0.2, 2, 2, 2, 0.6, 0.6, 0.6],
+                                    np.float32)}
+
+
+@pytest.mark.parametrize("key", ["grouped_a", "grouped_b", "sum_int",
+                                 "allgather", "broadcast", "alltoall",
+                                 "optimizer", "bcast_state"])
+def test_world2_dense_collectives(key, world2):
+    """Average with pre/postscale, integer Sum, allgather, broadcast from
+    rank 1, alltoall, a dense DistributedOptimizer step, and
+    broadcast_optimizer_state/broadcast_parameters from rank 1, against
+    numpy (fp32 sums of two values: 1e-6)."""
+    for rank in range(2):
+        np.testing.assert_allclose(world2["dense"][rank][key],
+                                   _dense_expected(rank)[key], rtol=1e-6,
+                                   atol=1e-6, err_msg=f"rank {rank}")
+
+
+def test_world2_matches_jax_op_by_op(world2, make_runtime):
+    name = "allgather-ef"
+    _assert_match(name, world2[name],
+                  _run_jax(name, 2, make_runtime, compiled=False), exact=True)
+
+
+def test_jit_rewrites_the_quantizer_arithmetic():
+    """The premise of the tolerance: XLA's compiled CPU program divides by
+    ``levels`` as a multiply by its reciprocal and fuses ``min + q*unit``
+    into an FMA, while op-by-op JAX and the port round each step."""
+    import jax
+    rng = np.random.RandomState(0)
+    d = (rng.rand(4096) * 3).astype(np.float32)
+    q = rng.randint(0, 16, 4096).astype(np.float32)
+    mn = -d
+    np.testing.assert_array_equal(np.asarray(jax.jit(lambda a: a / 15)(d)),
+                                  d * np.float32(1 / 15))
+    assert (d * np.float32(1 / 15) != d / np.float32(15)).any()
+    fused = np.asarray(jax.jit(lambda m, c, u: m + c * u)(mn, q, d))
+    np.testing.assert_array_equal(
+        fused, (mn.astype(np.float64) + q.astype(np.float64) *
+                d.astype(np.float64)).astype(np.float32))
+    assert (fused != mn + q * d).any()
+
+
+def test_unported_reducers_and_ops_raise(world1):
+    x = torch.ones(10)
+    quant = MaxMinQuantizer(BITS, BUCKET)
+    for reduction in ("ring", "tree"):
+        with pytest.raises(NotImplementedError, match=reduction):
+            compressed_allreduce(x, quant, reduction=reduction)
+    with pytest.raises(ValueError, match="unknown reduction"):
+        compressed_allreduce(x, quant, reduction="bogus")
+    with pytest.raises(ValueError, match="Sum/Average"):
+        compressed_allreduce(x, quant, op=thvd.ReduceOp.MAX)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
+    _worker(sys.argv[2])

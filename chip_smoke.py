@@ -6,16 +6,27 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from the checkout's sources, holds each kernel
-against its plain PyTorch version on the card, then drives the port's main
-path: ``hvd.init()`` (NCCL, a world of one), full-width ResNet-50 in bf16
-autocast over ``channels_last``, and ``DistributedOptimizer`` sending the
-gradients through the 4-bit max-min ``scatter_allgather`` reducer with error
-feedback, for 2 warm-up and 10 timed steps. It checks that the loss is
-finite and falls, that every step launched each kernel as often as the path
-requires, and that the trained model agrees with a CPU copy of itself on a
-small input. Then it times each kernel and its plain version at the shapes
-of the path.
+It builds the CUDA kernels from the checkout's sources and holds each
+kernel against its plain PyTorch version on the card. Then it drives the
+port's two paths, each with the launch counts set to 0 just before it and
+read just after:
+
+* ResNet-50: ``hvd.init()`` (NCCL, a world of one), full-width ResNet-50 in
+  bf16 autocast over ``channels_last``, and ``DistributedOptimizer``
+  sending the gradients through the 4-bit max-min ``scatter_allgather``
+  reducer with error feedback (kernels B1, B3, B4);
+* GPT: the ``gpt_long_context_flash`` configuration of ``bench.py`` (6
+  layers, d512, 8 heads of 64, MLP 2048, vocab 32000, 2 x 4096 tokens, bf16,
+  ``remat="full"``) with flash attention (kernels B7, B8, B9), through the
+  dense ``DistributedOptimizer`` (Average, one fused ``grouped_allreduce``)
+  and SGD.
+
+Each path takes 2 warm-up and 10 timed steps. The script checks that the
+loss is finite and falls, that the steps launched each kernel of the path
+as often as the path requires (and no kernel of the other path), and that
+the trained model agrees with a CPU copy of itself on a small input. Then
+it times each kernel, its plain version and, where one exists, the PyTorch
+call that computes the same function, at the shapes of the path.
 
 Output: the card's name and power limit as ``nvidia-smi`` reports them, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -27,6 +38,7 @@ package.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -44,6 +56,12 @@ RESNET50_PARAMS = 25_557_032  # the fused gradient buffer of the path
 BATCH, IMAGE = 64, 224
 WARMUP, STEPS = 2, 10
 LR = 0.1 * BATCH / 256  # linear scaling: 10 steps without warm-up
+# bench.py's gpt_long_context_flash phase, at full width and depth.
+GPT_CONFIG = dict(vocab_size=32000, num_layers=6, num_heads=8, head_dim=64,
+                  embed_dim=512, mlp_dim=2048, attention="flash",
+                  remat="full")
+GPT_PARAMS = 51_649_024
+GPT_BATCH, GPT_SEQ, GPT_LR = 2, 4096, 1e-3
 REPLACES = {
     "maxmin_quantize":
         "horovod_tpu/compression/pallas_kernels.py:163",
@@ -51,12 +69,28 @@ REPLACES = {
         "horovod_tpu/compression/pallas_kernels.py:283",
     "maxmin_dequantize":
         "horovod_tpu/compression/pallas_kernels.py:317",
+    "flash_fwd": "horovod_tpu/ops/flash_attention.py:93",
+    "flash_dkdv": "horovod_tpu/ops/flash_attention.py:146",
+    "flash_dq": "horovod_tpu/ops/flash_attention.py:192",
 }
-SOURCE = "horovod_tpu_torch/csrc/maxmin.cu"
-# Data-sheet rates (dense, no sparsity): device-memory bytes/s and fp32
-# operations/s outside the tensor cores.
-RATES = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+SOURCES = {"maxmin": "horovod_tpu_torch/csrc/maxmin.cu",
+           "flash": "horovod_tpu_torch/csrc/flash_attention.cu"}
+# Data-sheet rates (dense, no sparsity): device-memory bytes/s, fp32
+# operations/s outside the tensor cores, bf16 tensor-core operations/s.
+RATES = {"H100 PCIe": (2.0e12, 51e12, 756e12),
+         "H100 NVL": (3.9e12, 60e12, 835e12),
+         "H100": (3.35e12, 67e12, 989e12),
+         "H200": (4.8e12, 67e12, 989e12)}
+# Attention kernels against their plain versions (both fp32 math on the
+# same unit-normal inputs). fp32 outputs: within 1e-4 (forward, and lse
+# always) and 5e-4 (backward) of the largest reference value, taken as at
+# least 1. bf16 outputs, element by element: both sides round an fp32 value
+# to bf16, so they may land one bf16 step apart, which is at most 2^-7 of
+# the value; plus 2^-8 of the mean |value| and 2^-14 for values near zero,
+# where the fp32 sums differ by more than a bf16 step of the value (at S 1,
+# dK and dQ are zero in exact arithmetic and rounding noise in both).
+FLASH_TOL = (1e-4, 5e-4)
+BF16_TOL = (2**-7, 2**-8, 2**-14)  # of |value|, of mean |value|, absolute
 
 
 def log(msg: str) -> None:
@@ -144,6 +178,82 @@ def check_kernels(kernels, dev, n_values: int):
     return errors
 
 
+def flash_inputs(dev, bh: int, s: int, d: int, dtype, seed: int):
+    """q, k, v and an output gradient ``[bh, s, d]``, unit normals."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(bh, s, d, generator=gen, device=dev).to(dtype)
+            for _ in range(4)]
+
+
+def flash_errors(flash, q, k, v, do, causal: bool):
+    """B7, B8 and B9 against their plain versions on the same inputs (the
+    backward kernels get the plain ``lse`` and ``delta``); raises beyond
+    ``FLASH_TOL``. Returns each kernel's largest absolute error."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, scale, causal)
+    delta = (do.float() * o_ref.float()).sum(dim=-1)
+    got = {"flash_fwd": flash.flash_fwd(q, k, v, scale, causal),
+           "flash_dkdv": flash.flash_dkdv(q, k, v, do, lse_ref, delta, scale,
+                                          causal),
+           "flash_dq": (flash.flash_dq(q, k, v, do, lse_ref, delta, scale,
+                                       causal),)}
+    want = {"flash_fwd": (o_ref, lse_ref),
+            "flash_dkdv": flash.flash_dkdv_plain(q, k, v, do, lse_ref, delta,
+                                                 scale, causal),
+            "flash_dq": (flash.flash_dq_plain(q, k, v, do, lse_ref, delta,
+                                              scale, causal),)}
+    torch.cuda.synchronize()
+    fwd_tol, bwd_tol = FLASH_TOL
+    outputs = {"flash_fwd": (("o", fwd_tol), ("lse", fwd_tol)),
+               "flash_dkdv": (("dk", bwd_tol), ("dv", bwd_tol)),
+               "flash_dq": (("dq", bwd_tol),)}
+    errors = {}
+    for name in got:
+        errors[name] = 0.0
+        for g, w, (what, rel) in zip(got[name], want[name], outputs[name]):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{name} {what}: {g.dtype} "
+                                     f"{tuple(g.shape)} against {w.dtype} "
+                                     f"{tuple(w.shape)}")
+            err = (g.float() - w.float()).abs()
+            size = w.float().abs()
+            if g.dtype == torch.bfloat16:
+                of_value, of_mean, floor = BF16_TOL
+                bound = of_value * size + (of_mean * size.mean() + floor)
+            else:
+                bound = torch.full_like(size,
+                                        rel * max(1.0, float(size.max())))
+            if not bool((err <= bound).all()):
+                worst = int((err - bound).nan_to_num(math.inf).argmax())
+                raise AssertionError(
+                    f"{name} {what} differs from its plain version by "
+                    f"{float(err.flatten()[worst])} at element {worst} "
+                    f"(reference {float(w.flatten()[worst])}, bound "
+                    f"{float(bound.flatten()[worst])}) at {tuple(q.shape)} "
+                    f"{q.dtype} causal={causal}")
+            errors[name] = max(errors[name], float(err.max()))
+    return errors
+
+
+def check_flash(flash, dev):
+    """The attention kernels against their plain versions: at the GPT
+    path's shape (B 2 x H 8, S 4096, D 64, bf16, causal), then S in
+    {1, 127, 200, 4096} x D in {16, 64, 128} x causal or not x fp32 or
+    bf16. Returns the errors at the path's shape."""
+    bh = GPT_BATCH * GPT_CONFIG["num_heads"]
+    errors = flash_errors(flash, *flash_inputs(
+        dev, bh, GPT_SEQ, GPT_CONFIG["head_dim"], torch.bfloat16, 0), True)
+    seed = 1
+    for s in (1, 127, 200, 4096):
+        for d in (16, 64, 128):
+            for causal in (True, False):
+                for dtype in (torch.float32, torch.bfloat16):
+                    flash_errors(flash, *flash_inputs(dev, 3, s, d, dtype,
+                                                      seed), causal)
+                    seed += 1
+    return errors
+
+
 def make_slice(hvd, dev):
     """The main path's model, optimizer and fixed synthetic batch."""
     from horovod_tpu_torch.compression import (CompressionConfig,
@@ -175,8 +285,16 @@ def forward_backward(model, opt, images, labels):
     return loss.detach()
 
 
+def check_losses(losses) -> None:
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+
 def train(hvd, dev):
     from horovod_tpu_torch.compression import kernels
+    from horovod_tpu_torch.ops import flash_attention as flash
 
     model, opt, images, labels = make_slice(hvd, dev)
     n_params = sum(p.numel() for p in model.parameters())
@@ -190,11 +308,13 @@ def train(hvd, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    flash.reset_launches()
     t0 = time.perf_counter()
     losses += [step() for _ in range(STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    other = dict(flash.LAUNCHES)
     losses = [float(v) for v in losses]
     log(f"train: ResNet-50, {n_params} parameters, batch {BATCH}, "
         f"{IMAGE}x{IMAGE}, lr {LR}; losses {losses}")
@@ -204,14 +324,12 @@ def train(hvd, dev):
         f"{STEPS} steps {launches}")
     if n_params != RESNET50_PARAMS:
         raise AssertionError(f"ResNet-50 has {n_params} parameters")
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
+    check_losses(losses)
     want = {"maxmin_quantize": 2 * STEPS, "maxmin_dequantize_sum": STEPS,
             "maxmin_dequantize": 2 * STEPS}
-    if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
+    if launches != want or any(other.values()):
+        raise AssertionError(f"launches {launches} and {other}, expected "
+                             f"{want} and no attention kernel")
 
     # The trained model against a CPU copy of itself, fp32, small input.
     model.eval()
@@ -227,8 +345,99 @@ def train(hvd, dev):
     return launches
 
 
+def make_gpt_slice(hvd, dev):
+    """The GPT path's model, optimizer and fixed batch of tokens."""
+    from horovod_tpu_torch.models import GPT, GPTConfig
+
+    cfg = GPTConfig(**GPT_CONFIG)
+    model = GPT(cfg, seed=0).to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=GPT_LR),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ),
+                           generator=gen, device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    targets[:, -1] = -1
+    return model, opt, tokens, targets
+
+
+def gpt_forward_backward(model, opt, tokens, targets):
+    from horovod_tpu_torch.models import loss_fn
+
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(model, tokens, targets)
+    loss.backward()
+    return loss.detach()
+
+
+def train_gpt(hvd, dev):
+    """The GPT path: 2 warm-up and 10 timed steps of SGD through the dense
+    DistributedOptimizer, then the trained model against its CPU copy."""
+    from horovod_tpu_torch.compression import kernels
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.ops import flash_attention as flash
+
+    model, opt, tokens, targets = make_gpt_slice(hvd, dev)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != GPT_PARAMS:
+        raise AssertionError(f"GPT has {n_params} parameters")
+
+    def step():
+        loss = gpt_forward_backward(model, opt, tokens, targets)
+        opt.step()
+        return loss
+
+    losses = [step() for _ in range(WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    flash.reset_launches()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(flash.LAUNCHES)
+    other = dict(kernels.LAUNCHES)
+    losses = [float(v) for v in losses]
+    log(f"gpt: {n_params} parameters, L{cfg.num_layers} d{cfg.embed_dim} "
+        f"{cfg.num_heads}x{cfg.head_dim} heads, batch {GPT_BATCH} x "
+        f"{GPT_SEQ} tokens, bf16, remat {cfg.remat}, lr {GPT_LR}; losses "
+        f"{losses}")
+    log(f"gpt: step {seconds / STEPS * 1e3:.3f} ms, "
+        f"{GPT_BATCH * GPT_SEQ * STEPS / seconds:.1f} tokens/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches in "
+        f"{STEPS} steps {launches}")
+    check_losses(losses)
+    # B7 runs twice a layer (forward, and the recompute of remat="full"),
+    # B8 and B9 once in the backward.
+    layers = cfg.num_layers
+    want = {"flash_fwd": 2 * layers * STEPS, "flash_dkdv": layers * STEPS,
+            "flash_dq": layers * STEPS}
+    if launches != want or any(other.values()):
+        raise AssertionError(f"launches {launches} and {other}, expected "
+                             f"{want} and no max-min kernel")
+
+    # The trained model in fp32 against a CPU copy of itself (whose
+    # attention is the plain version), on 200 tokens.
+    fp32 = GPT(dataclasses.replace(cfg, dtype=torch.float32))
+    fp32.load_state_dict(model.state_dict())
+    small = tokens[:1, :200]
+    with torch.no_grad():
+        ref = copy.deepcopy(fp32)(small.cpu())
+        got = fp32.to(dev)(small).cpu()
+    if got.shape != (1, 200, cfg.vocab_size) or not torch.isfinite(got).all():
+        raise AssertionError("bad GPT logits")
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+    log("gpt: trained model agrees with its CPU copy (fp32, rtol 1e-4)")
+    return launches
+
+
 def measure(kernels, dev, n_values: int, launches, errors, rates):
-    bandwidth, fp32 = rates
+    bandwidth, fp32, _ = rates
     n_buckets = -(-n_values // BUCKET)
     padded = n_buckets * BUCKET
     x = torch.randn(n_values, device=dev) * 1e-2
@@ -255,7 +464,7 @@ def measure(kernels, dev, n_values: int, launches, errors, rates):
         ms = time_ms(kernel)
         plain_ms = time_ms(plain)
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES["maxmin"],
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
@@ -267,12 +476,78 @@ def measure(kernels, dev, n_values: int, launches, errors, rates):
     return rows
 
 
+def measure_flash(flash, dev, launches, errors, rates):
+    """B7, B8 and B9 at the GPT path's shape. Bound: the causal pairs this
+    run computes, 2 D operations per pair and product (B7 2 products, B8 4,
+    B9 3) at the bf16 tensor-core rate, against each input read once and
+    each output written once at the memory rate. Yardstick: PyTorch's
+    scaled_dot_product_attention, forward for B7, and its backward (dQ, dK
+    and dV together) for B8 and B9."""
+    bandwidth, _, tensor = rates
+    bh, s = GPT_BATCH * GPT_CONFIG["num_heads"], GPT_SEQ
+    d = GPT_CONFIG["head_dim"]
+    q, k, v, do = flash_inputs(dev, bh, s, d, torch.bfloat16, 7)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = flash.flash_fwd(q, k, v, scale, True)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    pairs = bh * s * (s + 1) // 2
+    tensor_bytes = q.numel() * q.element_size()
+    stat_bytes = bh * s * 4
+
+    heads = [t.view(GPT_BATCH, -1, s, d).detach().requires_grad_()
+             for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*heads, is_causal=True)
+    sdpa_grad = do.view(GPT_BATCH, -1, s, d)
+    sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        *heads, is_causal=True))
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, heads, sdpa_grad, retain_graph=True))
+    args = (q, k, v, do, lse, delta, scale, True)
+    work = {
+        # name: (kernel, plain, bytes, products, library ms, library call)
+        "flash_fwd": (
+            lambda: flash.flash_fwd(q, k, v, scale, True),
+            lambda: flash.flash_fwd_plain(q, k, v, scale, True),
+            4 * tensor_bytes + stat_bytes, 2, sdpa_fwd_ms,
+            "scaled_dot_product_attention(is_causal=True) forward"),
+        "flash_dkdv": (
+            lambda: flash.flash_dkdv(*args),
+            lambda: flash.flash_dkdv_plain(*args),
+            6 * tensor_bytes + 2 * stat_bytes, 4, sdpa_bwd_ms,
+            "its backward: dQ, dK and dV together"),
+        "flash_dq": (
+            lambda: flash.flash_dq(*args),
+            lambda: flash.flash_dq_plain(*args),
+            5 * tensor_bytes + 2 * stat_bytes, 3, sdpa_bwd_ms,
+            "its backward: dQ, dK and dV together"),
+    }
+    rows = []
+    for name, (kernel, plain, nbytes, products, lib_ms, lib) in work.items():
+        ops = 2 * d * products * pairs
+        byte_ms, op_ms = nbytes / bandwidth * 1e3, ops / tensor * 1e3
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES["flash"],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": lib_ms, "library": lib})
+        log(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            f"{max(byte_ms, op_ms):.4f} ms, {ops} operations, {nbytes} "
+            f"bytes; {lib} {lib_ms:.4f} ms)")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.compression import kernels
+    from horovod_tpu_torch.ops import flash_attention as flash
+    from horovod_tpu_torch.utils import cuda_build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -288,7 +563,7 @@ def main() -> int:
     rates = card_rates(name)
 
     t0 = time.perf_counter()
-    path = kernels.build()
+    path = cuda_build.build()
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
 
     hvd.init()
@@ -297,9 +572,14 @@ def main() -> int:
         errors = check_kernels(kernels, dev, RESNET50_PARAMS)
         log(f"kernels: B1 and B4 bitwise, B3 within rtol 1e-5; errors at "
             f"the path's shape {errors}")
+        flash_err = check_flash(flash, dev)
+        log(f"kernels: B7, B8 and B9 within their tolerances at 49 shapes; "
+            f"errors at the GPT path's shape {flash_err}")
         launches = train(hvd, dev)
+        flash_launches = train_gpt(hvd, dev)
         rows = measure(kernels, dev, RESNET50_PARAMS, launches, errors,
                        rates)
+        rows += measure_flash(flash, dev, flash_launches, flash_err, rates)
     finally:
         hvd.shutdown()
     print(json.dumps({"kernels": rows}), flush=True)

@@ -3,8 +3,8 @@
 Counterpart of ``horovod_tpu/compression/pallas_kernels.py`` for B1
 (``maxmin_quantize_pallas``), B3 (``maxmin_dequantize_sum_pallas``) and B4
 (``maxmin_dequantize_pallas``). The kernels are CUDA C++ for Hopper in
-``horovod_tpu_torch/csrc/maxmin.cu``, built with ``nvcc`` into a shared
-library with a plain C interface at first use and loaded with ctypes.
+``horovod_tpu_torch/csrc/maxmin.cu``, built with the port's other kernels
+into one shared library at first use (``utils/cuda_build.py``).
 
 Each wrapper takes the plain PyTorch version beside it for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for any other device:
@@ -16,20 +16,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "maxmin.cu"
-BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from ..utils import cuda_build
 
 LAUNCHES: Dict[str, int] = {
     "maxmin_quantize": 0,
@@ -43,44 +34,9 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-# ---------------------------------------------------------------------------
-# build and load
-# ---------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc was not found on PATH or in /usr/local/cuda; "
-                       "the CUDA kernels cannot be built")
-
-
-def build() -> Path:
-    """Compile ``csrc/maxmin.cu`` unless a library for its current content
-    and flags exists, and return the library's path. It is written under a
-    temporary name and renamed, so ranks that build at once never load a
-    half-written file."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"libmaxmin-{key.hexdigest()[:16]}.so"
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc exited {proc.returncode} building "
-                           f"{SOURCE.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return path
-
-
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = cuda_build.lib()
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.hvd_maxmin_quantize.argtypes = [ptr, i64, i64, i32, i32, ptr, ptr,
                                         ptr, ptr]
@@ -90,8 +46,6 @@ def _lib() -> ctypes.CDLL:
     lib.hvd_maxmin_dequantize_sum.argtypes = [ptr, ptr, ptr, i32, i64, i32,
                                               ptr, ptr]
     lib.hvd_maxmin_dequantize_sum.restype = i32
-    lib.hvd_cuda_error_string.argtypes = [i32]
-    lib.hvd_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -117,14 +71,6 @@ def _same_device(first: torch.Tensor, *others: torch.Tensor) -> None:
         if t.device != first.device:
             raise ValueError(f"arguments lie on {first.device} and "
                              f"{t.device}")
-
-
-def _launch(name: str, fn, *args) -> None:
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = _lib().hvd_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-    LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -179,9 +125,10 @@ def maxmin_quantize(flat: torch.Tensor, bits: int, bucket_size: int
     unit = torch.empty_like(mn)
     if n_buckets:
         with torch.cuda.device(flat.device):
-            _launch("maxmin_quantize", _lib().hvd_maxmin_quantize,
-                    flat.data_ptr(), n, n_buckets, bucket_size, bits,
-                    q.data_ptr(), mn.data_ptr(), unit.data_ptr())
+            cuda_build.launch(LAUNCHES, "maxmin_quantize",
+                              _lib().hvd_maxmin_quantize, flat.data_ptr(), n,
+                              n_buckets, bucket_size, bits, q.data_ptr(),
+                              mn.data_ptr(), unit.data_ptr())
     return q, mn, unit
 
 
@@ -221,9 +168,10 @@ def maxmin_dequantize(q: torch.Tensor, mn: torch.Tensor, unit: torch.Tensor
                       device=q.device)
     if out.numel():
         with torch.cuda.device(q.device):
-            _launch("maxmin_dequantize", _lib().hvd_maxmin_dequantize,
-                    q.data_ptr(), mn.data_ptr(), unit.data_ptr(), n_buckets,
-                    bucket, out.data_ptr())
+            cuda_build.launch(LAUNCHES, "maxmin_dequantize",
+                              _lib().hvd_maxmin_dequantize, q.data_ptr(),
+                              mn.data_ptr(), unit.data_ptr(), n_buckets,
+                              bucket, out.data_ptr())
     return out
 
 
@@ -256,7 +204,8 @@ def maxmin_dequantize_sum(q: torch.Tensor, mn: torch.Tensor,
                       device=q.device)
     if out.numel():
         with torch.cuda.device(q.device):
-            _launch("maxmin_dequantize_sum", _lib().hvd_maxmin_dequantize_sum,
-                    q.data_ptr(), mn.data_ptr(), unit.data_ptr(), n_ranks,
-                    n_buckets, bucket, out.data_ptr())
+            cuda_build.launch(LAUNCHES, "maxmin_dequantize_sum",
+                              _lib().hvd_maxmin_dequantize_sum, q.data_ptr(),
+                              mn.data_ptr(), unit.data_ptr(), n_ranks,
+                              n_buckets, bucket, out.data_ptr())
     return out

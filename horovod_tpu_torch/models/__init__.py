@@ -2,3 +2,4 @@
 
 from .resnet import (BottleneckResNetBlock, ResNet, ResNet18,  # noqa: F401
                      ResNet34, ResNet50, ResNet101, ResNet152, ResNetBlock)
+from .gpt import GPT, GPTConfig, loss_fn  # noqa: F401

@@ -1,9 +1,13 @@
-"""Flax ResNet variables -> the port's ``state_dict``.
+"""JAX parameter trees -> the port's ``state_dict``.
 
-Takes the ``{"params": ..., "batch_stats": ...}`` tree of
-``horovod_tpu.models.ResNet`` as nested dicts of numpy arrays (either
-collection may be absent, so a gradient tree converts too) and returns
-tensors named as in :class:`horovod_tpu_torch.models.resnet.ResNet`:
+:func:`gpt_params_to_torch` takes the GPT parameter tree of
+``horovod_tpu.models.gpt.init_params``; the port's GPT keeps its names and
+layouts, so each leaf is copied under its dotted path.
+
+:func:`flax_to_torch` takes the ``{"params": ..., "batch_stats": ...}``
+tree of ``horovod_tpu.models.ResNet`` as nested dicts of numpy arrays
+(either collection may be absent, so a gradient tree converts too) and
+returns tensors named as in :class:`horovod_tpu_torch.models.resnet.ResNet`:
 
 ==================================  ===================================
 flax                                port
@@ -23,7 +27,7 @@ flax                                port
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -76,4 +80,25 @@ def flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
     for collection in ("params", "batch_stats"):
         if collection in variables:
             walk(variables[collection], ())
+    return out
+
+
+def gpt_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Convert a JAX GPT parameter tree (nested dicts and lists of arrays)
+    to the port's ``state_dict``: ``layers[i]["wq"]`` becomes
+    ``layers.i.wq``, each a writable fp32 copy in the same layout."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        items = (tree.items() if isinstance(tree, Mapping)
+                 else enumerate(tree))
+        for key, value in items:
+            name = f"{prefix}{key}"
+            if isinstance(value, (Mapping, Sequence)):
+                walk(value, name + ".")
+            else:
+                out[name] = torch.from_numpy(
+                    np.array(value, dtype=np.float32, order="C"))
+
+    walk(params, "")
     return out

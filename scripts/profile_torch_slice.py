@@ -3,12 +3,15 @@
 
 Run from the root of a checkout on a machine with a card::
 
-    python3 scripts/profile_torch_slice.py [--steps 10] [--out DIR]
+    python3 scripts/profile_torch_slice.py [--path resnet|gpt] [--steps 10]
+                                           [--out DIR]
 
-It builds the slice that ``chip_smoke.py`` drives (ResNet-50, batch 64,
-224x224, bf16 autocast, ``DistributedOptimizer`` with the 4-bit max-min
-``scatter_allgather`` reducer and error feedback, a world of one) and, after
-warm-up:
+It builds one of the two paths that ``chip_smoke.py`` drives, at a world
+of one: ``resnet`` (ResNet-50, batch 64, 224x224, bf16 autocast,
+``DistributedOptimizer`` with the 4-bit max-min ``scatter_allgather``
+reducer and error feedback) or ``gpt`` (the ``gpt_long_context_flash``
+configuration with flash attention, 2 x 4096 tokens, remat ``full``, the
+dense ``DistributedOptimizer`` and SGD), and, after warm-up:
 
 1. times ``--steps`` steps after ``chip_smoke.py``'s warm-up on the host
    clock as ``chip_smoke.py`` does (and each on the device), then the
@@ -17,7 +20,7 @@ warm-up:
    (``synchronize()``) and the inner SGD step;
 2. traces 3 steps with ``torch.profiler``, prints the device time by
    kernel and the device's busy share of the traced window, and writes the
-   Chrome trace under ``--out``.
+   Chrome trace under ``--out`` (``torch_{path}_trace.json``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ def _self_device_us(evt) -> float:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=("resnet", "gpt"),
+                        default="resnet")
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     args = parser.parse_args()
@@ -63,13 +68,19 @@ def main() -> int:
     hvd.init()
     try:
         dev = hvd.device()
-        model, opt, images, labels = chip_smoke.make_slice(hvd, dev)
+        if args.path == "gpt":
+            make, forward_backward = (chip_smoke.make_gpt_slice,
+                                      chip_smoke.gpt_forward_backward)
+        else:
+            make, forward_backward = (chip_smoke.make_slice,
+                                      chip_smoke.forward_backward)
+        model, opt, inputs, targets = make(hvd, dev)
         inner_step = type(opt).__mro__[1].step
 
         def step(marks=None):
             if marks:
                 marks[0].record()
-            chip_smoke.forward_backward(model, opt, images, labels)
+            forward_backward(model, opt, inputs, targets)
             if marks:
                 marks[1].record()
             with torch.profiler.record_function("hvd.synchronize"):
@@ -131,8 +142,8 @@ def main() -> int:
                 print(f"hvd.synchronize: host {e.cpu_time_total / 3e3:.3f} "
                       "ms/step", flush=True)
         os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out,
-                                              "torch_slice_trace.json"))
+        prof.export_chrome_trace(os.path.join(
+            args.out, f"torch_{args.path}_trace.json"))
     finally:
         hvd.shutdown()
     return 0

@@ -2,7 +2,17 @@
 its own, and its kernel wrappers refuse tensors they cannot serve. The tests
 marked ``cuda`` hold each CUDA kernel against its plain version on the card
 (``python -m pytest --noconftest -m cuda tests/test_torch_port_guards.py``
-on a machine with an NVIDIA GPU); elsewhere they skip."""
+on a machine with an NVIDIA GPU); elsewhere they skip.
+
+Tolerances of the attention kernels on the card, whose kernels and plain
+versions both compute in fp32 from the same unit-normal inputs: fp32
+forward within 1e-4 of the largest reference value (taken as at least 1),
+fp32 backward within 5e-4 of it. bf16 outputs are held element by element:
+both sides round an fp32 value to bf16 and may land one bf16 step apart,
+at most 2^-7 of the value; to that come 2^-8 of the mean |value| and 2^-14
+for values near zero, where the fp32 sums differ by more than a bf16 step
+of the value (at S = 1, dK and dQ are zero in exact arithmetic and rounding
+noise in both)."""
 
 import ast
 import os
@@ -15,6 +25,7 @@ import torch
 
 import horovod_tpu_torch as thvd
 from horovod_tpu_torch.compression import kernels
+from horovod_tpu_torch.ops import flash_attention as flash
 from horovod_tpu_torch.exceptions import NotInitializedError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,6 +42,8 @@ def test_import_pulls_in_no_jax():
             "import horovod_tpu_torch\n"
             "import horovod_tpu_torch.models.convert\n"
             "import horovod_tpu_torch.compression.kernels\n"
+            "import horovod_tpu_torch.models.gpt\n"
+            "import horovod_tpu_torch.ops.flash_attention\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -45,6 +58,12 @@ def test_sources_import_no_jax(path):
     files = [full] if full.endswith(".py") else [
         os.path.join(d, f) for d, _, fs in os.walk(full) for f in fs
         if f.endswith(".py")]
+    if not full.endswith(".py"):
+        # Every module of the package, the ones added later included.
+        names = {os.path.relpath(f, full) for f in files}
+        assert {"models/gpt.py", "models/transformer.py",
+                "ops/flash_attention.py", "utils/cuda_build.py",
+                "compression/kernels.py"} <= names, names
     for f in files:
         with open(f) as fh:
             tree = ast.parse(fh.read())
@@ -85,6 +104,12 @@ def test_topology_on_the_cpu():
 
 def _meta_args(name):
     m = dict(device="meta")
+    if name.startswith("flash"):
+        x = torch.empty(2, 8, 16, **m)
+        stats = torch.empty(2, 8, **m)
+        if name == "flash_fwd":
+            return (x, x, x, 0.25, True)
+        return (x, x, x, x, stats, stats, 0.25, True)
     if name == "maxmin_quantize":
         return (torch.empty(100, **m), 4, 64)
     q = torch.empty(2, 64, dtype=torch.uint8, **m)
@@ -94,12 +119,14 @@ def _meta_args(name):
     return (q[None], v[None], v[None])
 
 
-@pytest.mark.parametrize("name", sorted(kernels.LAUNCHES))
+@pytest.mark.parametrize("name", sorted(kernels.LAUNCHES) +
+                         sorted(flash.LAUNCHES))
 def test_wrappers_refuse_other_devices(name):
     """A tensor that is neither on the CPU nor on CUDA raises; it is never
     handed to the plain version."""
+    module = flash if name.startswith("flash") else kernels
     with pytest.raises(ValueError, match="meta"):
-        getattr(kernels, name)(*_meta_args(name))
+        getattr(module, name)(*_meta_args(name))
 
 
 def _cuda():
@@ -147,3 +174,50 @@ def test_cuda_dequantize_sum_matches_plain(n_ranks):
     torch.testing.assert_close(
         kernels.maxmin_dequantize_sum(q, mn, unit),
         kernels.maxmin_dequantize_sum_plain(q, mn, unit), rtol=1e-5, atol=0)
+
+
+def _close(got, want, rel: float, what: str) -> None:
+    """fp32: ``max|got - want| <= rel * max(1, max|want|)``; bf16, element
+    by element: ``|got - want| <= 2^-7 |want| + 2^-8 mean|want| + 2^-14``."""
+    size = want.float().abs()
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        bound = 2**-7 * size + (2**-8 * size.mean() + 2**-14)
+    else:
+        bound = torch.full_like(size, rel * max(1.0, float(size.max())))
+    over = int((err > bound).sum())
+    assert over == 0, (f"{what}: {over} elements beyond the bound, max "
+                       f"error {float(err.max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("s", [1, 127, 200, 4096])
+def test_cuda_flash_matches_plain(s, d, causal, dtype):
+    """B7, B8 and B9 against their plain versions, fp32 math on the same
+    inputs (tolerances in the module docstring)."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(s + d)
+    q, k, v, do = (torch.randn(3, s, d, generator=g).to(dev, dt)
+                   for _ in range(4))
+    scale = 1.0 / d ** 0.5
+    fwd_tol, bwd_tol = 1e-4, 5e-4  # fp32 outputs; bf16 ones: see _close
+    o, lse = flash.flash_fwd(q, k, v, scale, causal)
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, scale, causal)
+    _close(o, o_ref, fwd_tol, "o")
+    _close(lse, lse_ref, 1e-4, "lse")
+    delta = (do.float() * o_ref.float()).sum(-1)
+    dk, dv = flash.flash_dkdv(q, k, v, do, lse_ref, delta, scale, causal)
+    dk_ref, dv_ref = flash.flash_dkdv_plain(q, k, v, do, lse_ref, delta,
+                                            scale, causal)
+    dq = flash.flash_dq(q, k, v, do, lse_ref, delta, scale, causal)
+    dq_ref = flash.flash_dq_plain(q, k, v, do, lse_ref, delta, scale, causal)
+    torch.cuda.synchronize()
+    for got, want, what in ((dq, dq_ref, "dq"), (dk, dk_ref, "dk"),
+                            (dv, dv_ref, "dv")):
+        assert got.dtype == dt and got.shape == want.shape
+        _close(got, want, bwd_tol, what)

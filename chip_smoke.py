@@ -8,13 +8,18 @@ Run from the root of a checkout, with no arguments::
 
 It builds the CUDA kernels from the checkout's sources and holds each
 kernel against its plain PyTorch version on the card. Then it drives the
-port's two paths, each with the launch counts set to 0 just before it and
-read just after:
+port's paths, each with the launch counts set to 0 just before it and read
+just after:
 
 * ResNet-50: ``hvd.init()`` (NCCL, a world of one), full-width ResNet-50 in
   bf16 autocast over ``channels_last``, and ``DistributedOptimizer``
   sending the gradients through the 4-bit max-min ``scatter_allgather``
   reducer with error feedback (kernels B1, B3, B4);
+* the same ResNet-50 path with the fork's normalized quantizer, what
+  ``make_compressor("uni")`` builds (4 bits, buckets of 512, uniform
+  levels, linf norm: kernels B5, B6);
+* the same ResNet-50 path with stochastic 4-bit max-min rounding (kernel
+  B2, and B3, B4 on the receive side);
 * GPT: the ``gpt_long_context_flash`` configuration of ``bench.py`` (6
   layers, d512, 8 heads of 64, MLP 2048, vocab 32000, 2 x 4096 tokens, bf16,
   ``remat="full"``) with flash attention (kernels B7, B8, B9), through the
@@ -23,8 +28,9 @@ read just after:
 
 Each path takes 2 warm-up and 10 timed steps. The script checks that the
 loss is finite and falls, that the steps launched each kernel of the path
-as often as the path requires (and no kernel of the other path), and that
-the trained model agrees with a CPU copy of itself on a small input. Then
+as often as the path requires (and no other kernel), and that the trained
+model of the first ResNet-50 path and of the GPT path agrees with a CPU
+copy of itself on a small input. Then
 it times each kernel, its plain version and, where one exists, the PyTorch
 call that computes the same function, at the shapes of the path.
 
@@ -65,16 +71,34 @@ GPT_BATCH, GPT_SEQ, GPT_LR = 2, 4096, 1e-3
 REPLACES = {
     "maxmin_quantize":
         "horovod_tpu/compression/pallas_kernels.py:163",
+    "maxmin_quantize_stochastic":
+        "horovod_tpu/compression/pallas_kernels.py:228",
     "maxmin_dequantize_sum":
         "horovod_tpu/compression/pallas_kernels.py:283",
     "maxmin_dequantize":
         "horovod_tpu/compression/pallas_kernels.py:317",
+    "norm_quantize": "horovod_tpu/compression/pallas_kernels.py:75",
+    "norm_dequantize": "horovod_tpu/compression/pallas_kernels.py:132",
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:93",
     "flash_dkdv": "horovod_tpu/ops/flash_attention.py:146",
     "flash_dq": "horovod_tpu/ops/flash_attention.py:192",
 }
 SOURCES = {"maxmin": "horovod_tpu_torch/csrc/maxmin.cu",
+           "norm": "horovod_tpu_torch/csrc/norm.cu",
            "flash": "horovod_tpu_torch/csrc/flash_attention.cu"}
+# Launches a step of each path (the launch counts of every other kernel
+# must stay 0): the max-min reducer quantizes the rows and the reduced
+# chunk, decodes the rows for the residual and the gathered chunks, and
+# sums the exchanged rows in one B3; the normalized quantizer's generic
+# dequantize-sum decodes every rank's row in one B6 launch.
+PATH_LAUNCHES = {
+    "resnet": {"maxmin_quantize": 2, "maxmin_dequantize_sum": 1,
+               "maxmin_dequantize": 2},
+    "resnet_uni": {"norm_quantize": 2, "norm_dequantize": 3},
+    "resnet_stochastic": {"maxmin_quantize_stochastic": 2,
+                          "maxmin_dequantize_sum": 1,
+                          "maxmin_dequantize": 2},
+}
 # Data-sheet rates (dense, no sparsity): device-memory bytes/s, fp32
 # operations/s outside the tensor cores, bf16 tensor-core operations/s.
 RATES = {"H100 PCIe": (2.0e12, 51e12, 756e12),
@@ -137,11 +161,8 @@ def check_kernels(kernels, dev, n_values: int):
         (n, bits, bucket, True) for n in (1, 511, 513, 100_003)
         for bits in (1, 2, 4, 8) for bucket in (64, 512)]
     for n, bits, bucket, special in cases:
-        x = torch.randn(n, generator=gen, device=dev) * 1e-2
-        if special:
-            x[:bucket] = 0.25
-            x[bucket + 1:bucket + 2] = float("nan")
-            x[2 * bucket + 3:2 * bucket + 4] = float("inf")
+        x = special_values(gen, dev, n, bucket) if special else \
+            torch.randn(n, generator=gen, device=dev) * 1e-2
         got = kernels.maxmin_quantize(x, bits, bucket)
         want = kernels.maxmin_quantize_plain(x, bits, bucket)
         for g, w, what in zip(got, want, ("codes", "min", "unit")):
@@ -154,7 +175,8 @@ def check_kernels(kernels, dev, n_values: int):
             raise AssertionError(f"B4 differs at n={n} bits={bits} "
                                  f"bucket={bucket}")
         if special and n > 2 * bucket and not (
-                torch.isnan(back[1:3]).all() and torch.isfinite(back[0]).all()):
+                torch.isnan(back[1:3]).all() and
+                torch.isfinite(back[0]).all()):
             raise AssertionError(f"a NaN or inf bucket decoded to a number "
                                  f"at n={n} bits={bits} bucket={bucket}")
         if n == n_values:
@@ -176,6 +198,106 @@ def check_kernels(kernels, dev, n_values: int):
             errors["maxmin_dequantize_sum"] = float((got - want).abs().max())
     torch.cuda.synchronize()
     return errors
+
+
+def special_values(gen, dev, n: int, bucket: int) -> torch.Tensor:
+    """Small gradient-like values; where there is room, a constant first
+    bucket, a bucket holding a NaN and one holding an inf."""
+    x = torch.randn(n, generator=gen, device=dev) * 1e-2
+    x[:bucket] = 0.25
+    x[bucket + 1:bucket + 2] = float("nan")
+    x[2 * bucket + 3:2 * bucket + 4] = float("inf")
+    return x
+
+
+def check_stochastic(kernels, dev, n_values: int):
+    """B2 bitwise against its plain version (the same Philox words): at the
+    path's shape, then ragged sizes with special buckets, buckets whose
+    counters straddle two buckets, and 64-bit seeds and offsets. Returns
+    the largest error at the path's shape."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [(n_values, BITS, BUCKET, 0, 0, False)] + [
+        (n, bits, bucket, seed, offset, True)
+        for n in (1, 511, 513, 100_003) for bits in (1, 2, 4, 8)
+        for bucket in (64, 125, 512)
+        for seed, offset in ((0, 0), (2**40 + 3, 2**33 + 1))]
+    error = None
+    for n, bits, bucket, seed, offset, special in cases:
+        x = special_values(gen, dev, n, bucket) if special else \
+            torch.randn(n, generator=gen, device=dev) * 1e-2
+        got = kernels.maxmin_quantize_stochastic(x, bits, bucket, seed,
+                                                 offset)
+        want = kernels.maxmin_quantize_stochastic_plain(x, bits, bucket,
+                                                        seed, offset)
+        for g, w, what in zip(got, want, ("codes", "min", "unit")):
+            if not bitwise(g, w):
+                raise AssertionError(f"B2 {what} differ at n={n} bits={bits} "
+                                     f"bucket={bucket} seed={seed} "
+                                     f"offset={offset}")
+        if error is None:
+            error = max(float((g.float() - w.float()).abs().max())
+                        for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    return error
+
+
+def check_norm(norm_kernels, dev, n_values: int):
+    """B5 and B6 against their plain versions: at the path's shape (4 bits,
+    uniform levels, linf), then n in {1, 511, 513, 100003} x bits {2, 4, 8}
+    x uniform or exponential levels x linf or l2 x buckets of 64 or 512,
+    with special buckets, and l2 and 8 bits at the path's shape. linf codes
+    and norms are bitwise; l2 norms sum in another order and agree to rtol
+    1e-6, and a code may then take the neighbouring level index where the
+    ratio lies within a few ulp of a midpoint (never another sign). B6 is
+    bitwise on the kernel's codes, and with a 2-entry table (the clip).
+    Returns the largest errors at the path's shape and the count of l2
+    midpoint codes over all cases."""
+    from horovod_tpu_torch.compression.quantize import default_levels
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [(n_values, 4, "uni", "linf", BUCKET, False),
+             (n_values, 4, "uni", "l2", BUCKET, False),
+             (n_values, 8, "uni", "linf", BUCKET, False)] + [
+        (n, bits, kind, norm, bucket, True)
+        for n in (1, 511, 513, 100_003) for bits in (2, 4, 8)
+        for kind in ("uni", "exp") for norm in ("linf", "l2")
+        for bucket in (64, 512)]
+    errors, midpoints = {}, 0
+    for n, bits, kind, norm, bucket, special in cases:
+        where = (f"n={n} bits={bits} levels={kind} norm={norm} "
+                 f"bucket={bucket}")
+        x = special_values(gen, dev, n, bucket) if special else \
+            torch.randn(n, generator=gen, device=dev) * 1e-2
+        levels = torch.from_numpy(default_levels(bits, kind)).to(dev)
+        q, nrm = norm_kernels.norm_quantize(x, levels, bucket, norm == "l2")
+        wq, wnrm = norm_kernels.norm_quantize_plain(x, levels, bucket,
+                                                    norm == "l2")
+        if norm == "linf":
+            if not (bitwise(q, wq) and bitwise(nrm, wnrm)):
+                raise AssertionError(f"B5 differs at {where}")
+        else:
+            torch.testing.assert_close(nrm, wnrm, rtol=1e-6, atol=0,
+                                       equal_nan=True, msg=where)
+            step = ((q >> 1).int() - (wq >> 1).int()).abs()
+            if not torch.equal(q & 1, wq & 1) or int(step.max()) > 1:
+                raise AssertionError(f"B5 codes differ at {where}")
+            midpoints += int((step > 0).sum())
+        back = norm_kernels.norm_dequantize(q, levels, nrm)
+        short = levels[:2].contiguous()
+        if not (bitwise(back, norm_kernels.norm_dequantize_plain(
+                q, levels, nrm)) and bitwise(
+                norm_kernels.norm_dequantize(q, short, nrm),
+                norm_kernels.norm_dequantize_plain(q, short, nrm))):
+            raise AssertionError(f"B6 differs at {where}")
+        if not special and "norm_quantize" not in errors:
+            errors["norm_quantize"] = max(
+                float((q.float() - wq.float()).abs().max()),
+                float((nrm - wnrm).abs().max()))
+            errors["norm_dequantize"] = float(
+                (back - norm_kernels.norm_dequantize_plain(q, levels, nrm))
+                .abs().max())
+    torch.cuda.synchronize()
+    return errors, midpoints
 
 
 def flash_inputs(dev, bh: int, s: int, d: int, dtype, seed: int):
@@ -254,12 +376,48 @@ def check_flash(flash, dev):
     return errors
 
 
-def make_slice(hvd, dev):
-    """The main path's model, optimizer and fixed synthetic batch."""
-    from horovod_tpu_torch.compression import (CompressionConfig,
-                                               MaxMinQuantizer)
+def kernel_modules():
+    from horovod_tpu_torch.compression import kernels, norm_kernels
+    from horovod_tpu_torch.ops import flash_attention as flash
+    return kernels, norm_kernels, flash
+
+
+def reset_launches() -> None:
+    for module in kernel_modules():
+        module.reset_launches()
+
+
+def read_launches():
+    """Every kernel's launch count."""
+    return {name: count for module in kernel_modules()
+            for name, count in module.LAUNCHES.items()}
+
+
+def check_launches(path: str, launches, per_step) -> None:
+    want = {name: per_step.get(name, 0) * STEPS for name in launches}
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, expected {want}")
+
+
+def resnet_compressors():
+    """The ResNet-50 path's compressor of each phase."""
+    from horovod_tpu_torch.compression import MaxMinQuantizer, make_compressor
+    return {"resnet": MaxMinQuantizer(bits=BITS, bucket_size=BUCKET),
+            "resnet_uni": make_compressor("uni"),
+            "resnet_stochastic": MaxMinQuantizer(bits=BITS,
+                                                 bucket_size=BUCKET,
+                                                 stochastic=True)}
+
+
+def make_slice(hvd, dev, compressor=None):
+    """The main path's model, optimizer and fixed synthetic batch;
+    ``compressor`` (4-bit max-min by default) sends the gradients through
+    the ``scatter_allgather`` reducer with error feedback."""
+    from horovod_tpu_torch.compression import CompressionConfig
     from horovod_tpu_torch.models import ResNet50
 
+    if compressor is None:
+        compressor = resnet_compressors()["resnet"]
     torch.manual_seed(0)
     model = ResNet50(num_classes=1000).to(dev,
                                           memory_format=torch.channels_last)
@@ -267,8 +425,7 @@ def make_slice(hvd, dev):
         torch.optim.SGD(model.parameters(), lr=LR, momentum=0.9),
         named_parameters=model.named_parameters(),
         compression=CompressionConfig(
-            MaxMinQuantizer(bits=BITS, bucket_size=BUCKET),
-            reduction="scatter_allgather", error_feedback=True))
+            compressor, reduction="scatter_allgather", error_feedback=True))
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     gen = torch.Generator(device=dev).manual_seed(0)
     images = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device=dev)
@@ -292,11 +449,12 @@ def check_losses(losses) -> None:
         raise AssertionError(f"loss did not fall: {losses}")
 
 
-def train(hvd, dev):
-    from horovod_tpu_torch.compression import kernels
-    from horovod_tpu_torch.ops import flash_attention as flash
-
-    model, opt, images, labels = make_slice(hvd, dev)
+def train(hvd, dev, path: str = "resnet", check_copy: bool = True):
+    """One ResNet-50 phase (``path`` names its compressor): 2 warm-up and
+    10 timed steps, the launch counts of the timed steps, and, when
+    ``check_copy``, the trained model against a CPU copy of itself."""
+    compressor = resnet_compressors()[path]
+    model, opt, images, labels = make_slice(hvd, dev, compressor)
     n_params = sum(p.numel() for p in model.parameters())
 
     def step():
@@ -307,29 +465,25 @@ def train(hvd, dev):
     losses = [step() for _ in range(WARMUP)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    flash.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     losses += [step() for _ in range(STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    other = dict(flash.LAUNCHES)
+    launches = read_launches()
     losses = [float(v) for v in losses]
-    log(f"train: ResNet-50, {n_params} parameters, batch {BATCH}, "
-        f"{IMAGE}x{IMAGE}, lr {LR}; losses {losses}")
-    log(f"train: step {seconds / STEPS * 1e3:.3f} ms, "
+    log(f"{path}: ResNet-50, {n_params} parameters, batch {BATCH}, "
+        f"{IMAGE}x{IMAGE}, lr {LR}, {compressor!r}; losses {losses}")
+    log(f"{path}: step {seconds / STEPS * 1e3:.3f} ms, "
         f"{BATCH * STEPS / seconds:.1f} images/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches in "
         f"{STEPS} steps {launches}")
     if n_params != RESNET50_PARAMS:
         raise AssertionError(f"ResNet-50 has {n_params} parameters")
     check_losses(losses)
-    want = {"maxmin_quantize": 2 * STEPS, "maxmin_dequantize_sum": STEPS,
-            "maxmin_dequantize": 2 * STEPS}
-    if launches != want or any(other.values()):
-        raise AssertionError(f"launches {launches} and {other}, expected "
-                             f"{want} and no attention kernel")
+    check_launches(path, launches, PATH_LAUNCHES[path])
+    if not check_copy:
+        return launches
 
     # The trained model against a CPU copy of itself, fp32, small input.
     model.eval()
@@ -341,7 +495,7 @@ def train(hvd, dev):
         raise AssertionError("bad logits")
     torch.testing.assert_close(got, ref, rtol=1e-3,
                                atol=1e-3 * float(ref.abs().max()))
-    log("train: trained model agrees with its CPU copy (fp32, rtol 1e-3)")
+    log(f"{path}: trained model agrees with its CPU copy (fp32, rtol 1e-3)")
     return launches
 
 
@@ -375,9 +529,7 @@ def gpt_forward_backward(model, opt, tokens, targets):
 def train_gpt(hvd, dev):
     """The GPT path: 2 warm-up and 10 timed steps of SGD through the dense
     DistributedOptimizer, then the trained model against its CPU copy."""
-    from horovod_tpu_torch.compression import kernels
     from horovod_tpu_torch.models import GPT
-    from horovod_tpu_torch.ops import flash_attention as flash
 
     model, opt, tokens, targets = make_gpt_slice(hvd, dev)
     cfg = model.cfg
@@ -393,14 +545,12 @@ def train_gpt(hvd, dev):
     losses = [step() for _ in range(WARMUP)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    flash.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     losses += [step() for _ in range(STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(flash.LAUNCHES)
-    other = dict(kernels.LAUNCHES)
+    launches = read_launches()
     losses = [float(v) for v in losses]
     log(f"gpt: {n_params} parameters, L{cfg.num_layers} d{cfg.embed_dim} "
         f"{cfg.num_heads}x{cfg.head_dim} heads, batch {GPT_BATCH} x "
@@ -414,11 +564,9 @@ def train_gpt(hvd, dev):
     # B7 runs twice a layer (forward, and the recompute of remat="full"),
     # B8 and B9 once in the backward.
     layers = cfg.num_layers
-    want = {"flash_fwd": 2 * layers * STEPS, "flash_dkdv": layers * STEPS,
-            "flash_dq": layers * STEPS}
-    if launches != want or any(other.values()):
-        raise AssertionError(f"launches {launches} and {other}, expected "
-                             f"{want} and no max-min kernel")
+    check_launches("gpt", launches, {"flash_fwd": 2 * layers,
+                                     "flash_dkdv": layers,
+                                     "flash_dq": layers})
 
     # The trained model in fp32 against a CPU copy of itself (whose
     # attention is the plain version), on 200 tokens.
@@ -436,43 +584,93 @@ def train_gpt(hvd, dev):
     return launches
 
 
-def measure(kernels, dev, n_values: int, launches, errors, rates):
+def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
+            rates):
+    """B1–B6 at the ResNet path's shape (4 bits, buckets of 512), and B5
+    also with the 128-level table of 8 bits (its longest search). Bound:
+    each input read once and each output written once at the memory rate,
+    against the operations per padded value at the fp32 rate outside the
+    tensor cores (integer operations counted as fp32 ones): B1 7 (min, max,
+    subtract, divide, round, two clamps), B2 36 (the same with add and
+    floor, and a quarter of Philox4x32-10's 98 integer operations per
+    counter, and the noise's mask, convert and scale), B3 3 and B4 2 (a
+    multiply and an add), B5 5 + 3L for L levels (abs, max, divide, then
+    subtract, abs and compare per level, and the code's shift and or), B6
+    4 (shift, clip, sign, multiply)."""
+    from horovod_tpu_torch.compression.quantize import default_levels
+
     bandwidth, fp32, _ = rates
     n_buckets = -(-n_values // BUCKET)
     padded = n_buckets * BUCKET
     x = torch.randn(n_values, device=dev) * 1e-2
     q, mn, unit = kernels.maxmin_quantize(x, BITS, BUCKET)
     qs, mns, units = q[None], mn[None], unit[None]
+    tables = {bits: torch.from_numpy(default_levels(bits, "uni")).to(dev)
+              for bits in (BITS, 8)}
+    nq, nrm = norm_kernels.norm_quantize(x, tables[BITS], BUCKET, False)
+    quantize_bytes = 4 * n_values + padded + 8 * n_buckets
+    decode_bytes = padded + 8 * n_buckets + 4 * padded
+
+    def norm_work(bits):
+        levels = tables[bits]
+        return (lambda: norm_kernels.norm_quantize(x, levels, BUCKET, False),
+                lambda: norm_kernels.norm_quantize_plain(x, levels, BUCKET,
+                                                         False),
+                4 * n_values + padded + 4 * n_buckets,
+                (5 + 3 * levels.shape[0]) * padded)
+
     work = {
         # name: (kernel, plain, bytes moved, operations)
         "maxmin_quantize": (
             lambda: kernels.maxmin_quantize(x, BITS, BUCKET),
             lambda: kernels.maxmin_quantize_plain(x, BITS, BUCKET),
-            4 * n_values + padded + 8 * n_buckets, 7 * padded),
+            quantize_bytes, 7 * padded),
+        "maxmin_quantize_stochastic": (
+            lambda: kernels.maxmin_quantize_stochastic(x, BITS, BUCKET, 0),
+            lambda: kernels.maxmin_quantize_stochastic_plain(x, BITS, BUCKET,
+                                                             0),
+            quantize_bytes, 36 * padded),
         "maxmin_dequantize_sum": (
             lambda: kernels.maxmin_dequantize_sum(qs, mns, units),
             lambda: kernels.maxmin_dequantize_sum_plain(qs, mns, units),
-            padded + 8 * n_buckets + 4 * padded, 3 * padded),
+            decode_bytes, 3 * padded),
         "maxmin_dequantize": (
             lambda: kernels.maxmin_dequantize(q, mn, unit),
             lambda: kernels.maxmin_dequantize_plain(q, mn, unit),
-            padded + 8 * n_buckets + 4 * padded, 2 * padded),
+            decode_bytes, 2 * padded),
+        "norm_quantize": norm_work(BITS),
+        "norm_dequantize": (
+            lambda: norm_kernels.norm_dequantize(nq, tables[BITS], nrm),
+            lambda: norm_kernels.norm_dequantize_plain(nq, tables[BITS], nrm),
+            padded + 4 * n_buckets + 4 * padded, 4 * padded),
     }
+
+    def timed(kernel, plain, nbytes, ops):
+        byte_ms, op_ms = nbytes / bandwidth * 1e3, ops / fp32 * 1e3
+        return {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                "bound_ms": max(byte_ms, op_ms),
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
     rows = []
     for name, (kernel, plain, nbytes, ops) in work.items():
-        byte_ms, op_ms = nbytes / bandwidth * 1e3, ops / fp32 * 1e3
-        ms = time_ms(kernel)
-        plain_ms = time_ms(plain)
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCES["maxmin"],
-            "replaces": REPLACES[name],
-            "launches": launches[name],
-            "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(byte_ms, op_ms),
-            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "library_ms": None})
-        log(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-            f"{max(byte_ms, op_ms):.4f} ms, {nbytes} bytes)")
+        source = "norm" if name.startswith("norm") else "maxmin"
+        row = {"name": name, "route": "cuda", "source": SOURCES[source],
+               "replaces": REPLACES[name], "launches": launches[name],
+               "max_abs_err": errors[name],
+               **timed(kernel, plain, nbytes, ops), "library_ms": None}
+        if name == "norm_quantize":
+            row.update({f"{k}_at_8_bits": v
+                        for k, v in timed(*norm_work(8)).items()})
+        rows.append(row)
+        log(f"kernel {name}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}"
+            f" ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+            f"{nbytes} bytes, {ops} operations)")
+    eight = next(row for row in rows if row["name"] == "norm_quantize")
+    log(f"kernel norm_quantize at 8 bits (128 levels): "
+        f"{eight['ms_at_8_bits']:.4f} ms (plain "
+        f"{eight['plain_ms_at_8_bits']:.4f} ms, bound "
+        f"{eight['bound_ms_at_8_bits']:.4f} ms by "
+        f"{eight['bound_by_at_8_bits']})")
     return rows
 
 
@@ -545,9 +743,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.compression import kernels
-    from horovod_tpu_torch.ops import flash_attention as flash
     from horovod_tpu_torch.utils import cuda_build
+
+    kernels, norm_kernels, flash = kernel_modules()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -572,13 +770,31 @@ def main() -> int:
         errors = check_kernels(kernels, dev, RESNET50_PARAMS)
         log(f"kernels: B1 and B4 bitwise, B3 within rtol 1e-5; errors at "
             f"the path's shape {errors}")
+        errors["maxmin_quantize_stochastic"] = check_stochastic(
+            kernels, dev, RESNET50_PARAMS)
+        log("kernels: B2 bitwise at 97 shapes and seeds")
+        norm_errors, midpoints = check_norm(norm_kernels, dev,
+                                            RESNET50_PARAMS)
+        errors.update(norm_errors)
+        log(f"kernels: B5 bitwise (linf) and within rtol 1e-6 with "
+            f"{midpoints} midpoint codes one level apart (l2), B6 bitwise, "
+            f"at 99 shapes; errors at the path's shape {norm_errors}")
         flash_err = check_flash(flash, dev)
         log(f"kernels: B7, B8 and B9 within their tolerances at 49 shapes; "
             f"errors at the GPT path's shape {flash_err}")
-        launches = train(hvd, dev)
+        # Each kernel's launches in the timed steps of the phase that
+        # carries it (B3 and B4: the max-min phase).
+        phases = {"resnet": train(hvd, dev),
+                  "resnet_uni": train(hvd, dev, "resnet_uni", False),
+                  "resnet_stochastic": train(hvd, dev, "resnet_stochastic",
+                                             False)}
         flash_launches = train_gpt(hvd, dev)
-        rows = measure(kernels, dev, RESNET50_PARAMS, launches, errors,
-                       rates)
+        launches = {name: phases[path][name]
+                    for path in ("resnet_stochastic", "resnet_uni",
+                                 "resnet")
+                    for name in PATH_LAUNCHES[path]}
+        rows = measure(kernels, norm_kernels, dev, RESNET50_PARAMS,
+                       launches, errors, rates)
         rows += measure_flash(flash, dev, flash_launches, flash_err, rates)
     finally:
         hvd.shutdown()

@@ -3,9 +3,10 @@
 Horovod's synchronous data-parallel training on NVIDIA GPUs: one process
 per GPU over ``torch.distributed`` (NCCL on the card, gloo on the CPU), the
 gradients reduced by ``DistributedOptimizer``, optionally through the
-IST-DASLab max-min quantized allreduce, whose kernels are hand-written CUDA
-for Hopper (``horovod_tpu_torch/csrc``). The JAX package ``horovod_tpu`` is
-the reference it is tested against; this package imports nothing of it.
+IST-DASLab quantized allreduce (max-min or normalized quantizers), whose
+kernels are hand-written CUDA for Hopper (``horovod_tpu_torch/csrc``). The
+JAX package ``horovod_tpu`` is the reference it is tested against; this
+package imports nothing of it.
 
 Usage::
 
@@ -16,7 +17,7 @@ Usage::
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
 """
 
-from .compression import Compression  # noqa: F401
+from .compression import Compression, set_quantization_levels  # noqa: F401
 from .ops.collectives import (Average, ReduceOp, Sum,  # noqa: F401
                               allgather, allreduce, alltoall, broadcast,
                               grouped_allreduce)

@@ -2,8 +2,8 @@
 
 Reference surface: ``horovod/torch/compression.py`` (``Compressor`` /
 ``NoneCompressor`` / ``FP16Compressor`` / ``Compression``) plus the
-IST-DASLab max-min quantizer with error feedback and the compressed
-reducers.
+IST-DASLab quantizers (max-min, deterministic or stochastic, and
+normalized), top-k, error feedback and the five compressed reducers.
 """
 
 from __future__ import annotations
@@ -71,7 +71,9 @@ class Compression:
 
 
 from .quantize import (DEFAULT_BUCKET_SIZE, MaxMinQuantizer,  # noqa: E402
-                       QuantContext, pack_bits, unpack_bits)
+                       NormalizedQuantizer, QuantContext, TopKCompressor,
+                       compressed_size_bytes, pack_bits,
+                       set_quantization_levels, unpack_bits)
 from .error_feedback import (compress_with_feedback,  # noqa: E402
                              init_error_feedback)
 from .reducers import (compressed_allreduce,  # noqa: E402

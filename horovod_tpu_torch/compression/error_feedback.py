@@ -21,13 +21,14 @@ def init_error_feedback(tensors: Sequence[torch.Tensor]
 
 
 def compress_with_feedback(compressor, x: torch.Tensor,
-                           residual: Optional[torch.Tensor]
+                           residual: Optional[torch.Tensor], key=None
                            ) -> Tuple[Dict[str, torch.Tensor], Any,
                                       torch.Tensor]:
-    """Compress ``x + residual``; return (payload, ctx, new_residual), where
+    """Compress ``x + residual`` (``key`` goes to ``compress``); return
+    (payload, ctx, new_residual), where
     ``new_residual = (x + residual) - decompress(payload)``."""
     comp_in = x if residual is None else x + residual.to(x.dtype)
-    payload, ctx = compressor.compress(comp_in)
+    payload, ctx = compressor.compress(comp_in, key)
     reconstructed = compressor.decompress(payload, ctx)
     new_residual = (comp_in - reconstructed).to(
         residual.dtype if residual is not None else x.dtype)

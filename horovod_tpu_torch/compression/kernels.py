@@ -1,7 +1,8 @@
 """Max-min quantization kernels: CUDA wrappers, plain versions, launch counts.
 
 Counterpart of ``horovod_tpu/compression/pallas_kernels.py`` for B1
-(``maxmin_quantize_pallas``), B3 (``maxmin_dequantize_sum_pallas``) and B4
+(``maxmin_quantize_pallas``), B2 (``maxmin_quantize_stochastic_pallas``),
+B3 (``maxmin_dequantize_sum_pallas``) and B4
 (``maxmin_dequantize_pallas``). The kernels are CUDA C++ for Hopper in
 ``horovod_tpu_torch/csrc/maxmin.cu``, built with the port's other kernels
 into one shared library at first use (``utils/cuda_build.py``).
@@ -24,6 +25,7 @@ from ..utils import cuda_build
 
 LAUNCHES: Dict[str, int] = {
     "maxmin_quantize": 0,
+    "maxmin_quantize_stochastic": 0,
     "maxmin_dequantize": 0,
     "maxmin_dequantize_sum": 0,
 }
@@ -41,6 +43,11 @@ def _lib() -> ctypes.CDLL:
     lib.hvd_maxmin_quantize.argtypes = [ptr, i64, i64, i32, i32, ptr, ptr,
                                         ptr, ptr]
     lib.hvd_maxmin_quantize.restype = i32
+    u64 = ctypes.c_uint64
+    lib.hvd_maxmin_quantize_stochastic.argtypes = [ptr, i64, i64, i32, i32,
+                                                   u64, u64, ptr, ptr, ptr,
+                                                   ptr]
+    lib.hvd_maxmin_quantize_stochastic.restype = i32
     lib.hvd_maxmin_dequantize.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
     lib.hvd_maxmin_dequantize.restype = i32
     lib.hvd_maxmin_dequantize_sum.argtypes = [ptr, ptr, ptr, i32, i64, i32,
@@ -87,9 +94,9 @@ def bucketize(flat: torch.Tensor, bucket_size: int) -> torch.Tensor:
     return padded.view(n_buckets, bucket_size)
 
 
-def maxmin_quantize_plain(flat: torch.Tensor, bits: int, bucket_size: int
-                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of B1 (the XLA path of ``MaxMinQuantizer.compress``)."""
+def _scaled(flat: torch.Tensor, bits: int, bucket_size: int):
+    """Per bucket min and unit, and every value as ``(x - min) / unit'``
+    (``unit' = 1`` where ``unit == 0``): what B1 and B2 share."""
     buckets = bucketize(flat, bucket_size)
     mn = buckets.amin(dim=1, keepdim=True)
     mx = buckets.amax(dim=1, keepdim=True)
@@ -98,10 +105,35 @@ def maxmin_quantize_plain(flat: torch.Tensor, bits: int, bucket_size: int
     # into a multiply by its reciprocal, which is not the IEEE quotient.
     unit = (mx - mn) / torch.full_like(mx, levels)
     safe = torch.where(unit == 0, torch.ones_like(unit), unit)
+    return (buckets - mn) / safe, mn[:, 0], unit[:, 0]
+
+
+def _codes(q: torch.Tensor, bits: int) -> torch.Tensor:
     # A NaN in a bucket makes its min and unit NaN (amin/amax pass it
     # through) and its codes 0: NaN has no defined uint8 cast.
-    q = torch.round((buckets - mn) / safe).nan_to_num_(0.0).clamp_(0, levels)
-    return q.to(torch.uint8), mn[:, 0], unit[:, 0]
+    return q.nan_to_num_(0.0).clamp_(0, (1 << bits) - 1).to(torch.uint8)
+
+
+def maxmin_quantize_plain(flat: torch.Tensor, bits: int, bucket_size: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of B1 (the XLA path of ``MaxMinQuantizer.compress``)."""
+    scaled, mn, unit = _scaled(flat, bits, bucket_size)
+    return _codes(torch.round(scaled), bits), mn, unit
+
+
+def _check_quantize_args(bits: int, bucket_size: int) -> None:
+    if bits not in (1, 2, 4, 8):
+        raise ValueError("bits must be one of 1, 2, 4, 8")
+    if bucket_size < 1:
+        raise ValueError("bucket_size must be positive")
+
+
+def _quantize_outputs(flat: torch.Tensor, bucket_size: int):
+    n_buckets = -(-flat.shape[0] // bucket_size)
+    q = torch.empty((n_buckets, bucket_size), dtype=torch.uint8,
+                    device=flat.device)
+    mn = torch.empty((n_buckets,), dtype=torch.float32, device=flat.device)
+    return q, mn, torch.empty_like(mn)
 
 
 def maxmin_quantize(flat: torch.Tensor, bits: int, bucket_size: int
@@ -111,23 +143,91 @@ def maxmin_quantize(flat: torch.Tensor, bits: int, bucket_size: int
     Returns codes ``[n_buckets, bucket_size]`` uint8 (one per byte; the
     zero padding of the last bucket is coded too), and ``min`` and ``unit``
     ``[n_buckets]`` fp32."""
-    if bits not in (1, 2, 4, 8):
-        raise ValueError("bits must be one of 1, 2, 4, 8")
-    if bucket_size < 1:
-        raise ValueError("bucket_size must be positive")
+    _check_quantize_args(bits, bucket_size)
     if _check(flat, "flat", torch.float32, 1):
         return maxmin_quantize_plain(flat, bits, bucket_size)
-    n = flat.shape[0]
-    n_buckets = -(-n // bucket_size)
-    q = torch.empty((n_buckets, bucket_size), dtype=torch.uint8,
-                    device=flat.device)
-    mn = torch.empty((n_buckets,), dtype=torch.float32, device=flat.device)
-    unit = torch.empty_like(mn)
-    if n_buckets:
+    q, mn, unit = _quantize_outputs(flat, bucket_size)
+    if q.numel():
         with torch.cuda.device(flat.device):
             cuda_build.launch(LAUNCHES, "maxmin_quantize",
-                              _lib().hvd_maxmin_quantize, flat.data_ptr(), n,
-                              n_buckets, bucket_size, bits, q.data_ptr(),
+                              _lib().hvd_maxmin_quantize, flat.data_ptr(),
+                              flat.shape[0], q.shape[0], bucket_size, bits,
+                              q.data_ptr(), mn.data_ptr(), unit.data_ptr())
+    return q, mn, unit
+
+
+# ---------------------------------------------------------------------------
+# B2: stochastic max-min quantize
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def philox4x32_10(counter: Tuple[torch.Tensor, ...], key: int
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 (Random123's ``philox4x32`` with 10 rounds) in int64
+    tensor arithmetic: four counter words (int64 tensors holding 32-bit
+    values) under a 64-bit ``key`` give four 32-bit words. The low 64 bits
+    of a 32x32-bit product are exact under int64 wrap-around, so the high
+    word is ``(p >> 32) & 0xffffffff``. The kernel B2 computes the same
+    rounds in ``csrc/maxmin.cu``."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key & _MASK32, (key >> 32) & _MASK32
+    for r in range(10):
+        if r:
+            k0 = (k0 + 0x9E3779B9) & _MASK32
+            k1 = (k1 + 0xBB67AE85) & _MASK32
+        p0 = c0 * 0xD2511F53
+        p1 = c2 * 0xCD9E8D57
+        c0, c1, c2, c3 = (((p1 >> 32) & _MASK32) ^ c1 ^ k0, p1 & _MASK32,
+                          ((p0 >> 32) & _MASK32) ^ c3 ^ k1, p0 & _MASK32)
+    return c0, c1, c2, c3
+
+
+def philox_words(count: int, seed: int, offset: int,
+                 device: torch.device) -> torch.Tensor:
+    """Word ``i % 4`` of Philox4x32-10 at counter ``(i // 4, offset)``
+    under ``seed``, for ``i`` in ``[0, count)``: int64 ``[count]``."""
+    c = torch.arange(-(-count // 4), dtype=torch.int64, device=device)
+    words = philox4x32_10(
+        (c & _MASK32, c >> 32, torch.full_like(c, offset & _MASK32),
+         torch.full_like(c, (offset >> 32) & _MASK32)), seed)
+    return torch.stack(words, dim=1).view(-1)[:count]
+
+
+def maxmin_quantize_stochastic_plain(flat: torch.Tensor, bits: int,
+                                     bucket_size: int, seed: int,
+                                     offset: int = 0
+                                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """Plain version of B2: B1 with ``floor(scaled + u)`` in place of the
+    rounding, ``u = (w & 0xffffff) * 2**-24`` from the Philox word ``w`` of
+    each value's index in the padded layout (:func:`philox_words`)."""
+    scaled, mn, unit = _scaled(flat, bits, bucket_size)
+    w = philox_words(scaled.numel(), seed, offset, flat.device)
+    u = (w & 0xFFFFFF).to(torch.float32).mul_(2.0 ** -24).view(scaled.shape)
+    return _codes(torch.floor(scaled + u), bits), mn, unit
+
+
+def maxmin_quantize_stochastic(flat: torch.Tensor, bits: int,
+                               bucket_size: int, seed: int, offset: int = 0
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """B2: :func:`maxmin_quantize` with stochastic rounding, the noise of
+    value ``i`` of the padded layout drawn from Philox4x32-10 at counter
+    ``(i // 4, offset)`` under the 64-bit ``seed``."""
+    _check_quantize_args(bits, bucket_size)
+    seed, offset = seed & (2**64 - 1), offset & (2**64 - 1)
+    if _check(flat, "flat", torch.float32, 1):
+        return maxmin_quantize_stochastic_plain(flat, bits, bucket_size,
+                                                seed, offset)
+    q, mn, unit = _quantize_outputs(flat, bucket_size)
+    if q.numel():
+        with torch.cuda.device(flat.device):
+            cuda_build.launch(LAUNCHES, "maxmin_quantize_stochastic",
+                              _lib().hvd_maxmin_quantize_stochastic,
+                              flat.data_ptr(), flat.shape[0], q.shape[0],
+                              bucket_size, bits, seed, offset, q.data_ptr(),
                               mn.data_ptr(), unit.data_ptr())
     return q, mn, unit
 

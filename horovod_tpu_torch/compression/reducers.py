@@ -1,18 +1,24 @@
 """Compressed allreduce algorithms over the ``torch.distributed`` world.
 
-Counterpart of ``horovod_tpu/compression/reducers.py``: the
-``allgather`` (:91), ``scatter_allgather`` (:102) and ``ps`` (:212)
-reducers, the fused-group frame (``_fuse_leaves``/``_split_leaves``/
-``_reduce_in_step`` :374-418), ``compressed_allreduce`` (:552) and
-``compressed_grouped_allreduce`` (:587). Reference:
-``horovod/common/ops/compressed/reducers/`` (``mpi_allgather.cc``,
-``mpi_scatter_allgather.cc``, ``mpi_ps.cc``).
+Counterpart of ``horovod_tpu/compression/reducers.py``: the five reducers
+``allgather`` (:91), ``scatter_allgather`` (:102), ``ring`` (:147), ``ps``
+(:212) and ``tree`` (:235), the fused-group frame
+(``_fuse_leaves``/``_split_leaves``/``_reduce_in_step`` :374-418),
+``compressed_allreduce`` (:552) and ``compressed_grouped_allreduce`` (:587).
+Reference: ``horovod/common/ops/compressed/reducers/`` (``mpi_allgather.cc``,
+``mpi_scatter_allgather.cc``, ``mpi_ring.cc``, ``mpi_ps.cc``,
+``mpi_tree.cc``).
 
 Each rank is one process, so a reducer is the JAX package's in-step program
-with ``all_gather`` as ``all_gather_into_tensor`` and ``all_to_all`` as
-``all_to_all_single``. The named reducer runs at every world size, one
-included: then the exchanges move the payload to this rank itself and the
-quantize and decode kernels still run.
+with ``all_gather`` as ``all_gather_into_tensor``, ``all_to_all`` as
+``all_to_all_single``, ``ppermute`` as ``batch_isend_irecv``
+(:func:`collectives.send_recv`) and ``broadcast_p`` as ``broadcast``. The
+named reducer runs at every world size, one included: then the exchanges
+move the payload to this rank itself and the quantize and decode kernels
+still run. The reducers take a :class:`MaxMinQuantizer`, a
+:class:`NormalizedQuantizer` or a :class:`TopKCompressor`. ``key`` goes
+where the JAX package passes it: to the ``allgather`` and ``ps`` uplinks and
+the ``tree``; ``scatter_allgather`` and ``ring`` ignore it.
 """
 
 from __future__ import annotations
@@ -26,14 +32,17 @@ from .. import runtime
 from ..ops import collectives as C
 from . import kernels
 from .error_feedback import compress_with_feedback
-from .quantize import MaxMinQuantizer, QuantContext, unpack_bits
+from .quantize import (MaxMinQuantizer, NormalizedQuantizer, QuantContext,
+                       TopKCompressor, fold_in, unpack_bits)
+
+_COMPRESSORS = (MaxMinQuantizer, NormalizedQuantizer, TopKCompressor)
 
 
 def _check_compressor(compressor) -> None:
-    if not isinstance(compressor, MaxMinQuantizer):
-        raise NotImplementedError(
-            f"the compressed reducers take a MaxMinQuantizer; {compressor!r} "
-            "is not ported yet")
+    if not isinstance(compressor, _COMPRESSORS):
+        raise TypeError(f"the compressed reducers take a MaxMinQuantizer, "
+                        f"NormalizedQuantizer or TopKCompressor, got "
+                        f"{compressor!r}")
 
 
 def _allgather_stacked(payload: Dict[str, torch.Tensor]
@@ -42,42 +51,53 @@ def _allgather_stacked(payload: Dict[str, torch.Tensor]
     return {k: C.allgather(v.unsqueeze(0)) for k, v in payload.items()}
 
 
-def _dequant_sum_stacked(gathered: Dict[str, torch.Tensor],
+def _dequant_sum_stacked(compressor, gathered: Dict[str, torch.Tensor],
                          ctx: QuantContext, n: int) -> torch.Tensor:
-    """Sum over the leading ranks dim of the decoded payloads, in one pass
-    of the fused dequantize-sum kernel (B3)."""
-    padded = -(-ctx.count // ctx.bucket_size) * ctx.bucket_size
-    q = unpack_bits(gathered["q"], ctx.bits, padded)
-    out = kernels.maxmin_dequantize_sum(
-        q.reshape(n, -1, ctx.bucket_size), gathered["min"].reshape(n, -1),
-        gathered["unit"].reshape(n, -1))
-    return out.view(-1)[:ctx.count].view(ctx.shape)
+    """Sum over the leading ranks dim of the decoded payloads, in fp32.
+
+    Max-min payloads go through the fused dequantize-sum kernel (B3) in one
+    pass. Any other payload is decoded for all ranks at once
+    (``decompress_rows``: one B6 launch for the normalized quantizer) and
+    added rank by rank in rank order, the JAX package's decode-and-add loop
+    (``reducers.py:68-72``)."""
+    if isinstance(compressor, MaxMinQuantizer):
+        padded = -(-ctx.count // ctx.bucket_size) * ctx.bucket_size
+        q = unpack_bits(gathered["q"], ctx.bits, padded)
+        out = kernels.maxmin_dequantize_sum(
+            q.reshape(n, -1, ctx.bucket_size), gathered["min"].reshape(n, -1),
+            gathered["unit"].reshape(n, -1))
+        return out.view(-1)[:ctx.count].view(ctx.shape)
+    rows = compressor.decompress_rows(gathered, ctx).to(torch.float32)
+    total = torch.zeros(ctx.count, dtype=torch.float32, device=rows.device)
+    for r in range(n):
+        total = total + rows[r]
+    return total.view(ctx.shape)
 
 
-def _uplink_gather_sum(x, compressor, residual):
+def _uplink_gather_sum(x, compressor, residual, key):
     """Compress locally (with error feedback when a residual is given),
     allgather the payloads, decode and sum; returns the fp32 sum and the new
     residual."""
     if residual is not None:
         payload, ctx, residual = compress_with_feedback(compressor, x,
-                                                        residual)
+                                                        residual, key)
     else:
-        payload, ctx = compressor.compress(x)
+        payload, ctx = compressor.compress(x, key)
     gathered = _allgather_stacked(payload)
-    return _dequant_sum_stacked(gathered, ctx, runtime.size()), residual
+    return (_dequant_sum_stacked(compressor, gathered, ctx, runtime.size()),
+            residual)
 
 
-def allgather_reducer(x, compressor, residual=None):
+def allgather_reducer(x, compressor, residual=None, key=None):
     """Compress locally, allgather the payloads, decode and sum all ranks
     (reference: ``reducers/mpi_allgather.cc``)."""
-    total, residual = _uplink_gather_sum(x, compressor, residual)
+    total, residual = _uplink_gather_sum(x, compressor, residual, key)
     return total.to(x.dtype), residual
 
 
-def scatter_allgather_reducer(x, compressor, residual=None):
-    """Reduce-scatter the compressed chunks, then allgather the compressed
-    reduced chunk (reference: ``reducers/mpi_scatter_allgather.cc``)."""
-    n = runtime.size()
+def _padded_chunks(x, residual, n):
+    """``x`` (plus ``residual``) in fp32, zero-padded to ``n`` equal
+    chunks: ``[n, chunk]``."""
     flat = x.reshape(-1).to(torch.float32)
     count = flat.shape[0]
     chunk = -(-count // n)
@@ -87,51 +107,135 @@ def scatter_allgather_reducer(x, compressor, residual=None):
                   out=comp_in[:count])
     else:
         comp_in[:count] = flat
+    return comp_in.view(n, chunk)
+
+
+def _row_residual(compressor, chunks, payload, ctx, x):
+    """What compressing each row of ``chunks`` lost, shaped like ``x``."""
+    lost = chunks - compressor.decompress_rows(payload, ctx)
+    return lost.reshape(-1)[:x.numel()].view(x.shape).to(x.dtype)
+
+
+def scatter_allgather_reducer(x, compressor, residual=None, key=None):
+    """Reduce-scatter the compressed chunks, then allgather the compressed
+    reduced chunk (reference: ``reducers/mpi_scatter_allgather.cc``).
+    ``key`` is ignored, as in the JAX package."""
+    n = runtime.size()
+    chunks = _padded_chunks(x, residual, n)
     # One payload row per destination rank.
-    row_payload, row_ctx = compressor.compress_rows(comp_in.view(n, chunk))
+    row_payload, row_ctx = compressor.compress_rows(chunks)
     if residual is not None:
-        reconstructed = compressor.decompress_rows(row_payload, row_ctx)
-        new_res = (comp_in - reconstructed.reshape(-1))[:count]
-        residual = new_res.view(x.shape).to(x.dtype)
+        residual = _row_residual(compressor, chunks, row_payload, row_ctx, x)
 
     # Row j goes to rank j; this rank receives every rank's row for its
     # chunk index.
     exchanged = {k: C.alltoall(v) for k, v in row_payload.items()}
-    my_chunk_sum = _dequant_sum_stacked(exchanged, row_ctx, n)
+    my_chunk_sum = _dequant_sum_stacked(compressor, exchanged, row_ctx, n)
 
     # Compress the reduced chunk and allgather it.
     payload2, ctx2 = compressor.compress(my_chunk_sum)
     gathered = _allgather_stacked(payload2)
     parts = compressor.decompress_rows(gathered, ctx2)
-    out = parts.reshape(-1)[:count].view(x.shape).to(x.dtype)
+    out = parts.reshape(-1)[:x.numel()].view(x.shape).to(x.dtype)
     return out, residual
 
 
-def ps_reducer(x, compressor, residual=None):
+def ring_reducer(x, compressor, residual=None, key=None):
+    """Ring reduce-scatter, then ring allgather, compressed at every hop
+    (reference: ``reducers/mpi_ring.cc``): n-1 hops a phase, so the
+    recompression noise grows with the world. Every rank returns rank 0's
+    result, as the JAX package's closing ``broadcast_p`` makes it. ``key``
+    is ignored, as in the JAX package."""
+    n, idx = runtime.size(), runtime.rank()
+    chunks = _padded_chunks(x, residual, n)
+    ctx = compressor.context((chunks.shape[1],), torch.float32)
+    nxt, prev = (idx + 1) % n, (idx - 1) % n
+    work = chunks.clone()
+    # Reduce-scatter: at step s send chunk (idx - s) compressed, receive
+    # chunk (idx - s - 1), decode and add.
+    for s in range(n - 1):
+        payload, _ = compressor.compress(work[(idx - s) % n])
+        received = C.send_recv(payload, nxt, payload, prev)
+        recv_c = (idx - s - 1) % n
+        work[recv_c] = work[recv_c] + compressor.decompress(received, ctx)
+    # Allgather: the owner of the reduced chunk (idx + 1) compresses it
+    # once and each rank forwards what it received.
+    current, _ = compressor.compress(work[(idx + 1) % n])
+    for s in range(n - 1):
+        current = C.send_recv(current, nxt, current, prev)
+        work[(idx - s) % n] = compressor.decompress(current, ctx)
+    out = C.broadcast(work.view(-1)[:x.numel()], root_rank=0)
+    if residual is not None:
+        # What the first compression of the local chunks lost.
+        payload, row_ctx = compressor.compress_rows(chunks)
+        residual = _row_residual(compressor, chunks, payload, row_ctx, x)
+    return out.view(x.shape).to(x.dtype), residual
+
+
+def ps_reducer(x, compressor, residual=None, key=None):
     """Parameter-server reduction (reference: ``reducers/mpi_ps.cc``): the
     uplink is a compressed allgather, and every rank applies the root's
     downlink quantization of the sum, so the result is bit-identical to the
     root's broadcast."""
-    total, residual = _uplink_gather_sum(x, compressor, residual)
+    total, residual = _uplink_gather_sum(x, compressor, residual, key)
     payload2, ctx2 = compressor.compress(total)
     out = compressor.decompress(payload2, ctx2)
+    return out.view(x.shape).to(x.dtype), residual
+
+
+def tree_reducer(x, compressor, residual=None, key=None):
+    """Binomial-tree reduction (reference: ``reducers/mpi_tree.cc``): at
+    round r, ranks that are odd multiples of 2^r compress their accumulator
+    and send it to rank - 2^r, which decodes and adds; then rank 0
+    compresses the sum and broadcasts the payload. The first uplink is
+    compressed under ``key`` and round r > 0 under ``fold_in(key, r)``
+    (the JAX package's ``jax.random.fold_in(key, rnd)``)."""
+    n, idx = runtime.size(), runtime.rank()
+    acc = x.to(torch.float32).clone()
+    if residual is not None:
+        # Feedback applies to this rank's contribution: both the round-0
+        # uplink payload and the local accumulator carry x + residual.
+        acc = acc + residual.to(torch.float32).reshape(acc.shape)
+        payload, _, residual = compress_with_feedback(compressor, x,
+                                                      residual, key)
+    else:
+        payload, _ = compressor.compress(x, key)
+    ctx = compressor.context(acc.shape, torch.float32)
+    # Every round's payload, and the root's final one, have the shapes of
+    # this first one.
+    first = payload
+    half, rnd = 1, 0
+    while half < n:
+        shift = 2 * half
+        if idx % shift == half:
+            if rnd > 0:
+                payload, _ = compressor.compress(
+                    acc, None if key is None else fold_in(key, rnd))
+            C.send_recv(send=payload, dst=idx - half)
+        elif idx % shift == 0 and idx + half < n:
+            received = C.send_recv(recv_like=first, src=idx + half)
+            acc = acc + compressor.decompress(received, ctx)
+        half, rnd = shift, rnd + 1
+    # Top-down: the root's compressed sum to everyone.
+    if idx == 0:
+        final, _ = compressor.compress(acc)
+    else:
+        final = {k: torch.empty_like(v) for k, v in first.items()}
+    final = {k: C.broadcast(v, root_rank=0) for k, v in final.items()}
+    out = compressor.decompress(final, ctx)
     return out.view(x.shape).to(x.dtype), residual
 
 
 _REDUCERS = {
     "allgather": allgather_reducer,
     "scatter_allgather": scatter_allgather_reducer,
+    "ring": ring_reducer,
     "ps": ps_reducer,
+    "tree": tree_reducer,
 }
-# Their exchanges are point-to-point chains (batch_isend_irecv); they are
-# queued in ROADMAP.md.
-_NOT_PORTED = ("ring", "tree")
 
 
 def _check_args(reduction: str, op: C.ReduceOp) -> None:
-    if reduction in _NOT_PORTED:
-        raise NotImplementedError(f"the {reduction!r} reducer is not ported "
-                                  "yet")
     if reduction not in _REDUCERS:
         raise ValueError(f"unknown reduction {reduction!r}; choose from "
                          f"{sorted(_REDUCERS)}")
@@ -161,8 +265,8 @@ def _split_leaves(flat: torch.Tensor, leaves: Sequence[torch.Tensor]
     return outs
 
 
-def _reduce_fused(leaves, compressor, reduction, op, res_leaves, prescale,
-                  postscale):
+def _reduce_fused(leaves, compressor, reduction, op, res_leaves, key,
+                  prescale, postscale):
     """Run the named reducer once over the fused buffer of ``leaves``;
     returns (out_leaves, new_res_leaves or None). ``_reduce_in_step`` in the
     JAX package."""
@@ -171,7 +275,7 @@ def _reduce_fused(leaves, compressor, reduction, op, res_leaves, prescale,
         fused = fused * prescale
     res_fused = None if res_leaves is None else _fuse_leaves(res_leaves)
     out, new_res = _REDUCERS[reduction](fused, compressor,
-                                        residual=res_fused)
+                                        residual=res_fused, key=key)
     if op == C.ReduceOp.AVERAGE:
         out = (out.to(torch.float32) / runtime.size()).to(out.dtype)
     if postscale != 1.0:
@@ -186,8 +290,11 @@ def _reduce_fused(leaves, compressor, reduction, op, res_leaves, prescale,
 def compressed_allreduce(x: torch.Tensor, compressor,
                          reduction: str = "scatter_allgather",
                          op: C.ReduceOp = C.ReduceOp.AVERAGE,
-                         residual: Optional[torch.Tensor] = None):
-    """Allreduce with lossy compression on the wire.
+                         residual: Optional[torch.Tensor] = None,
+                         key=None):
+    """Allreduce with lossy compression on the wire. ``key`` (an ``int``
+    seed or a CPU ``torch.Generator``) seeds stochastic rounding where the
+    reducer takes it.
 
     Returns ``out``, or ``(out, new_residual)`` when ``residual`` is given.
     """
@@ -195,7 +302,7 @@ def compressed_allreduce(x: torch.Tensor, compressor,
     _check_compressor(compressor)
     outs, new_res = _reduce_fused(
         [x], compressor, reduction, op,
-        None if residual is None else [residual], 1.0, 1.0)
+        None if residual is None else [residual], key, 1.0, 1.0)
     return outs[0] if residual is None else (outs[0], new_res[0])
 
 
@@ -205,7 +312,7 @@ def compressed_grouped_allreduce(tensors: Sequence[torch.Tensor], compressor,
                                  residuals: Optional[
                                      Sequence[torch.Tensor]] = None,
                                  prescale_factor: float = 1.0,
-                                 postscale_factor: float = 1.0):
+                                 postscale_factor: float = 1.0, key=None):
     """Compressed allreduce of a list of tensors as ONE fused buffer
     (reference: ``CompressionMode::Fused``, ``common.h:164-168``): the
     tensors are flattened into one fp32 buffer, quantized and reduced once,
@@ -221,6 +328,6 @@ def compressed_grouped_allreduce(tensors: Sequence[torch.Tensor], compressor,
         return tensors if residuals is None else (tensors, list(residuals))
     outs, new_res = _reduce_fused(
         tensors, compressor, reduction, op,
-        None if residuals is None else list(residuals), prescale_factor,
+        None if residuals is None else list(residuals), key, prescale_factor,
         postscale_factor)
     return outs if residuals is None else (outs, new_res)

@@ -3,7 +3,9 @@
 Counterpart of the part of ``horovod_tpu/ops/collectives.py`` this slice
 runs: ``ReduceOp`` (:51), ``allreduce`` (:890), ``grouped_allreduce`` (:918),
 ``allgather`` (:971), ``broadcast`` (:1003) and ``alltoall`` (:1011, even
-splits). Reference surface: ``horovod/torch/mpi_ops.py``.
+splits), and :func:`send_recv` for the point-to-point exchanges the JAX
+package writes as ``lax.ppermute``. Reference surface:
+``horovod/torch/mpi_ops.py``.
 
 Every op is synchronous and returns a new tensor; the input is left as it
 was. They run over the process group ``runtime.init`` created (NCCL on the
@@ -13,7 +15,7 @@ card, gloo on the CPU).
 from __future__ import annotations
 
 import enum
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -156,3 +158,30 @@ def alltoall(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x)
     return out
+
+
+def send_recv(send: Optional[Dict[str, torch.Tensor]] = None,
+              dst: Optional[int] = None,
+              recv_like: Optional[Dict[str, torch.Tensor]] = None,
+              src: Optional[int] = None
+              ) -> Optional[Dict[str, torch.Tensor]]:
+    """Send the tensors of ``send`` to rank ``dst`` and receive tensors
+    shaped like those of ``recv_like`` from rank ``src``, in one
+    ``batch_isend_irecv`` (one rank's part of a ``lax.ppermute``). Either
+    side may be left out; the tensors go in the order of their sorted
+    names. Returns the received tensors, or None."""
+    ops = []
+    if send is not None:
+        ops += [dist.P2POp(dist.isend, send[k].contiguous(), dst)
+                for k in sorted(send)]
+    received = None
+    if recv_like is not None:
+        received = {k: torch.empty_like(
+                        v, memory_format=torch.contiguous_format)
+                    for k, v in recv_like.items()}
+        ops += [dist.P2POp(dist.irecv, received[k], src)
+                for k in sorted(received)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return received

@@ -24,6 +24,7 @@ import torch
 
 from .. import runtime
 from ..compression import (CompressionConfig, Compressor, MaxMinQuantizer,
+                           NormalizedQuantizer, TopKCompressor,
                            init_error_feedback)
 from ..compression.reducers import compressed_grouped_allreduce
 from ..ops import collectives as C
@@ -45,7 +46,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._wire = None
         if isinstance(compression, CompressionConfig):
             self._config = compression
-        elif isinstance(compression, MaxMinQuantizer):
+        elif isinstance(compression, (MaxMinQuantizer, NormalizedQuantizer,
+                                      TopKCompressor)):
             self._config = CompressionConfig(default_compressor=compression)
         else:
             self._wire = compression
@@ -152,9 +154,11 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ``horovod/torch/optimizer.py:383``).
 
     * ``compression``: ``None``/``Compression.fp16``/``bf16`` (dense, cast on
-      the wire), a :class:`MaxMinQuantizer`, or a
-      :class:`CompressionConfig` (per-name quantizers, the reducer, and
-      error feedback).
+      the wire), a :class:`MaxMinQuantizer`, :class:`NormalizedQuantizer`
+      or :class:`TopKCompressor`, or a :class:`CompressionConfig` (per-name
+      compressors, the reducer, and error feedback). No ``key`` reaches the
+      reducers, as in the JAX package: stochastic rounding draws seed 0
+      every step.
     * ``op``: ``Average`` (default) or ``Sum``; dense gradients also take
       ``Min``/``Max``/``Product``.
     * ``gradient_predivide_factor`` f splits the averaging: gradients are

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels: one shared library for every
 source under ``horovod_tpu_torch/csrc``.
 
-One ``nvcc`` call compiles every ``.cu`` file into one library with a plain
-C interface, loaded with ctypes. The library's name carries a hash of every
-source and the flags, so an edit to any kernel rebuilds it at first use.
-Nothing is built when a module is imported: the CPU tests import every
-module on machines without ``nvcc``.
+Each ``.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects into one library
+with a plain C interface, loaded with ctypes. The library's name carries a
+hash of every source and the flags, so an edit to any kernel rebuilds it at
+first use. Nothing is built when a module is imported: the CPU tests import
+every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG_DIR / "csrc" / "maxmin.cu",
+           _PKG_DIR / "csrc" / "norm.cu",
            _PKG_DIR / "csrc" / "flash_attention.cu")
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -40,11 +42,25 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the output of the first that
+    failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"building the CUDA kernels failed: "
+                               f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                               f"{out}")
+
+
 def build() -> Path:
     """Compile every source unless a library for their current content and
-    flags exists, and return the library's path. It is written under a
-    temporary name and renamed, so ranks that build at once never load a
-    half-written file."""
+    flags exists, and return the library's path. Objects and library are
+    written under names of this process and the library renamed at the
+    end, so ranks that build at once never load a half-written file."""
     key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
         key.update(src.read_bytes())
@@ -52,14 +68,16 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{path.stem}.{src.stem}.{os.getpid()}.o"
+            for src in SOURCES]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(SOURCES, objs)])
     tmp = BUILD_DIR / f"{path.stem}.{os.getpid()}.so.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
-           *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building the CUDA kernels failed: "
-                           f"{' '.join(cmd)} exited {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, path)
     return path
 

@@ -37,6 +37,8 @@ HVDTPU_QUANTIZATION_BITS = "HVDTPU_QUANTIZATION_BITS"
 HVDTPU_COMPRESSION_BUCKET_SIZE = "HVDTPU_COMPRESSION_BUCKET_SIZE"
 HVDTPU_COMPRESSION_ERROR_FEEDBACK = "HVDTPU_COMPRESSION_ERROR_FEEDBACK"
 HVDTPU_COMPRESSION_CONFIG_FILE = "HVDTPU_COMPRESSION_CONFIG_FILE"
+HVDTPU_COMPRESSION_NORM_TYPE = "HVDTPU_COMPRESSION_NORM_TYPE"
+HVDTPU_COMPRESSION_TOPK_RATIO = "HVDTPU_COMPRESSION_TOPK_RATIO"
 
 
 def get_int(name: str, default: Optional[int]) -> Optional[int]:
@@ -47,6 +49,16 @@ def get_int(name: str, default: Optional[int]) -> Optional[int]:
         return int(v)
     except ValueError:
         raise ValueError(f"{name} must be an integer, got {v!r}") from None
+
+
+def get_float(name: str, default: Optional[float]) -> Optional[float]:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        raise ValueError(f"{name} must be a number, got {v!r}") from None
 
 
 def get_bool(name: str, default: bool = False) -> bool:

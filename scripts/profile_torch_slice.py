@@ -3,13 +3,15 @@
 
 Run from the root of a checkout on a machine with a card::
 
-    python3 scripts/profile_torch_slice.py [--path resnet|gpt] [--steps 10]
+    python3 scripts/profile_torch_slice.py [--path PATH] [--steps 10]
                                            [--out DIR]
 
-It builds one of the two paths that ``chip_smoke.py`` drives, at a world
-of one: ``resnet`` (ResNet-50, batch 64, 224x224, bf16 autocast,
+It builds one of the paths that ``chip_smoke.py`` drives, at a world of
+one: ``resnet`` (ResNet-50, batch 64, 224x224, bf16 autocast,
 ``DistributedOptimizer`` with the 4-bit max-min ``scatter_allgather``
-reducer and error feedback) or ``gpt`` (the ``gpt_long_context_flash``
+reducer and error feedback), the same with the normalized quantizer
+(``resnet_uni``) or stochastic max-min rounding (``resnet_stochastic``),
+or ``gpt`` (the ``gpt_long_context_flash``
 configuration with flash attention, 2 x 4096 tokens, remat ``full``, the
 dense ``DistributedOptimizer`` and SGD), and, after warm-up:
 
@@ -49,8 +51,8 @@ def _self_device_us(evt) -> float:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("resnet", "gpt"),
-                        default="resnet")
+    parser.add_argument("--path", choices=(*chip_smoke.PATH_LAUNCHES,
+                                           "gpt"), default="resnet")
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     args = parser.parse_args()
@@ -69,12 +71,12 @@ def main() -> int:
     try:
         dev = hvd.device()
         if args.path == "gpt":
-            make, forward_backward = (chip_smoke.make_gpt_slice,
-                                      chip_smoke.gpt_forward_backward)
+            forward_backward = chip_smoke.gpt_forward_backward
+            model, opt, inputs, targets = chip_smoke.make_gpt_slice(hvd, dev)
         else:
-            make, forward_backward = (chip_smoke.make_slice,
-                                      chip_smoke.forward_backward)
-        model, opt, inputs, targets = make(hvd, dev)
+            forward_backward = chip_smoke.forward_backward
+            model, opt, inputs, targets = chip_smoke.make_slice(
+                hvd, dev, chip_smoke.resnet_compressors()[args.path])
         inner_step = type(opt).__mro__[1].step
 
         def step(marks=None):

@@ -24,7 +24,8 @@ import pytest
 import torch
 
 import horovod_tpu_torch as thvd
-from horovod_tpu_torch.compression import kernels
+from horovod_tpu_torch.compression import kernels, norm_kernels
+from horovod_tpu_torch.compression.quantize import default_levels
 from horovod_tpu_torch.ops import flash_attention as flash
 from horovod_tpu_torch.exceptions import NotInitializedError
 
@@ -42,6 +43,9 @@ def test_import_pulls_in_no_jax():
             "import horovod_tpu_torch\n"
             "import horovod_tpu_torch.models.convert\n"
             "import horovod_tpu_torch.compression.kernels\n"
+            "import horovod_tpu_torch.compression.norm_kernels\n"
+            "import horovod_tpu_torch.compression.quantize\n"
+            "import horovod_tpu_torch.compression.config\n"
             "import horovod_tpu_torch.models.gpt\n"
             "import horovod_tpu_torch.ops.flash_attention\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -63,7 +67,9 @@ def test_sources_import_no_jax(path):
         names = {os.path.relpath(f, full) for f in files}
         assert {"models/gpt.py", "models/transformer.py",
                 "ops/flash_attention.py", "utils/cuda_build.py",
-                "compression/kernels.py"} <= names, names
+                "compression/kernels.py", "compression/norm_kernels.py",
+                "compression/quantize.py", "compression/config.py",
+                "compression/reducers.py"} <= names, names
     for f in files:
         with open(f) as fh:
             tree = ast.parse(fh.read())
@@ -112,21 +118,31 @@ def _meta_args(name):
         return (x, x, x, x, stats, stats, 0.25, True)
     if name == "maxmin_quantize":
         return (torch.empty(100, **m), 4, 64)
+    if name == "maxmin_quantize_stochastic":
+        return (torch.empty(100, **m), 4, 64, 7)
     q = torch.empty(2, 64, dtype=torch.uint8, **m)
     v = torch.empty(2, **m)
+    levels = torch.empty(8, **m)
+    if name == "norm_quantize":
+        return (torch.empty(100, **m), levels, 64, False)
+    if name == "norm_dequantize":
+        return (q, levels, v)
     if name == "maxmin_dequantize":
         return (q, v, v)
     return (q[None], v[None], v[None])
 
 
-@pytest.mark.parametrize("name", sorted(kernels.LAUNCHES) +
-                         sorted(flash.LAUNCHES))
+_MODULES = {**{n: kernels for n in kernels.LAUNCHES},
+            **{n: norm_kernels for n in norm_kernels.LAUNCHES},
+            **{n: flash for n in flash.LAUNCHES}}
+
+
+@pytest.mark.parametrize("name", sorted(_MODULES))
 def test_wrappers_refuse_other_devices(name):
     """A tensor that is neither on the CPU nor on CUDA raises; it is never
     handed to the plain version."""
-    module = flash if name.startswith("flash") else kernels
     with pytest.raises(ValueError, match="meta"):
-        getattr(module, name)(*_meta_args(name))
+        getattr(_MODULES[name], name)(*_meta_args(name))
 
 
 def _cuda():
@@ -174,6 +190,68 @@ def test_cuda_dequantize_sum_matches_plain(n_ranks):
     torch.testing.assert_close(
         kernels.maxmin_dequantize_sum(q, mn, unit),
         kernels.maxmin_dequantize_sum_plain(q, mn, unit), rtol=1e-5, atol=0)
+
+
+def _special_values(n: int, bucket: int, seed: int, dev) -> torch.Tensor:
+    """Unit normals with a constant first bucket and, where there is room,
+    a bucket holding a NaN and one holding an inf."""
+    x = torch.randn(n, generator=torch.Generator().manual_seed(seed)).to(dev)
+    x[:bucket] = 0.5
+    x[bucket + 1:bucket + 2] = float("nan")
+    x[2 * bucket + 3:2 * bucket + 4] = float("inf")
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,offset", [(0, 0), (2**40 + 3, 5)])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,bucket", [(1, 64), (1001, 64), (4097, 512),
+                                      (3001, 125)])
+def test_cuda_stochastic_quantize_matches_plain(n, bucket, bits, seed,
+                                                offset):
+    """B2 bitwise against its plain version, with the same Philox words:
+    ragged sizes, odd buckets (whose counters straddle two buckets), a NaN
+    and an inf bucket, and 64-bit seeds and offsets."""
+    dev = _cuda()
+    x = _special_values(n, bucket, n + bits, dev)
+    got = kernels.maxmin_quantize_stochastic(x, bits, bucket, seed, offset)
+    want = kernels.maxmin_quantize_stochastic_plain(x, bits, bucket, seed,
+                                                    offset)
+    for g, w in zip(got, want):
+        _assert_bitwise(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["linf", "l2"])
+@pytest.mark.parametrize("kind", ["uni", "exp"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("n,bucket", [(1, 64), (1001, 64), (4097, 512)])
+def test_cuda_norm_kernels_match_plain(n, bucket, bits, kind, norm):
+    """B5 and B6 against their plain versions. linf: codes and norms
+    bitwise. l2: the kernel sums in another order, so norms agree to rtol
+    1e-6, and a code may differ only by one level index, where the ratio
+    lies within a few ulp of the midpoint of two levels. B6 is bitwise on
+    the kernel's own codes and norms, and clips an index past the table."""
+    dev = _cuda()
+    x = _special_values(n, bucket, n + bits, dev)
+    table = default_levels(bits, kind)
+    levels = torch.from_numpy(table).to(dev)
+    q, nrm = norm_kernels.norm_quantize(x, levels, bucket, norm == "l2")
+    wq, wnrm = norm_kernels.norm_quantize_plain(x, levels, bucket,
+                                                norm == "l2")
+    if norm == "linf":
+        _assert_bitwise(q, wq)
+        _assert_bitwise(nrm, wnrm)
+    else:
+        torch.testing.assert_close(nrm, wnrm, rtol=1e-6, atol=0,
+                                   equal_nan=True)
+        assert torch.equal(q & 1, wq & 1)
+        assert int(((q >> 1).int() - (wq >> 1).int()).abs().max()) <= 1
+    back = norm_kernels.norm_dequantize(q, levels, nrm)
+    _assert_bitwise(back, norm_kernels.norm_dequantize_plain(q, levels, nrm))
+    short = levels[:2].contiguous()
+    _assert_bitwise(norm_kernels.norm_dequantize(q, short, nrm),
+                    norm_kernels.norm_dequantize_plain(q, short, nrm))
 
 
 def _close(got, want, rel: float, what: str) -> None:

@@ -12,9 +12,12 @@ import torch.nn.functional as F
 import horovod_tpu_torch as thvd
 from horovod_tpu.compression import CompressionConfig as JaxConfig
 from horovod_tpu.compression import MaxMinQuantizer as JaxMaxMin
+from horovod_tpu.compression import NormalizedQuantizer as JaxNorm
 from horovod_tpu.models import resnet as jax_resnet
 from horovod_tpu_torch.compression import (CompressionConfig,
-                                           MaxMinQuantizer, from_env,
+                                           MaxMinQuantizer,
+                                           NormalizedQuantizer,
+                                           TopKCompressor, from_env,
                                            make_compressor)
 from horovod_tpu_torch.models import resnet
 from horovod_tpu_torch.models.convert import flax_to_torch
@@ -32,13 +35,25 @@ def worlds(make_runtime):
     thvd.shutdown()
 
 
-@pytest.mark.parametrize("reduction", ["scatter_allgather", "allgather",
-                                       "ps"])
-def test_three_compressed_steps_match_jax(worlds, reduction):
+_QUANTIZERS = {
+    "maxmin": (lambda: JaxMaxMin(4, 64, use_pallas=False),
+               lambda: MaxMinQuantizer(4, 64)),
+    "norm": (lambda: JaxNorm(4, 64, use_pallas=False),
+             lambda: NormalizedQuantizer(4, 64)),
+}
+
+
+@pytest.mark.parametrize("reduction,quant", [
+    pytest.param(r, "maxmin", id=r)
+    for r in ("scatter_allgather", "allgather", "ps")] + [
+    pytest.param(r, "norm", id=f"{r}-norm")
+    for r in ("scatter_allgather", "ring", "tree")])
+def test_three_compressed_steps_match_jax(worlds, reduction, quant):
     """The same numpy gradients for 3 steps of SGD(0.1, momentum 0.9) with
-    4-bit max-min compression and error feedback: params and residuals
-    agree within 1e-6."""
+    4-bit max-min or normalized (uniform levels, linf) compression and
+    error feedback: params and residuals agree within 1e-6."""
     jhvd = worlds
+    jax_quant, port_quant = _QUANTIZERS[quant]
     rng = np.random.RandomState(4)
     params = {k: rng.randn(*s).astype(np.float32) for k, s in SHAPES.items()}
     grads = [{k: rng.randn(*s).astype(np.float32) for k, s in SHAPES.items()}
@@ -46,8 +61,8 @@ def test_three_compressed_steps_match_jax(worlds, reduction):
 
     jopt = jhvd.DistributedOptimizer(
         optax.sgd(0.1, momentum=0.9),
-        compression=JaxConfig(JaxMaxMin(4, 64, use_pallas=False),
-                              reduction=reduction, error_feedback=True))
+        compression=JaxConfig(jax_quant(), reduction=reduction,
+                              error_feedback=True))
     jparams = {k: jnp.asarray(v) for k, v in params.items()}
     jstate = jopt.init(jparams)
     for g in grads:
@@ -61,8 +76,7 @@ def test_three_compressed_steps_match_jax(worlds, reduction):
     topt = thvd.DistributedOptimizer(
         torch.optim.SGD(list(tparams.values()), lr=0.1, momentum=0.9),
         named_parameters=list(tparams.items()),
-        compression=CompressionConfig(MaxMinQuantizer(4, 64),
-                                      reduction=reduction,
+        compression=CompressionConfig(port_quant(), reduction=reduction,
                                       error_feedback=True))
     for g in grads:
         for k, p in tparams.items():
@@ -98,6 +112,28 @@ def test_dense_and_scaled_steps(worlds):
     opt.step()
     np.testing.assert_allclose(q.detach().numpy(), 1.0 - 4.0)
     assert isinstance(opt, torch.optim.SGD)
+
+
+@pytest.mark.parametrize("compression", [
+    MaxMinQuantizer(4, 64, stochastic=True), NormalizedQuantizer(2, 64),
+    TopKCompressor(0.25)], ids=repr)
+def test_quantizers_pass_directly(worlds, compression):
+    """Each quantizer given as ``compression`` sends the fused gradients
+    through the default reducer, scatter_allgather, with no key."""
+    from horovod_tpu_torch.compression import compressed_grouped_allreduce
+    rng = np.random.RandomState(8)
+    grads = [torch.from_numpy(rng.randn(*s).astype(np.float32))
+             for s in SHAPES.values()]
+    params = [torch.nn.Parameter(torch.zeros_like(g)) for g in grads]
+    opt = thvd.DistributedOptimizer(torch.optim.SGD(params, lr=1.0),
+                                    compression=compression)
+    for p, g in zip(params, grads):
+        p.grad = g.clone()
+    opt.step()
+    want = compressed_grouped_allreduce(grads, compression)
+    for p, w in zip(params, want):
+        torch.testing.assert_close(p.detach(), -w, rtol=0, atol=0)
+    assert any(not torch.equal(p.detach(), -g) for p, g in zip(params, grads))
 
 
 def _bucket_units(leaves, bits, bucket):
@@ -218,9 +254,12 @@ def test_config_factory(monkeypatch):
     assert make_compressor("int4") == MaxMinQuantizer(4, 512)
     assert make_compressor("maxmin", bits=2, bucket_size=64) == \
         MaxMinQuantizer(2, 64)
-    for name in ("uni", "exp", "topk"):
-        with pytest.raises(NotImplementedError):
-            make_compressor(name)
+    # uni, exp and topk build the right compressor, as the JAX factory.
+    assert make_compressor("uni") == NormalizedQuantizer(4, 512, "uni",
+                                                         "linf")
+    assert make_compressor("exp", bits=8, norm="l2") == \
+        NormalizedQuantizer(8, 512, "exp", "l2")
+    assert make_compressor("topk", topk_ratio=0.05) == TopKCompressor(0.05)
     with pytest.raises(ValueError):
         make_compressor("bogus")
     monkeypatch.setenv("HVDTPU_COMPRESSION", "maxmin")
@@ -233,3 +272,42 @@ def test_config_factory(monkeypatch):
     assert cfg.reduction == "ps" and cfg.error_feedback
     monkeypatch.setenv("HVDTPU_COMPRESSION", "none")
     assert from_env() is None
+    monkeypatch.setenv("HVDTPU_COMPRESSION", "uni")
+    monkeypatch.setenv("HVDTPU_COMPRESSION_NORM_TYPE", "L2")
+    assert from_env().default_compressor == NormalizedQuantizer(8, 128, "uni",
+                                                                "l2")
+    monkeypatch.setenv("HVDTPU_COMPRESSION", "topk")
+    monkeypatch.setenv("HVDTPU_COMPRESSION_TOPK_RATIO", "0.25")
+    assert from_env().default_compressor == TopKCompressor(0.25)
+
+
+def test_yaml_config_matches_jax(tmp_path, monkeypatch):
+    """``CompressionConfig.load`` resolves the same compressors per name as
+    the JAX package's, and the env names the file."""
+    from horovod_tpu.compression.quantize import (
+        NormalizedQuantizer as JaxNormQ, TopKCompressor as JaxTopK)
+    cfg_file = tmp_path / "comp.yaml"
+    cfg_file.write_text(
+        "default:\n  compressor: uni\n  bits: 4\n  bucket_size: 256\n"
+        "layers:\n"
+        "  - pattern: '.*bias.*'\n    ignore: true\n"
+        "  - pattern: 'fc'\n    compressor: maxmin\n    bits: 8\n"
+        "  - pattern: 'embed'\n    compressor: topk\n    topk_ratio: 0.5\n"
+        "  - pattern: 'head'\n    norm: l2\n")
+    jcfg = JaxConfig.load(str(cfg_file), reduction="ring")
+    monkeypatch.setenv("HVDTPU_COMPRESSION_CONFIG_FILE", str(cfg_file))
+    monkeypatch.setenv("HVDTPU_REDUCTION", "ring")
+    cfg = from_env()
+    assert cfg.reduction == "ring" and not cfg.error_feedback
+    for name in ("conv/weight", "conv/bias", "fc/weight", "embed/table",
+                 "head/weight"):
+        got, want = cfg.for_name(name), jcfg.for_name(name)
+        if want is None:
+            assert got is None, name
+        elif isinstance(want, JaxTopK):
+            assert got == TopKCompressor(want.ratio), name
+        elif isinstance(want, JaxNormQ):
+            assert got == NormalizedQuantizer(want.bits, want.bucket_size,
+                                              want.kind, want.norm), name
+        else:
+            assert got == MaxMinQuantizer(want.bits, want.bucket_size), name

@@ -22,12 +22,14 @@ import pytest
 import torch
 
 from horovod_tpu.compression import MaxMinQuantizer as JaxMaxMin
+from horovod_tpu.compression import TopKCompressor as JaxTopK
 from horovod_tpu.compression import compress_with_feedback as jax_feedback
 from horovod_tpu.compression import pallas_kernels as pk
 from horovod_tpu.compression.quantize import pack_bits as jax_pack
 from horovod_tpu.compression.quantize import unpack_bits as jax_unpack
-from horovod_tpu_torch.compression import (MaxMinQuantizer,
-                                           compress_with_feedback, kernels,
+from horovod_tpu_torch.compression import (MaxMinQuantizer, TopKCompressor,
+                                           compress_with_feedback,
+                                           compressed_size_bytes, kernels,
                                            pack_bits, unpack_bits)
 
 
@@ -181,5 +183,51 @@ def test_compress_rows_quantizes_each_row_alone():
 
 
 def test_stochastic_waits_for_b2():
-    with pytest.raises(NotImplementedError, match="B2"):
-        MaxMinQuantizer(4, 512, stochastic=True)
+    """Stochastic compress runs (B2's plain version on the CPU) and is
+    seeded: a key fixes the codes, another key changes them, and no key is
+    seed 0 (``tests/test_torch_port_stochastic.py`` holds the rest)."""
+    x = torch.from_numpy(_data(3 * 512 + 5, 8))
+    quant = MaxMinQuantizer(4, 512, stochastic=True)
+    codes = [quant.compress(x, key=k)[0]["q"] for k in (1, 1, 2, None, 0)]
+    assert torch.equal(codes[0], codes[1])
+    assert not torch.equal(codes[0], codes[2])
+    assert torch.equal(codes[3], codes[4])
+    assert not torch.equal(codes[0], MaxMinQuantizer(4, 512).compress(x)[0][
+        "q"])
+
+
+@pytest.mark.parametrize("ratio", [0.01, 0.1, 1.0])
+@pytest.mark.parametrize("n", [1, 100, 1001])
+def test_topk_matches_jax(n, ratio):
+    """Distinct magnitudes, so both packages keep the same entries; the
+    order of the kept entries is compared after sorting by index."""
+    x = np.random.RandomState(n).permutation(n).astype(np.float32) - n / 2
+    x += 0.25  # no zero, no tie in |x|
+    quant = TopKCompressor(ratio)
+    payload, ctx = quant.compress(torch.from_numpy(x.reshape(-1, 1)))
+    want, want_ctx = JaxTopK(ratio).compress(jnp.asarray(x.reshape(-1, 1)))
+    order = np.argsort(payload["indices"].numpy())
+    want_order = np.argsort(np.asarray(want["indices"]))
+    assert payload["indices"].dtype == torch.int32
+    np.testing.assert_array_equal(payload["indices"].numpy()[order],
+                                  np.asarray(want["indices"])[want_order])
+    np.testing.assert_array_equal(payload["values"].numpy()[order],
+                                  np.asarray(want["values"])[want_order])
+    np.testing.assert_array_equal(
+        quant.decompress(payload, ctx).numpy(),
+        np.asarray(JaxTopK(ratio).decompress(want, want_ctx)))
+    assert compressed_size_bytes(payload) == 8 * max(1, int(n * ratio))
+
+
+def test_topk_rows_and_identity():
+    rows = np.random.RandomState(2).randn(3, 50).astype(np.float32)
+    quant = TopKCompressor(0.1)
+    payload, ctx = quant.compress_rows(torch.from_numpy(rows))
+    back = quant.decompress_rows(payload, ctx)
+    for r in range(3):
+        one, _ = quant.compress(torch.from_numpy(rows[r]))
+        np.testing.assert_array_equal(back[r].numpy(),
+                                      quant.decompress(one, ctx).numpy())
+    assert quant == TopKCompressor(0.1) != TopKCompressor(0.2)
+    with pytest.raises(ValueError):
+        TopKCompressor(0.0)

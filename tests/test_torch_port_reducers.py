@@ -17,6 +17,16 @@ took the neighbouring code: at most 1% of the values, each off by at most
 one quantization unit of its bucket. One case runs the JAX reducer op by op
 (``jax.disable_jit``, as slow as it is exact) and must agree to 1e-6
 everywhere.
+
+The cases with the normalized quantizer (4 bits, uniform levels, linf) are
+held to the same rule with the unit of a level step: a value at the
+midpoint of two levels may take the neighbour, which moves it by 1/7 of
+its bucket's norm, at most 1/7 of the largest magnitude staged in the
+case. The stochastic max-min quantizer draws other noise than the JAX
+package, so its reducers are held by a property: each quantization stage
+moves a value by less than one unit of its bucket, at most
+``2 * M / levels`` where ``M`` bounds every partial sum (the sum over ranks
+of their largest magnitude), and a value passes at most ``n + 1`` stages.
 """
 
 import os
@@ -30,26 +40,44 @@ import torch
 
 import horovod_tpu_torch as thvd
 from horovod_tpu_torch.compression import (MaxMinQuantizer,
+                                           NormalizedQuantizer,
                                            compressed_allreduce,
                                            compressed_grouped_allreduce)
 
 BITS, BUCKET = 4, 64
 SHAPES = {"single": [(1001,)], "grouped": [(33, 7), (5,), (201,)]}
 CASES = {
-    # name: (reduction, op, shapes, residual, prescale, postscale)
-    "allgather": ("allgather", "sum", "single", False, 1.0, 1.0),
-    "allgather-ef": ("allgather", "sum", "single", True, 1.0, 1.0),
+    # name: (reduction, op, shapes, residual, prescale, postscale,
+    #        compressor)
+    "allgather": ("allgather", "sum", "single", False, 1.0, 1.0, "maxmin"),
+    "allgather-ef": ("allgather", "sum", "single", True, 1.0, 1.0,
+                     "maxmin"),
     "scatter_allgather": ("scatter_allgather", "sum", "single", False, 1.0,
-                          1.0),
+                          1.0, "maxmin"),
     "scatter_allgather-ef": ("scatter_allgather", "sum", "single", True, 1.0,
-                             1.0),
-    "ps": ("ps", "sum", "single", False, 1.0, 1.0),
-    "ps-ef": ("ps", "sum", "single", True, 1.0, 1.0),
+                             1.0, "maxmin"),
+    "ps": ("ps", "sum", "single", False, 1.0, 1.0, "maxmin"),
+    "ps-ef": ("ps", "sum", "single", True, 1.0, 1.0, "maxmin"),
+    "ring": ("ring", "sum", "single", False, 1.0, 1.0, "maxmin"),
+    "ring-ef": ("ring", "sum", "single", True, 1.0, 1.0, "maxmin"),
+    "tree": ("tree", "sum", "single", False, 1.0, 1.0, "maxmin"),
+    "tree-ef": ("tree", "sum", "single", True, 1.0, 1.0, "maxmin"),
     "grouped-scatter_allgather-avg-ef-scaled": (
-        "scatter_allgather", "avg", "grouped", True, 0.5, 3.0),
-    "grouped-allgather-sum": ("allgather", "sum", "grouped", False, 1.0, 1.0),
-    "grouped-ps-avg-ef": ("ps", "avg", "grouped", True, 1.0, 1.0),
+        "scatter_allgather", "avg", "grouped", True, 0.5, 3.0, "maxmin"),
+    "grouped-allgather-sum": ("allgather", "sum", "grouped", False, 1.0, 1.0,
+                              "maxmin"),
+    "grouped-ps-avg-ef": ("ps", "avg", "grouped", True, 1.0, 1.0, "maxmin"),
+    "norm-allgather-ef": ("allgather", "sum", "single", True, 1.0, 1.0,
+                          "norm"),
+    "norm-scatter_allgather-ef": ("scatter_allgather", "sum", "single", True,
+                                  1.0, 1.0, "norm"),
+    "norm-ps": ("ps", "sum", "single", False, 1.0, 1.0, "norm"),
+    "norm-ring-ef": ("ring", "sum", "single", True, 1.0, 1.0, "norm"),
+    "norm-tree-ef": ("tree", "sum", "single", True, 1.0, 1.0, "norm"),
+    "grouped-norm-ring-avg": ("ring", "avg", "grouped", False, 1.0, 1.0,
+                              "norm"),
 }
+REDUCTIONS = ("allgather", "scatter_allgather", "ps", "ring", "tree")
 TOL = 1e-6
 
 
@@ -63,11 +91,12 @@ def _inputs(name, rank):
 
 
 def _run_port(name, rank):
-    reduction, op, kind, residual, pre, post = CASES[name]
+    reduction, op, kind, residual, pre, post, comp = CASES[name]
     xs, res = _inputs(name, rank)
     xs = [torch.from_numpy(x) for x in xs]
     res = [torch.from_numpy(r) for r in res] if residual else None
-    quant = MaxMinQuantizer(BITS, BUCKET)
+    quant = MaxMinQuantizer(BITS, BUCKET) if comp == "maxmin" else \
+        NormalizedQuantizer(BITS, BUCKET)
     op = thvd.Sum if op == "sum" else thvd.Average
     if kind == "grouped":
         result = compressed_grouped_allreduce(
@@ -84,6 +113,24 @@ def _run_port(name, rank):
     if new_res is not None:
         arrays.update({f"res{i}": r.numpy() for i, r in enumerate(new_res)})
     return arrays
+
+
+def _stochastic_input(rank):
+    return np.random.RandomState(200 + rank).randn(1001).astype(np.float32)
+
+
+def _run_stochastic(rank):
+    """Every reducer with the stochastic max-min quantizer and a key,
+    twice: the key fixes the result."""
+    x = torch.from_numpy(_stochastic_input(rank))
+    quant = MaxMinQuantizer(BITS, BUCKET, stochastic=True)
+    out = {}
+    for reduction in REDUCTIONS:
+        runs = [compressed_allreduce(x, quant, reduction=reduction,
+                                     op=thvd.Sum, key=17) for _ in range(2)]
+        assert torch.equal(runs[0], runs[1]), reduction
+        out[reduction] = runs[0].numpy()
+    return out
 
 
 def _dense_inputs(rank):
@@ -131,6 +178,8 @@ def _worker(out_dir):
                      **_run_port(name, rank))
         np.savez(os.path.join(out_dir, f"dense.{rank}.npz"),
                  **_run_dense(rank))
+        np.savez(os.path.join(out_dir, f"stochastic.{rank}.npz"),
+                 **_run_stochastic(rank))
     finally:
         thvd.shutdown()
 
@@ -140,18 +189,20 @@ def _run_jax(name, n, make_runtime, compiled=True):
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
     from horovod_tpu.compression import MaxMinQuantizer as JaxMaxMin
+    from horovod_tpu.compression import NormalizedQuantizer as JaxNorm
     from horovod_tpu.compression import compressed_allreduce as jax_car
     from horovod_tpu.compression import compressed_grouped_allreduce as \
         jax_cgar
 
     hvd = make_runtime(mesh_shape={"dp": n}, devices=jax.devices()[:n])
-    reduction, op, kind, residual, pre, post = CASES[name]
+    reduction, op, kind, residual, pre, post, comp = CASES[name]
     per_rank = [_inputs(name, r) for r in range(n)]
     xs = tuple(jnp.asarray(np.stack([pr[0][i] for pr in per_rank]))
                for i in range(len(SHAPES[kind])))
     rs = tuple(jnp.asarray(np.stack([pr[1][i] for pr in per_rank]))
                for i in range(len(SHAPES[kind])))
-    quant = JaxMaxMin(BITS, BUCKET, use_pallas=False)
+    quant = JaxMaxMin(BITS, BUCKET, use_pallas=False) if comp == "maxmin" \
+        else JaxNorm(BITS, BUCKET, use_pallas=False)
     op = hvd.Sum if op == "sum" else hvd.Average
 
     def reduce(leaves, res):
@@ -186,12 +237,14 @@ def _run_jax(name, n, make_runtime, compiled=True):
 
 
 LEVELS = (1 << BITS) - 1
+NORM_STEP = 1 / ((1 << (BITS - 1)) - 1)  # uniform levels, 4 bits
 FLIP_SHARE = 0.01
 
 
 def _assert_match(name, port_by_rank, jax_arrays, exact):
     """See the module docstring for the tolerance."""
     per_rank = [_inputs(name, r) for r in range(len(port_by_rank))]
+    norm = CASES[name][6] == "norm"
     for key, want in jax_arrays.items():
         leaf = int(key[3:])
         for rank, port in enumerate(port_by_rank):
@@ -211,7 +264,13 @@ def _assert_match(name, port_by_rank, jax_arrays, exact):
                 continue
             diff = np.abs(got - want)
             off = diff > TOL + TOL * np.abs(want)
-            unit = np.ptp(staged) / LEVELS
+            if norm:
+                unit = NORM_STEP * max(
+                    np.abs(want).max(),
+                    *(np.abs(p[0][leaf] + p[1][leaf]).max()
+                      for p in per_rank))
+            else:
+                unit = np.ptp(staged) / LEVELS
             assert off.mean() <= FLIP_SHARE, (msg, off.sum())
             assert (diff[off] <= unit * 1.01 + TOL).all(), (msg, diff.max())
 
@@ -249,7 +308,8 @@ def world2(tmp_path_factory):
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log
     return {name: [dict(np.load(os.path.join(out_dir, f"{name}.{r}.npz")))
-                   for r in range(2)] for name in list(CASES) + ["dense"]}
+                   for r in range(2)]
+            for name in list(CASES) + ["dense", "stochastic"]}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -300,6 +360,22 @@ def test_world2_matches_jax_op_by_op(world2, make_runtime):
                   _run_jax(name, 2, make_runtime, compiled=False), exact=True)
 
 
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("reduction", REDUCTIONS)
+def test_stochastic_reducers_stay_within_their_stages(reduction, world,
+                                                      world1, world2):
+    """The bound of the module docstring, on rank 0's result against the
+    exact sum; every rank returns the same result."""
+    by_rank = ([_run_stochastic(0)] if world == 1 else world2["stochastic"])
+    inputs = [_stochastic_input(r) for r in range(world)]
+    exact = np.sum(inputs, axis=0, dtype=np.float64)
+    bound = (world + 1) * 2 * sum(np.abs(x).max() for x in inputs) / LEVELS
+    got = by_rank[0][reduction]
+    assert np.abs(got - exact).max() <= bound
+    for other in by_rank[1:]:
+        np.testing.assert_array_equal(other[reduction], got)
+
+
 def test_jit_rewrites_the_quantizer_arithmetic():
     """The premise of the tolerance: XLA's compiled CPU program divides by
     ``levels`` as a multiply by its reciprocal and fuses ``min + q*unit``
@@ -320,11 +396,12 @@ def test_jit_rewrites_the_quantizer_arithmetic():
 
 
 def test_unported_reducers_and_ops_raise(world1):
+    """An unknown reducer, a reduction op other than Sum/Average, and a
+    compressor the reducers do not take, raise."""
     x = torch.ones(10)
     quant = MaxMinQuantizer(BITS, BUCKET)
-    for reduction in ("ring", "tree"):
-        with pytest.raises(NotImplementedError, match=reduction):
-            compressed_allreduce(x, quant, reduction=reduction)
+    with pytest.raises(TypeError, match="MaxMinQuantizer"):
+        compressed_allreduce(x, thvd.Compression.fp16)
     with pytest.raises(ValueError, match="unknown reduction"):
         compressed_allreduce(x, quant, reduction="bogus")
     with pytest.raises(ValueError, match="Sum/Average"):

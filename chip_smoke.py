@@ -22,17 +22,19 @@ just after:
   B2, and B3, B4 on the receive side);
 * GPT: the ``gpt_long_context_flash`` configuration of ``bench.py`` (6
   layers, d512, 8 heads of 64, MLP 2048, vocab 32000, 2 x 4096 tokens, bf16,
-  ``remat="full"``) with flash attention (kernels B7, B8, B9), through the
-  dense ``DistributedOptimizer`` (Average, one fused ``grouped_allreduce``)
-  and SGD.
+  ``remat="full"``) with flash attention (kernels B7, B8, B9; bf16 B7 and
+  B8 on the tensor cores), through the dense ``DistributedOptimizer``
+  (Average, one fused ``grouped_allreduce``) and SGD.
 
 Each path takes 2 warm-up and 10 timed steps. The script checks that the
 loss is finite and falls, that the steps launched each kernel of the path
-as often as the path requires (and no other kernel), and that the trained
-model of the first ResNet-50 path and of the GPT path agrees with a CPU
-copy of itself on a small input. Then
-it times each kernel, its plain version and, where one exists, the PyTorch
-call that computes the same function, at the shapes of the path.
+as often as the path requires (and no other kernel; every B7 and B8 launch
+of the GPT path on the tensor-core route), and that the trained model of
+the first ResNet-50 path and of the GPT path agrees with a CPU copy of
+itself on a small input. Then it times each kernel, its plain version and,
+where one exists, the PyTorch call that computes the same function, at the
+shapes of the path (the attention kernels and that call in alternating
+rounds, with the card's clocks read before and after).
 
 Output: the card's name and power limit as ``nvidia-smi`` reports them, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -48,6 +50,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -85,7 +88,15 @@ REPLACES = {
 }
 SOURCES = {"maxmin": "horovod_tpu_torch/csrc/maxmin.cu",
            "norm": "horovod_tpu_torch/csrc/norm.cu",
-           "flash": "horovod_tpu_torch/csrc/flash_attention.cu"}
+           "flash": "horovod_tpu_torch/csrc/flash_attention.cu",
+           "flash_mma": "horovod_tpu_torch/csrc/flash_attention_mma.cu"}
+# The kernel that runs each attention wrapper at the GPT path's shape (bf16;
+# B7 and B8 on the tensor cores, as the route counts confirm).
+FLASH_KERNELS = {
+    "flash_fwd": ("flash_fwd_mma_kernel<64>", "flash_mma"),
+    "flash_dkdv": ("flash_dkdv_mma_kernel<64>", "flash_mma"),
+    "flash_dq": ("flash_dq_kernel<__nv_bfloat16, 64>", "flash"),
+}
 # Launches a step of each path (the launch counts of every other kernel
 # must stay 0): the max-min reducer quantizes the rows and the reduced
 # chunk, decodes the rows for the residual and the gathered chunks, and
@@ -112,8 +123,15 @@ RATES = {"H100 PCIe": (2.0e12, 51e12, 756e12),
 # to bf16, so they may land one bf16 step apart, which is at most 2^-7 of
 # the value; plus 2^-8 of the mean |value| and 2^-14 for values near zero,
 # where the fp32 sums differ by more than a bf16 step of the value (at S 1,
-# dK and dQ are zero in exact arithmetic and rounding noise in both).
+# dK and dQ are zero in exact arithmetic and rounding noise in both). bf16
+# B7 and B8 run on the tensor cores, which round P and dS to bf16 before
+# their products: o, dK and dV also get flash.mma_rounding_terms (4 x 2^-8
+# times the root-sum-square of rounded operand x other operand of each
+# product). At the path's shape a 2% error planted in the rows with the
+# longest sums must fail that bound.
 FLASH_TOL = (1e-4, 5e-4)
+PLANTED = 0.02
+FLASH_ROUNDS = 5  # alternating timing rounds of each attention kernel
 BF16_TOL = (2**-7, 2**-8, 2**-14)  # of |value|, of mean |value|, absolute
 
 
@@ -307,13 +325,21 @@ def flash_inputs(dev, bh: int, s: int, d: int, dtype, seed: int):
             for _ in range(4)]
 
 
-def flash_errors(flash, q, k, v, do, causal: bool):
+def flash_errors(flash, q, k, v, do, causal: bool, plant: bool = False):
     """B7, B8 and B9 against their plain versions on the same inputs (the
     backward kernels get the plain ``lse`` and ``delta``); raises beyond
-    ``FLASH_TOL``. Returns each kernel's largest absolute error."""
+    ``FLASH_TOL`` (bf16: ``BF16_TOL`` and the tensor-core route's rounding
+    terms). With ``plant``, also raises unless the kernel's ``o``, dK and
+    dV, each made ``PLANTED`` larger in the quarter of rows with the longest
+    sums (the last queries, the first keys), fail the bound. Returns each
+    kernel's largest absolute error and each output's largest error over
+    its bound."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, scale, causal)
     delta = (do.float() * o_ref.float()).sum(dim=-1)
+    terms = flash.mma_rounding_terms(q, k, v, do, lse_ref, delta, scale,
+                                     causal) if q.dtype == torch.bfloat16 \
+        else {}
     got = {"flash_fwd": flash.flash_fwd(q, k, v, scale, causal),
            "flash_dkdv": flash.flash_dkdv(q, k, v, do, lse_ref, delta, scale,
                                           causal),
@@ -329,7 +355,7 @@ def flash_errors(flash, q, k, v, do, causal: bool):
     outputs = {"flash_fwd": (("o", fwd_tol), ("lse", fwd_tol)),
                "flash_dkdv": (("dk", bwd_tol), ("dv", bwd_tol)),
                "flash_dq": (("dq", bwd_tol),)}
-    errors = {}
+    errors, ratios = {}, {}
     for name in got:
         errors[name] = 0.0
         for g, w, (what, rel) in zip(got[name], want[name], outputs[name]):
@@ -342,6 +368,8 @@ def flash_errors(flash, q, k, v, do, causal: bool):
             if g.dtype == torch.bfloat16:
                 of_value, of_mean, floor = BF16_TOL
                 bound = of_value * size + (of_mean * size.mean() + floor)
+                if what in terms:
+                    bound = bound + terms[what]
             else:
                 bound = torch.full_like(size,
                                         rel * max(1.0, float(size.max())))
@@ -354,17 +382,33 @@ def flash_errors(flash, q, k, v, do, causal: bool):
                     f"{float(bound.flatten()[worst])}) at {tuple(q.shape)} "
                     f"{q.dtype} causal={causal}")
             errors[name] = max(errors[name], float(err.max()))
-    return errors
+            ratios[what] = float((err / bound).max())
+            if plant and what in terms:
+                n = q.shape[1]
+                rows = slice(n - n // 4, n) if what == "o" else slice(0, n // 4)
+                planted = g.float().clone()
+                planted[:, rows] *= 1 + PLANTED
+                if bool(((planted - w.float()).abs() <= bound).all()):
+                    raise AssertionError(f"{name} {what}: an error of "
+                                         f"{PLANTED} planted in rows {rows} "
+                                         f"passes the bound")
+    return errors, ratios
 
 
 def check_flash(flash, dev):
     """The attention kernels against their plain versions: at the GPT
     path's shape (B 2 x H 8, S 4096, D 64, bf16, causal), then S in
     {1, 127, 200, 4096} x D in {16, 64, 128} x causal or not x fp32 or
-    bf16. Returns the errors at the path's shape."""
+    bf16 (bf16 B7 and B8 on the tensor cores, fp32 on the CUDA cores, as
+    the route counts confirm). Returns the errors at the path's shape."""
+    flash.reset_launches()
     bh = GPT_BATCH * GPT_CONFIG["num_heads"]
-    errors = flash_errors(flash, *flash_inputs(
-        dev, bh, GPT_SEQ, GPT_CONFIG["head_dim"], torch.bfloat16, 0), True)
+    errors, ratios = flash_errors(flash, *flash_inputs(
+        dev, bh, GPT_SEQ, GPT_CONFIG["head_dim"], torch.bfloat16, 0), True,
+        plant=True)
+    log(f"kernels: attention at the GPT path's shape, largest error over "
+        f"its bound {ratios}; a {PLANTED} error planted in o, dk and dv "
+        f"fails it")
     seed = 1
     for s in (1, 127, 200, 4096):
         for d in (16, 64, 128):
@@ -373,6 +417,11 @@ def check_flash(flash, dev):
                     flash_errors(flash, *flash_inputs(dev, 3, s, d, dtype,
                                                       seed), causal)
                     seed += 1
+    want = {"mma_bf16": 25, "fp32": 24}  # the path's shape + 24 cases each
+    for name in flash.ROUTES:
+        if flash.ROUTES[name] != want:
+            raise AssertionError(f"{name} routes {flash.ROUTES[name]}, "
+                                 f"expected {want}")
     return errors
 
 
@@ -530,6 +579,7 @@ def train_gpt(hvd, dev):
     """The GPT path: 2 warm-up and 10 timed steps of SGD through the dense
     DistributedOptimizer, then the trained model against its CPU copy."""
     from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.ops.flash_attention import ROUTES
 
     model, opt, tokens, targets = make_gpt_slice(hvd, dev)
     cfg = model.cfg
@@ -567,6 +617,11 @@ def train_gpt(hvd, dev):
     check_launches("gpt", launches, {"flash_fwd": 2 * layers,
                                      "flash_dkdv": layers,
                                      "flash_dq": layers})
+    routes = {name: dict(counts) for name, counts in ROUTES.items()}
+    want = {name: {"mma_bf16": launches[name], "fp32": 0} for name in routes}
+    if routes != want:
+        raise AssertionError(f"gpt: routes {routes}, expected {want}")
+    log(f"gpt: every B7 and B8 launch on the tensor cores {routes}")
 
     # The trained model in fp32 against a CPU copy of itself (whose
     # attention is the plain version), on 200 tokens.
@@ -674,13 +729,35 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
     return rows
 
 
+def smi_clocks() -> str:
+    """The card's SM clock, its maximum and the power draw, now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def paired_ms(fns, rounds: int = FLASH_ROUNDS):
+    """Median of ``rounds`` ``time_ms`` readings of each function, taken in
+    alternating rounds (every function once per round, in order), so that
+    a kernel and its yardstick see the same clocks."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(time_ms(fn))
+    return {name: statistics.median(t) for name, t in times.items()}, times
+
+
 def measure_flash(flash, dev, launches, errors, rates):
     """B7, B8 and B9 at the GPT path's shape. Bound: the causal pairs this
     run computes, 2 D operations per pair and product (B7 2 products, B8 4,
     B9 3) at the bf16 tensor-core rate, against each input read once and
     each output written once at the memory rate. Yardstick: PyTorch's
     scaled_dot_product_attention, forward for B7, and its backward (dQ, dK
-    and dV together) for B8 and B9."""
+    and dV together) for B8 and B9; and the port's whole backward (the
+    delta pass, B8 and B9) against that backward, logged. Kernels and
+    yardsticks are timed in ``FLASH_ROUNDS`` alternating rounds; the
+    medians are reported."""
     bandwidth, _, tensor = rates
     bh, s = GPT_BATCH * GPT_CONFIG["num_heads"], GPT_SEQ
     d = GPT_CONFIG["head_dim"]
@@ -696,45 +773,65 @@ def measure_flash(flash, dev, launches, errors, rates):
              for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*heads, is_causal=True)
     sdpa_grad = do.view(GPT_BATCH, -1, s, d)
-    sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        *heads, is_causal=True))
-    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
-        sdpa_out, heads, sdpa_grad, retain_graph=True))
     args = (q, k, v, do, lse, delta, scale, True)
+
+    def port_backward():
+        dlt = (do.float() * o.float()).sum(dim=-1)
+        flash.flash_dkdv(q, k, v, do, lse, dlt, scale, True)
+        flash.flash_dq(q, k, v, do, lse, dlt, scale, True)
+
+    log(f"flash timing: clocks.sm, clocks.max.sm, power.draw before "
+        f"{smi_clocks()}")
+    medians, readings = paired_ms({
+        "flash_fwd": lambda: flash.flash_fwd(q, k, v, scale, True),
+        "sdpa_forward": lambda: F.scaled_dot_product_attention(
+            *heads, is_causal=True),
+        "flash_dkdv": lambda: flash.flash_dkdv(*args),
+        "flash_dq": lambda: flash.flash_dq(*args),
+        "sdpa_backward": lambda: torch.autograd.grad(
+            sdpa_out, heads, sdpa_grad, retain_graph=True),
+        "port_backward": port_backward})
+    log(f"flash timing: clocks.sm, clocks.max.sm, power.draw after "
+        f"{smi_clocks()}")
+    log(f"flash timing: {FLASH_ROUNDS} alternating rounds, ms "
+        f"{json.dumps(readings)}")
+    log(f"flash backward: delta pass + B8 + B9 {medians['port_backward']:.4f}"
+        f" ms against SDPA's backward {medians['sdpa_backward']:.4f} ms "
+        f"({medians['port_backward'] / medians['sdpa_backward']:.2f}x)")
     work = {
-        # name: (kernel, plain, bytes, products, library ms, library call)
+        # name: (plain, bytes, products, library ms, library call)
         "flash_fwd": (
-            lambda: flash.flash_fwd(q, k, v, scale, True),
             lambda: flash.flash_fwd_plain(q, k, v, scale, True),
-            4 * tensor_bytes + stat_bytes, 2, sdpa_fwd_ms,
+            4 * tensor_bytes + stat_bytes, 2, medians["sdpa_forward"],
             "scaled_dot_product_attention(is_causal=True) forward"),
         "flash_dkdv": (
-            lambda: flash.flash_dkdv(*args),
             lambda: flash.flash_dkdv_plain(*args),
-            6 * tensor_bytes + 2 * stat_bytes, 4, sdpa_bwd_ms,
+            6 * tensor_bytes + 2 * stat_bytes, 4, medians["sdpa_backward"],
             "its backward: dQ, dK and dV together"),
         "flash_dq": (
-            lambda: flash.flash_dq(*args),
             lambda: flash.flash_dq_plain(*args),
-            5 * tensor_bytes + 2 * stat_bytes, 3, sdpa_bwd_ms,
+            5 * tensor_bytes + 2 * stat_bytes, 3, medians["sdpa_backward"],
             "its backward: dQ, dK and dV together"),
     }
     rows = []
-    for name, (kernel, plain, nbytes, products, lib_ms, lib) in work.items():
+    for name, (plain, nbytes, products, lib_ms, lib) in work.items():
         ops = 2 * d * products * pairs
         byte_ms, op_ms = nbytes / bandwidth * 1e3, ops / tensor * 1e3
-        ms = time_ms(kernel)
+        ms = medians[name]
         plain_ms = time_ms(plain)
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCES["flash"],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
+        kernel, source = FLASH_KERNELS[name]
+        row = {
+            "name": name, "kernel": kernel, "route": "cuda",
+            "source": SOURCES[source], "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": errors[name],
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "library_ms": lib_ms, "library": lib})
-        log(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-            f"{max(byte_ms, op_ms):.4f} ms, {ops} operations, {nbytes} "
-            f"bytes; {lib} {lib_ms:.4f} ms)")
+            "library_ms": lib_ms, "library": lib}
+        rows.append(row)
+        log(f"kernel {name} ({kernel}): {ms:.4f} ms (plain {plain_ms:.4f} "
+            f"ms, bound {max(byte_ms, op_ms):.4f} ms, {ops} operations, "
+            f"{nbytes} bytes; {lib} {lib_ms:.4f} ms)")
     return rows
 
 
@@ -780,8 +877,9 @@ def main() -> int:
             f"{midpoints} midpoint codes one level apart (l2), B6 bitwise, "
             f"at 99 shapes; errors at the path's shape {norm_errors}")
         flash_err = check_flash(flash, dev)
-        log(f"kernels: B7, B8 and B9 within their tolerances at 49 shapes; "
-            f"errors at the GPT path's shape {flash_err}")
+        log(f"kernels: B7, B8 and B9 within their tolerances at 49 shapes "
+            f"(bf16 B7 and B8 on the tensor cores); errors at the GPT "
+            f"path's shape {flash_err}")
         # Each kernel's launches in the timed steps of the phase that
         # carries it (B3 and B4: the max-min phase).
         phases = {"resnet": train(hvd, dev),

@@ -9,19 +9,26 @@
 // Layout: q, k, v, o, dO, dQ, dK, dV are [BH, S, D] row-major in bf16 or
 // fp32; lse and delta = rowsum(dO * O) are fp32 [BH, S]. scale = 1/sqrt(D).
 //
+// Routes, chosen by type in the C entry points, never by a failed launch:
+// bf16 B7 and B8 run the tensor-core kernels of flash_attention_mma.cu
+// (mma.sync tiles fed by cp.async; see the note there). fp32 B7 and B8,
+// and B9 in both types, run the CUDA-core kernels of this file: tensor
+// cores would take fp32 operands only as TF32, which misses the fp32
+// bound, and fp32 reaches these kernels only in checks.
+//
 // What bounds them on an H100: arithmetic. At the GPT path's shape
 // (BH 16, S 4096, D 64, causal) B7 does 2 products of 2*D flops for each
 // of the 8.4M causal (query, key) pairs of a head, B8 does 4 and B9 3: some
 // 1,000 flops for every byte each kernel must move. The design answer of
-// this first version is the FlashAttention one, to keep the S x S logits
+// these kernels is the FlashAttention one, to keep the S x S logits
 // out of device memory: each block holds its tiles in shared memory and
 // recomputes the probabilities from q, k and the saved logsumexp, so device
 // memory sees only the inputs and outputs. The products run on the CUDA
 // cores in fp32 FMAs (bf16 inputs are widened on load, as the TPU kernels'
 // astype(f32) does), not on the tensor cores: each thread accumulates a
 // 4 x 4 (or 4 x D/16) register tile from shared memory. That caps them far
-// below the bound, at the fp32 FMA rate and the shared-memory load rate; a
-// tensor-core (mma/wgmma) version is later work.
+// below the bound, at the fp32 FMA rate and the shared-memory load rate;
+// B9 on the tensor cores is later work.
 //
 // The TPU kernels stream the contraction tiles along a sequential grid axis
 // and carry the running softmax state across grid steps in VMEM scratch.
@@ -45,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_attention_mma.cuh"
 
 namespace {
 
@@ -496,18 +505,34 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
 
 // The C interface: every function launches on `stream` and returns a CUDA
 // error code (0 on success), so a refused launch reaches the caller.
-// `is_bf16` selects bf16 tensors, else fp32.
+// `is_bf16` selects bf16 tensors, else fp32; it also selects the route of
+// B7 and B8 (the tensor-core kernels for bf16). hvd_flash_last_route reads
+// the route the calling thread's last B7 or B8 launch took, recorded in the
+// branch that launched it: 1 the tensor-core kernels, 2 the CUDA-core ones.
+namespace {
+constexpr int kRouteMma = 1;
+constexpr int kRouteCudaCore = 2;
+thread_local int g_last_route = 0;
+}  // namespace
+
 extern "C" {
+
+int hvd_flash_last_route(void) { return g_last_route; }
 
 int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   float* lse, int bh, int S, int D, float scale, int causal,
                   int is_bf16, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? HVD_FLASH_DISPATCH(fwd, __nv_bfloat16, D, q, k, v, o, lse, bh,
-                                   S, D, scale, causal != 0, st)
-              : HVD_FLASH_DISPATCH(fwd, float, D, q, k, v, o, lse, bh, S, D,
-                                   scale, causal != 0, st);
+  cudaError_t err;
+  if (is_bf16) {
+    err = hvd_flash_mma::fwd_bf16(q, k, v, o, lse, bh, S, D, scale,
+                                  causal != 0, st);
+    g_last_route = kRouteMma;
+  } else {
+    err = HVD_FLASH_DISPATCH(fwd, float, D, q, k, v, o, lse, bh, S, D, scale,
+                             causal != 0, st);
+    g_last_route = kRouteCudaCore;
+  }
   return static_cast<int>(err);
 }
 
@@ -516,12 +541,16 @@ int hvd_flash_dkdv(const void* q, const void* k, const void* v,
                    void* dk, void* dv, int bh, int S, int D, float scale,
                    int causal, int is_bf16, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? HVD_FLASH_DISPATCH(dkdv, __nv_bfloat16, D, q, k, v, dout, lse,
-                                   delta, dk, dv, bh, S, D, scale,
-                                   causal != 0, st)
-              : HVD_FLASH_DISPATCH(dkdv, float, D, q, k, v, dout, lse, delta,
-                                   dk, dv, bh, S, D, scale, causal != 0, st);
+  cudaError_t err;
+  if (is_bf16) {
+    err = hvd_flash_mma::dkdv_bf16(q, k, v, dout, lse, delta, dk, dv, bh, S,
+                                   D, scale, causal != 0, st);
+    g_last_route = kRouteMma;
+  } else {
+    err = HVD_FLASH_DISPATCH(dkdv, float, D, q, k, v, dout, lse, delta, dk,
+                             dv, bh, S, D, scale, causal != 0, st);
+    g_last_route = kRouteCudaCore;
+  }
   return static_cast<int>(err);
 }
 

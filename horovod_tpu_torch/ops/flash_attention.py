@@ -3,7 +3,7 @@
 Counterpart of ``horovod_tpu/ops/flash_attention.py``: ``repeat_kv_heads``
 (:64), ``flash_attention`` (:362) and the custom VJP (:274-359), which here
 is a ``torch.autograd.Function``. Its three Pallas kernels become CUDA C++
-for Hopper in ``horovod_tpu_torch/csrc/flash_attention.cu``:
+for Hopper in ``horovod_tpu_torch/csrc/``:
 
 * B7 ``flash_fwd`` (``_fwd_call``/``_fwd_kernel``): ``o`` and the row
   logsumexp of causal or bidirectional softmax attention;
@@ -13,9 +13,15 @@ for Hopper in ``horovod_tpu_torch/csrc/flash_attention.cu``:
 The kernels take ``[BH, S, D]`` tensors in bf16 or fp32 and keep ``lse``
 as fp32 ``[BH, S]``; nothing is padded (the TPU's lane-replicated
 ``[BH, S, 128]`` statistics and the padding of S to 128 are not carried
-over). Each wrapper takes the plain PyTorch version beside it for tensors
-on the CPU, launches its kernel for CUDA tensors, and raises for any other
-device: there is no fallback. ``LAUNCHES`` counts kernel launches.
+over). The type chooses the route: bf16 B7 and B8 run on the tensor cores
+(``flash_attention_mma.cu``: ``mma.sync`` tiles fed by ``cp.async``, with
+P and dS rounded to bf16 before their products, see
+:func:`mma_rounding_terms`); fp32 B7 and B8, and B9 in both types, run the
+CUDA-core kernels of ``flash_attention.cu``. Each wrapper takes the plain
+PyTorch version beside it for tensors on the CPU, launches its kernel for
+CUDA tensors, and raises for any other device: there is no fallback.
+``LAUNCHES`` counts kernel launches and ``ROUTES`` the launches of B7 and
+B8 by the route the C entry point reports it took.
 """
 
 from __future__ import annotations
@@ -32,11 +38,27 @@ from ..utils import cuda_build
 NEG_INF = -1e30  # the TPU kernels' masked logit: exp never sees inf - inf
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0}
+# Launches of B7 and B8 by route: the tensor-core kernels (bf16) or the
+# CUDA-core ones (fp32), as ``hvd_flash_last_route`` reports the branch the
+# C entry point launched from.
+ROUTES: Dict[str, Dict[str, int]] = {
+    name: {"mma_bf16": 0, "fp32": 0} for name in ("flash_fwd", "flash_dkdv")}
+_ROUTE_NAMES = {1: "mma_bf16", 2: "fp32"}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for routes in ROUTES.values():
+        for route in routes:
+            routes[route] = 0
+
+
+def _count_route(name: str) -> None:
+    code = _lib().hvd_flash_last_route()
+    if code not in _ROUTE_NAMES:
+        raise RuntimeError(f"{name}: the library reports route {code}")
+    ROUTES[name][_ROUTE_NAMES[code]] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,6 +72,8 @@ def _lib() -> ctypes.CDLL:
     lib.hvd_flash_dkdv.restype = i32
     lib.hvd_flash_dq.argtypes = [ptr] * 7 + shape
     lib.hvd_flash_dq.restype = i32
+    lib.hvd_flash_last_route.argtypes = []
+    lib.hvd_flash_last_route.restype = i32
     return lib
 
 
@@ -100,6 +124,17 @@ def _check_device(first: torch.Tensor, *others: torch.Tensor) -> bool:
         if not t.is_contiguous():
             raise ValueError("arguments must be contiguous")
     return False
+
+
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    """The tensor-core B7 and B8 (bf16) copy rows with 16-byte
+    ``cp.async``: each bf16 input must be 16-byte aligned (a view that
+    starts inside an allocation may not be). The CUDA-core kernels load
+    one element at a time and need no check."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"argument at {t.data_ptr():#x} is not 16-byte "
+                             "aligned")
 
 
 def _flags(q: torch.Tensor, scale: float, causal: bool):
@@ -155,6 +190,39 @@ def flash_dq_plain(q, k, v, do, lse, delta, scale: float, causal: bool
     return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
 
 
+def mma_rounding_terms(q, k, v, do, lse, delta, scale: float, causal: bool
+                       ) -> Dict[str, torch.Tensor]:
+    """What the tensor-core route (bf16 B7 and B8) may add to the bound of
+    its outputs against the plain versions, element by element, in fp32.
+
+    That route multiplies bf16 operands exactly with fp32 sums, but rounds
+    two fp32 intermediates to bf16 before they enter a product: P (before
+    ``P V`` and ``Pᵀ dO``) and dS (before ``dSᵀ Q``). Rounding to nearest
+    moves a value x by at most u|x|, u = 2^-8, so an output element
+    ``sum_j x_j y_j`` moves by ``sum_j e_j y_j`` with ``|e_j| <= u |x_j|``.
+    The term is ``4 u sqrt(sum_j x_j^2 y_j^2)``: for ``o`` x is p
+    (normalised: ``exp(s - lse)``) and y is v; for dV p and dO; for dK dS
+    and q, times ``scale``. Where at most 16 products carry the sum, the
+    worst case ``u sum_j |x_j y_j|`` is within it (Cauchy-Schwarz); where
+    many do, the rounding errors act as independent, zero-mean and of
+    variance at most ``u^2 x_j^2 / 3``, and the term is 6.9 of the sum's
+    standard deviations (a normal tail of 4e-12 an element). The worst-case
+    sum itself would grow to several times a typical value of ``o`` in long
+    causal rows and let an error of a few percent pass.
+    ``tests/test_torch_flash_rounding.py`` holds an emulation of the route
+    to this bound and shows that a 2% error fails it. dQ, lse and fp32
+    outputs get no term. Costs one product of squares each."""
+    p, ds = _dscores(q, k, v, do, lse, delta, scale, causal)
+    factor = 4 * 2.0 ** -8
+
+    def rss(x, y):
+        return torch.matmul(x.square(), y.float().square()).sqrt()
+
+    return {"o": factor * rss(p, v),
+            "dv": factor * rss(p.transpose(-1, -2), do),
+            "dk": (factor * scale) * rss(ds.transpose(-1, -2), q)}
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -165,6 +233,8 @@ def flash_fwd(q, k, v, scale: float, causal: bool
     ``lse [BH, S]`` for ``[BH, S, D]`` q, k, v."""
     if _check(q, k, v):
         return flash_fwd_plain(q, k, v, scale, causal)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -172,6 +242,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool
                           q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), lse.data_ptr(),
                           *_flags(q, scale, causal))
+    _count_route("flash_fwd")
     return o, lse
 
 
@@ -183,6 +254,8 @@ def flash_dkdv(q, k, v, do, lse, delta, scale: float, causal: bool
     _check_stats(q, lse, delta)
     if on_cpu:
         return flash_dkdv_plain(q, k, v, do, lse, delta, scale, causal)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v, do)
     dk = torch.empty_like(q)
     dv = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -191,6 +264,7 @@ def flash_dkdv(q, k, v, do, lse, delta, scale: float, causal: bool
                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                           dk.data_ptr(), dv.data_ptr(),
                           *_flags(q, scale, causal))
+    _count_route("flash_dkdv")
     return dk, dv
 
 

@@ -4,9 +4,10 @@ source under ``horovod_tpu_torch/csrc``.
 Each ``.cu`` file is compiled by its own ``nvcc`` process, all started
 together, and one more ``nvcc`` call links the objects into one library
 with a plain C interface, loaded with ctypes. The library's name carries a
-hash of every source and the flags, so an edit to any kernel rebuilds it at
-first use. Nothing is built when a module is imported: the CPU tests import
-every module on machines without ``nvcc``.
+hash of the flags and of every ``.cu`` and ``.cuh`` file under ``csrc``, so
+an edit to any kernel or shared header rebuilds it at first use. Nothing
+is built when a module is imported: the CPU tests import every module on
+machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ from typing import Dict
 import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG_DIR / "csrc" / "maxmin.cu",
-           _PKG_DIR / "csrc" / "norm.cu",
-           _PKG_DIR / "csrc" / "flash_attention.cu")
+CSRC = _PKG_DIR / "csrc"
+SOURCES = (CSRC / "maxmin.cu",
+           CSRC / "norm.cu",
+           CSRC / "flash_attention.cu",
+           CSRC / "flash_attention_mma.cu")
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -56,15 +59,23 @@ def _run_all(cmds) -> None:
                                f"{out}")
 
 
+def source_key(csrc: Path = CSRC) -> str:
+    """Hash of the flags and of every ``.cu`` and ``.cuh`` file under
+    ``csrc`` (names and contents, in name order)."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(p for p in csrc.rglob("*")
+                      if p.suffix in (".cu", ".cuh")):
+        key.update(src.relative_to(csrc).as_posix().encode() + b"\0")
+        key.update(src.read_bytes())
+    return key.hexdigest()[:16]
+
+
 def build() -> Path:
     """Compile every source unless a library for their current content and
     flags exists, and return the library's path. Objects and library are
     written under names of this process and the library renamed at the
     end, so ranks that build at once never load a half-written file."""
-    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        key.update(src.read_bytes())
-    path = BUILD_DIR / f"libhvd_kernels-{key.hexdigest()[:16]}.so"
+    path = BUILD_DIR / f"libhvd_kernels-{source_key()}.so"
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

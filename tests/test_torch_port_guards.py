@@ -12,7 +12,9 @@ both sides round an fp32 value to bf16 and may land one bf16 step apart,
 at most 2^-7 of the value; to that come 2^-8 of the mean |value| and 2^-14
 for values near zero, where the fp32 sums differ by more than a bf16 step
 of the value (at S = 1, dK and dQ are zero in exact arithmetic and rounding
-noise in both)."""
+noise in both). bf16 B7 and B8 run on the tensor cores, which round P and
+dS to bf16 before their products: their ``o``, dK and dV also get
+``mma_rounding_terms`` (``tests/test_torch_flash_rounding.py`` derives it)."""
 
 import ast
 import os
@@ -25,6 +27,7 @@ import torch
 
 import horovod_tpu_torch as thvd
 from horovod_tpu_torch.compression import kernels, norm_kernels
+from horovod_tpu_torch.utils import cuda_build
 from horovod_tpu_torch.compression.quantize import default_levels
 from horovod_tpu_torch.ops import flash_attention as flash
 from horovod_tpu_torch.exceptions import NotInitializedError
@@ -254,13 +257,16 @@ def test_cuda_norm_kernels_match_plain(n, bucket, bits, kind, norm):
                     norm_kernels.norm_dequantize_plain(q, short, nrm))
 
 
-def _close(got, want, rel: float, what: str) -> None:
+def _close(got, want, rel: float, what: str, term=None) -> None:
     """fp32: ``max|got - want| <= rel * max(1, max|want|)``; bf16, element
-    by element: ``|got - want| <= 2^-7 |want| + 2^-8 mean|want| + 2^-14``."""
+    by element: ``|got - want| <= 2^-7 |want| + 2^-8 mean|want| + 2^-14``,
+    plus ``term`` (the tensor-core route's rounding) where given."""
     size = want.float().abs()
     err = (got.float() - want.float()).abs()
     if got.dtype == torch.bfloat16:
         bound = 2**-7 * size + (2**-8 * size.mean() + 2**-14)
+        if term is not None:
+            bound = bound + term
     else:
         bound = torch.full_like(size, rel * max(1.0, float(size.max())))
     over = int((err > bound).sum())
@@ -274,8 +280,8 @@ def _close(got, want, rel: float, what: str) -> None:
 @pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("s", [1, 127, 200, 4096])
 def test_cuda_flash_matches_plain(s, d, causal, dtype):
-    """B7, B8 and B9 against their plain versions, fp32 math on the same
-    inputs (tolerances in the module docstring)."""
+    """B7, B8 and B9 against their plain versions on the same inputs
+    (tolerances in the module docstring)."""
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
@@ -286,9 +292,11 @@ def test_cuda_flash_matches_plain(s, d, causal, dtype):
     fwd_tol, bwd_tol = 1e-4, 5e-4  # fp32 outputs; bf16 ones: see _close
     o, lse = flash.flash_fwd(q, k, v, scale, causal)
     o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, scale, causal)
-    _close(o, o_ref, fwd_tol, "o")
-    _close(lse, lse_ref, 1e-4, "lse")
     delta = (do.float() * o_ref.float()).sum(-1)
+    terms = flash.mma_rounding_terms(q, k, v, do, lse_ref, delta, scale,
+                                     causal)
+    _close(o, o_ref, fwd_tol, "o", terms["o"])
+    _close(lse, lse_ref, 1e-4, "lse")
     dk, dv = flash.flash_dkdv(q, k, v, do, lse_ref, delta, scale, causal)
     dk_ref, dv_ref = flash.flash_dkdv_plain(q, k, v, do, lse_ref, delta,
                                             scale, causal)
@@ -298,4 +306,97 @@ def test_cuda_flash_matches_plain(s, d, causal, dtype):
     for got, want, what in ((dq, dq_ref, "dq"), (dk, dk_ref, "dk"),
                             (dv, dv_ref, "dv")):
         assert got.dtype == dt and got.shape == want.shape
-        _close(got, want, bwd_tol, what)
+        _close(got, want, bwd_tol, what, terms.get(what))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [("bfloat16", "mma_bf16"),
+                                         ("float32", "fp32")])
+def test_cuda_flash_route_follows_type(dtype, route):
+    """A bf16 call of B7 and B8 counts on the tensor-core route, an fp32
+    call on the CUDA-core one, and nothing else moves."""
+    dev = _cuda()
+    x = torch.randn(2, 100, 64, generator=torch.Generator().manual_seed(0)
+                    ).to(dev, getattr(torch, dtype))
+    stats = torch.zeros(2, 100, device=dev)
+    flash.reset_launches()
+    flash.flash_fwd(x, x, x, 0.125, True)
+    flash.flash_dkdv(x, x, x, x, stats, stats, 0.125, True)
+    torch.cuda.synchronize()
+    other = "fp32" if route == "mma_bf16" else "mma_bf16"
+    assert flash.ROUTES == {name: {route: 1, other: 0}
+                            for name in ("flash_fwd", "flash_dkdv")}
+    assert flash.LAUNCHES == {"flash_fwd": 1, "flash_dkdv": 1,
+                              "flash_dq": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_dkdv"])
+def test_cuda_flash_refuses_misaligned_pointers(name):
+    """A contiguous view that starts one element into its allocation is not
+    16-byte aligned: the bf16 B7 and B8 wrappers, whose kernels copy rows
+    with 16-byte ``cp.async``, raise and launch nothing."""
+    dev = _cuda()
+    flat = torch.zeros(2 * 64 * 16 + 1, device=dev, dtype=torch.bfloat16)
+    bad = flat[1:].view(2, 64, 16)
+    good = torch.zeros(2, 64, 16, device=dev, dtype=torch.bfloat16)
+    stats = torch.zeros(2, 64, device=dev)
+    args = {"flash_fwd": (good, bad, good, 0.25, True),
+            "flash_dkdv": (good, good, good, bad, stats, stats, 0.25, True)}
+    flash.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        getattr(flash, name)(*args[name])
+    assert flash.LAUNCHES[name] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [("flash_fwd", "float32"),
+                                        ("flash_dkdv", "float32"),
+                                        ("flash_dq", "float32"),
+                                        ("flash_dq", "bfloat16")])
+def test_cuda_flash_cuda_core_kernels_take_offset_views(name, dtype):
+    """The CUDA-core kernels load one element at a time: a view one element
+    into its allocation runs and matches the plain version."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(3)
+    flat = torch.randn(2 * 64 * 16 + 1, generator=gen).to(dev, dt)
+    x = flat[1:].view(2, 64, 16)
+    stats = torch.zeros(2, 64, device=dev)
+    args = {"flash_fwd": (x, x, x, 0.25, True)}.get(
+        name, (x, x, x, x, stats, stats, 0.25, True))
+    got = getattr(flash, name)(*args)
+    want = getattr(flash, name + "_plain")(*args)
+    if name == "flash_dq":
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        _close(g, w, 5e-4, name)
+
+
+def test_alignment_check_refuses_offset_views():
+    """The check the CUDA path runs: an allocation passes, a view one
+    element in does not."""
+    flat = torch.zeros(65, dtype=torch.bfloat16)
+    flash._check_aligned(flat[:64])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash._check_aligned(flat[:64], flat[1:].view(8, 8))
+
+
+def test_library_key_covers_headers(tmp_path):
+    """The library's name hashes every ``.cu`` and ``.cuh`` under
+    ``csrc``: an edit to a shared header alone gives a new library."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in cuda_build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (csrc / src.name).write_bytes(src.read_bytes())
+    assert {p.name for p in csrc.iterdir()} >= {
+        p.name for p in cuda_build.SOURCES} | {"flash_attention_mma.cuh"}
+    before = cuda_build.source_key(csrc)
+    assert before == cuda_build.source_key()
+    header = csrc / "flash_attention_mma.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    edited = cuda_build.source_key(csrc)
+    assert edited != before
+    (csrc / "notes.txt").write_text("not a source")
+    assert cuda_build.source_key(csrc) == edited

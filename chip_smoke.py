@@ -22,19 +22,19 @@ just after:
   B2, and B3, B4 on the receive side);
 * GPT: the ``gpt_long_context_flash`` configuration of ``bench.py`` (6
   layers, d512, 8 heads of 64, MLP 2048, vocab 32000, 2 x 4096 tokens, bf16,
-  ``remat="full"``) with flash attention (kernels B7, B8, B9; bf16 B7 and
-  B8 on the tensor cores), through the dense ``DistributedOptimizer``
-  (Average, one fused ``grouped_allreduce``) and SGD.
+  ``remat="full"``) with flash attention (kernels B7, B8, B9, in bf16 on
+  the tensor cores), through the dense ``DistributedOptimizer`` (Average,
+  one fused ``grouped_allreduce``) and SGD.
 
 Each path takes 2 warm-up and 10 timed steps. The script checks that the
 loss is finite and falls, that the steps launched each kernel of the path
-as often as the path requires (and no other kernel; every B7 and B8 launch
-of the GPT path on the tensor-core route), and that the trained model of
+as often as the path requires (and no other kernel; every B7, B8 and B9
+launch of the GPT path on the tensor-core route), and that the trained model of
 the first ResNet-50 path and of the GPT path agrees with a CPU copy of
 itself on a small input. Then it times each kernel, its plain version and,
 where one exists, the PyTorch call that computes the same function, at the
-shapes of the path (the attention kernels and that call in alternating
-rounds, with the card's clocks read before and after).
+shapes of the path (the attention kernels and B4 in alternating rounds
+with that call, with the card's clocks read before and after).
 
 Output: the card's name and power limit as ``nvidia-smi`` reports them, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -90,12 +90,12 @@ SOURCES = {"maxmin": "horovod_tpu_torch/csrc/maxmin.cu",
            "norm": "horovod_tpu_torch/csrc/norm.cu",
            "flash": "horovod_tpu_torch/csrc/flash_attention.cu",
            "flash_mma": "horovod_tpu_torch/csrc/flash_attention_mma.cu"}
-# The kernel that runs each attention wrapper at the GPT path's shape (bf16;
-# B7 and B8 on the tensor cores, as the route counts confirm).
+# The kernel that runs each attention wrapper at the GPT path's shape (bf16,
+# on the tensor cores, as the route counts confirm).
 FLASH_KERNELS = {
     "flash_fwd": ("flash_fwd_mma_kernel<64>", "flash_mma"),
     "flash_dkdv": ("flash_dkdv_mma_kernel<64>", "flash_mma"),
-    "flash_dq": ("flash_dq_kernel<__nv_bfloat16, 64>", "flash"),
+    "flash_dq": ("flash_dq_mma_kernel<64>", "flash_mma"),
 }
 # Launches a step of each path (the launch counts of every other kernel
 # must stay 0): the max-min reducer quantizes the rows and the reduced
@@ -124,11 +124,11 @@ RATES = {"H100 PCIe": (2.0e12, 51e12, 756e12),
 # the value; plus 2^-8 of the mean |value| and 2^-14 for values near zero,
 # where the fp32 sums differ by more than a bf16 step of the value (at S 1,
 # dK and dQ are zero in exact arithmetic and rounding noise in both). bf16
-# B7 and B8 run on the tensor cores, which round P and dS to bf16 before
-# their products: o, dK and dV also get flash.mma_rounding_terms (4 x 2^-8
-# times the root-sum-square of rounded operand x other operand of each
-# product). At the path's shape a 2% error planted in the rows with the
-# longest sums must fail that bound.
+# B7, B8 and B9 run on the tensor cores, which round P and dS to bf16
+# before their products: o, dK, dV and dQ also get flash.mma_rounding_terms
+# (4 x 2^-8 times the root-sum-square of rounded operand x other operand of
+# each product). At the path's shape a 2% error planted in the rows with
+# the longest sums must fail that bound.
 FLASH_TOL = (1e-4, 5e-4)
 PLANTED = 0.02
 FLASH_ROUNDS = 5  # alternating timing rounds of each attention kernel
@@ -329,9 +329,10 @@ def flash_errors(flash, q, k, v, do, causal: bool, plant: bool = False):
     """B7, B8 and B9 against their plain versions on the same inputs (the
     backward kernels get the plain ``lse`` and ``delta``); raises beyond
     ``FLASH_TOL`` (bf16: ``BF16_TOL`` and the tensor-core route's rounding
-    terms). With ``plant``, also raises unless the kernel's ``o``, dK and
-    dV, each made ``PLANTED`` larger in the quarter of rows with the longest
-    sums (the last queries, the first keys), fail the bound. Returns each
+    terms). With ``plant``, also raises unless the kernel's ``o``, dK, dV
+    and dQ, each made ``PLANTED`` larger in the quarter of rows with the
+    longest sums (the last queries for ``o`` and dQ, the first keys for dK
+    and dV), fail the bound. Returns each
     kernel's largest absolute error and each output's largest error over
     its bound."""
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -385,7 +386,8 @@ def flash_errors(flash, q, k, v, do, causal: bool, plant: bool = False):
             ratios[what] = float((err / bound).max())
             if plant and what in terms:
                 n = q.shape[1]
-                rows = slice(n - n // 4, n) if what == "o" else slice(0, n // 4)
+                rows = (slice(n - n // 4, n) if what in ("o", "dq")
+                        else slice(0, n // 4))
                 planted = g.float().clone()
                 planted[:, rows] *= 1 + PLANTED
                 if bool(((planted - w.float()).abs() <= bound).all()):
@@ -399,15 +401,16 @@ def check_flash(flash, dev):
     """The attention kernels against their plain versions: at the GPT
     path's shape (B 2 x H 8, S 4096, D 64, bf16, causal), then S in
     {1, 127, 200, 4096} x D in {16, 64, 128} x causal or not x fp32 or
-    bf16 (bf16 B7 and B8 on the tensor cores, fp32 on the CUDA cores, as
-    the route counts confirm). Returns the errors at the path's shape."""
+    bf16 (bf16 on the tensor cores, fp32 on the CUDA cores, as the route
+    counts of B7, B8 and B9 confirm). Returns the errors at the path's
+    shape."""
     flash.reset_launches()
     bh = GPT_BATCH * GPT_CONFIG["num_heads"]
     errors, ratios = flash_errors(flash, *flash_inputs(
         dev, bh, GPT_SEQ, GPT_CONFIG["head_dim"], torch.bfloat16, 0), True,
         plant=True)
     log(f"kernels: attention at the GPT path's shape, largest error over "
-        f"its bound {ratios}; a {PLANTED} error planted in o, dk and dv "
+        f"its bound {ratios}; a {PLANTED} error planted in o, dk, dv and dq "
         f"fails it")
     seed = 1
     for s in (1, 127, 200, 4096):
@@ -621,7 +624,7 @@ def train_gpt(hvd, dev):
     want = {name: {"mma_bf16": launches[name], "fp32": 0} for name in routes}
     if routes != want:
         raise AssertionError(f"gpt: routes {routes}, expected {want}")
-    log(f"gpt: every B7 and B8 launch on the tensor cores {routes}")
+    log(f"gpt: every B7, B8 and B9 launch on the tensor cores {routes}")
 
     # The trained model in fp32 against a CPU copy of itself (whose
     # attention is the plain version), on 200 tokens.
@@ -651,7 +654,11 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
     counter, and the noise's mask, convert and scale), B3 3 and B4 2 (a
     multiply and an add), B5 5 + 3L for L levels (abs, max, divide, then
     subtract, abs and compare per level, and the code's shift and or), B6
-    4 (shift, clip, sign, multiply)."""
+    4 (shift, clip, sign, multiply). Yardstick of B4: the one PyTorch call
+    that computes ``min + q unit``, ``torch.addcmul``, timed beside it in
+    ``FLASH_ROUNDS`` alternating rounds (medians). It rounds once where B4
+    rounds twice, so it measures rate only; B4 stays bitwise against its
+    plain version."""
     from horovod_tpu_torch.compression.quantize import default_levels
 
     bandwidth, fp32, _ = rates
@@ -700,26 +707,34 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
             padded + 4 * n_buckets + 4 * padded, 4 * padded),
     }
 
-    def timed(kernel, plain, nbytes, ops):
+    def timed(kernel, plain, nbytes, ops, ms=None):
         byte_ms, op_ms = nbytes / bandwidth * 1e3, ops / fp32 * 1e3
-        return {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+        return {"ms": time_ms(kernel) if ms is None else ms,
+                "plain_ms": time_ms(plain),
                 "bound_ms": max(byte_ms, op_ms),
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
 
+    library = {"maxmin_dequantize": (
+        *yardstick_b4(work["maxmin_dequantize"][0], q, mn, unit),
+        "torch.addcmul(mn[:, None], q, unit[:, None]) on the uint8 codes")}
     rows = []
     for name, (kernel, plain, nbytes, ops) in work.items():
         source = "norm" if name.startswith("norm") else "maxmin"
+        ms, lib_ms, lib = library.get(name, (None, None, None))
         row = {"name": name, "route": "cuda", "source": SOURCES[source],
                "replaces": REPLACES[name], "launches": launches[name],
                "max_abs_err": errors[name],
-               **timed(kernel, plain, nbytes, ops), "library_ms": None}
+               **timed(kernel, plain, nbytes, ops, ms), "library_ms": lib_ms}
+        if lib is not None:
+            row["library"] = lib
         if name == "norm_quantize":
             row.update({f"{k}_at_8_bits": v
                         for k, v in timed(*norm_work(8)).items()})
         rows.append(row)
         log(f"kernel {name}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}"
             f" ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
-            f"{nbytes} bytes, {ops} operations)")
+            f"{nbytes} bytes, {ops} operations)"
+            + (f"; {lib} {lib_ms:.4f} ms" if lib else ""))
     eight = next(row for row in rows if row["name"] == "norm_quantize")
     log(f"kernel norm_quantize at 8 bits (128 levels): "
         f"{eight['ms_at_8_bits']:.4f} ms (plain "
@@ -727,6 +742,20 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
         f"{eight['bound_ms_at_8_bits']:.4f} ms by "
         f"{eight['bound_by_at_8_bits']})")
     return rows
+
+
+def yardstick_b4(kernel, q, mn, unit):
+    """B4 and ``torch.addcmul(mn[:, None], q, unit[:, None])`` on its uint8
+    codes, in alternating rounds: (B4 ms, addcmul ms)."""
+    out = torch.addcmul(mn[:, None], q, unit[:, None])
+    if out.dtype != torch.float32 or out.shape != q.shape:
+        raise AssertionError(f"addcmul gave {out.dtype} {tuple(out.shape)}")
+    medians, readings = paired_ms({
+        "maxmin_dequantize": kernel,
+        "addcmul": lambda: torch.addcmul(mn[:, None], q, unit[:, None])})
+    log(f"B4 timing: {FLASH_ROUNDS} alternating rounds with addcmul, ms "
+        f"{json.dumps(readings)}")
+    return medians["maxmin_dequantize"], medians["addcmul"]
 
 
 def smi_clocks() -> str:
@@ -878,8 +907,8 @@ def main() -> int:
             f"at 99 shapes; errors at the path's shape {norm_errors}")
         flash_err = check_flash(flash, dev)
         log(f"kernels: B7, B8 and B9 within their tolerances at 49 shapes "
-            f"(bf16 B7 and B8 on the tensor cores); errors at the GPT "
-            f"path's shape {flash_err}")
+            f"(bf16 on the tensor cores); errors at the GPT path's shape "
+            f"{flash_err}")
         # Each kernel's launches in the timed steps of the phase that
         # carries it (B3 and B4: the max-min phase).
         phases = {"resnet": train(hvd, dev),

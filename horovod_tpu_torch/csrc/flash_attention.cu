@@ -10,11 +10,11 @@
 // fp32; lse and delta = rowsum(dO * O) are fp32 [BH, S]. scale = 1/sqrt(D).
 //
 // Routes, chosen by type in the C entry points, never by a failed launch:
-// bf16 B7 and B8 run the tensor-core kernels of flash_attention_mma.cu
-// (mma.sync tiles fed by cp.async; see the note there). fp32 B7 and B8,
-// and B9 in both types, run the CUDA-core kernels of this file: tensor
-// cores would take fp32 operands only as TF32, which misses the fp32
-// bound, and fp32 reaches these kernels only in checks.
+// bf16 B7, B8 and B9 run the tensor-core kernels of flash_attention_mma.cu
+// (mma.sync tiles fed by cp.async; see the note there). fp32 runs the
+// CUDA-core kernels of this file: tensor cores would take fp32 operands
+// only as TF32, which misses the fp32 bound, and fp32 reaches these
+// kernels only in checks.
 //
 // What bounds them on an H100: arithmetic. At the GPT path's shape
 // (BH 16, S 4096, D 64, causal) B7 does 2 products of 2*D flops for each
@@ -24,11 +24,10 @@
 // out of device memory: each block holds its tiles in shared memory and
 // recomputes the probabilities from q, k and the saved logsumexp, so device
 // memory sees only the inputs and outputs. The products run on the CUDA
-// cores in fp32 FMAs (bf16 inputs are widened on load, as the TPU kernels'
-// astype(f32) does), not on the tensor cores: each thread accumulates a
-// 4 x 4 (or 4 x D/16) register tile from shared memory. That caps them far
-// below the bound, at the fp32 FMA rate and the shared-memory load rate;
-// B9 on the tensor cores is later work.
+// cores in fp32 FMAs, as the TPU kernels' astype(f32) computes: each thread
+// accumulates a 4 x 4 (or 4 x D/16) register tile from shared memory. That
+// caps them far below the bound, at the fp32 FMA rate and the shared-memory
+// load rate.
 //
 // The TPU kernels stream the contraction tiles along a sequential grid axis
 // and carry the running softmax state across grid steps in VMEM scratch.
@@ -48,7 +47,6 @@
 // All arithmetic is IEEE fp32 (expf, logf, division); do not build with
 // --use_fast_math.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -64,34 +62,19 @@ constexpr int kRows = kTile / kGroup;  // tile rows each thread owns (4)
 constexpr int kPStride = kTile + 1;    // padded row of the 64 x 64 tile
 constexpr float kNegInf = -1e30f;      // the TPU kernels' _NEG_INF
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Rows [row0, row0 + 64) of a [S, D] slab into a [64][DP + 1] fp32 tile,
-// each value widened and multiplied by `mul` (q * scale, as the TPU
-// kernels do). Zeros outside the slab. The +1 keeps the column reads of
-// the products on distinct shared-memory banks.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* tile, const T* src, int row0,
-                                          int S, int D, float mul) {
+// Rows [row0, row0 + 64) of a [S, D] slab into a [64][DP + 1] tile, each
+// value multiplied by `mul` (q * scale, as the TPU kernels do). Zeros
+// outside the slab. The +1 keeps the column reads of the products on
+// distinct shared-memory banks.
+template <int DP>
+__device__ __forceinline__ void load_tile(float* tile, const float* src,
+                                          int row0, int S, int D, float mul) {
   for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
     const int r = idx / DP;
     const int d = idx % DP;
     const int row = row0 + r;
     float v = 0.0f;
-    if (row < S && d < D) v = to_float(src[static_cast<int64_t>(row) * D + d]);
+    if (row < S && d < D) v = src[static_cast<int64_t>(row) * D + d];
     tile[r * (DP + 1) + d] = v * mul;
   }
 }
@@ -212,10 +195,10 @@ __device__ __forceinline__ void probs_from_lse(float s[kRows][kRows],
 // p = exp(s - m'), l' = l exp(m - m') + rowsum p,
 // acc' = acc exp(m - m') + p v; then o = acc / l and lse = m + log l, with
 // l = 0 read as 1.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int S, int D, float scale,
                      bool causal) {
   extern __shared__ float smem[];
@@ -229,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x % kGroup;
   const int q0 = qt * kTile;
 
-  load_tile<T, DP>(sQ, q + base * D, q0, S, D, scale);
+  load_tile<DP>(sQ, q + base * D, q0, S, D, scale);
   float m[kRows], l[kRows], acc[kRows][DP / kGroup];
 #pragma unroll
   for (int a = 0; a < kRows; ++a) {
@@ -241,8 +224,8 @@ __global__ void __launch_bounds__(kThreads)
   const int last = causal ? qt : (S - 1) / kTile;
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kTile;
-    load_tile<T, DP>(sK, k + base * D, k0, S, D, 1.0f);
-    load_tile<T, DP>(sV, v + base * D, k0, S, D, 1.0f);
+    load_tile<DP>(sK, k + base * D, k0, S, D, 1.0f);
+    load_tile<DP>(sV, v + base * D, k0, S, D, 1.0f);
     __syncthreads();
     float s[kRows][kRows];
     product_abt<DP>(sQ, sK, s, ty, tx);
@@ -281,7 +264,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < DP / kGroup; ++c) {
       const int d = tx + kGroup * c;
-      if (d < D) o[(base + row) * D + d] = from_float<T>(acc[a][c] / safe);
+      if (d < D) o[(base + row) * D + d] = acc[a][c] / safe;
     }
     if (tx == 0) lse[base + row] = m[a] + logf(safe);
   }
@@ -290,13 +273,14 @@ __global__ void __launch_bounds__(kThreads)
 // B8: one block per (64-row key tile, bh), looping over the query tiles
 // that see it. For each: p = exp(s - lse), dV += pᵀ dO, dP = dO Vᵀ,
 // dS = p (dP - delta), dK += dSᵀ (q scale), as _dkdv_kernel.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int S, int D, float scale,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int S, int D, float scale,
                       bool causal) {
   extern __shared__ float smem[];
   float* sK = smem;
@@ -312,8 +296,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x % kGroup;
   const int k0 = kt * kTile;
 
-  load_tile<T, DP>(sK, k + base * D, k0, S, D, 1.0f);
-  load_tile<T, DP>(sV, v + base * D, k0, S, D, 1.0f);
+  load_tile<DP>(sK, k + base * D, k0, S, D, 1.0f);
+  load_tile<DP>(sV, v + base * D, k0, S, D, 1.0f);
   float gk[kRows][DP / kGroup], gv[kRows][DP / kGroup];
 #pragma unroll
   for (int a = 0; a < kRows; ++a)
@@ -322,8 +306,8 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (S + kTile - 1) / kTile;
   for (int qt = causal ? kt : 0; qt < n_tiles; ++qt) {
     const int q0 = qt * kTile;
-    load_tile<T, DP>(sQ, q + base * D, q0, S, D, scale);
-    load_tile<T, DP>(sO, dout + base * D, q0, S, D, 1.0f);
+    load_tile<DP>(sQ, q + base * D, q0, S, D, scale);
+    load_tile<DP>(sO, dout + base * D, q0, S, D, 1.0f);
     load_rows(sL, lse + base, q0, S);
     load_rows(sD, delta + base, q0, S);
     __syncthreads();
@@ -359,8 +343,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < DP / kGroup; ++c) {
       const int d = tx + kGroup * c;
       if (d >= D) continue;
-      dk[(base + row) * D + d] = from_float<T>(gk[a][c]);
-      dv[(base + row) * D + d] = from_float<T>(gv[a][c]);
+      dk[(base + row) * D + d] = gk[a][c];
+      dv[(base + row) * D + d] = gv[a][c];
     }
   }
 }
@@ -368,12 +352,12 @@ __global__ void __launch_bounds__(kThreads)
 // B9: one block per (64-row query tile, bh), looping over the key tiles it
 // sees: dS = p (dO Vᵀ - delta), dQ += dS K; dQ is scaled once at the end,
 // as _dq_kernel.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int S, int D, float scale, bool causal) {
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -389,8 +373,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x % kGroup;
   const int q0 = qt * kTile;
 
-  load_tile<T, DP>(sQ, q + base * D, q0, S, D, scale);
-  load_tile<T, DP>(sO, dout + base * D, q0, S, D, 1.0f);
+  load_tile<DP>(sQ, q + base * D, q0, S, D, scale);
+  load_tile<DP>(sO, dout + base * D, q0, S, D, 1.0f);
   load_rows(sL, lse + base, q0, S);
   load_rows(sD, delta + base, q0, S);
   float gq[kRows][DP / kGroup];
@@ -401,8 +385,8 @@ __global__ void __launch_bounds__(kThreads)
   const int last = causal ? qt : (S - 1) / kTile;
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kTile;
-    load_tile<T, DP>(sK, k + base * D, k0, S, D, 1.0f);
-    load_tile<T, DP>(sV, v + base * D, k0, S, D, 1.0f);
+    load_tile<DP>(sK, k + base * D, k0, S, D, 1.0f);
+    load_tile<DP>(sV, v + base * D, k0, S, D, 1.0f);
     __syncthreads();
     float p[kRows][kRows], dp[kRows][kRows];
     product_abt<DP>(sQ, sK, p, ty, tx);
@@ -426,7 +410,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < DP / kGroup; ++c) {
       const int d = tx + kGroup * c;
-      if (d < D) dq[(base + row) * D + d] = from_float<T>(gq[a][c] * scale);
+      if (d < D) dq[(base + row) * D + d] = gq[a][c] * scale;
     }
   }
 }
@@ -448,67 +432,69 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int S, int D, float scale, bool causal,
                 cudaStream_t stream) {
   const size_t smem = fwd_smem(DP);
-  cudaError_t err = prepare(flash_fwd_kernel<T, DP>, smem);
+  cudaError_t err = prepare(flash_fwd_kernel<DP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTile - 1) / kTile, bh);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, D, scale, causal);
+  flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, D, scale,
+      causal);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t dkdv(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  void* dk, void* dv, int bh, int S, int D, float scale,
                  bool causal, cudaStream_t stream) {
   const size_t smem = bwd_smem(DP);
-  cudaError_t err = prepare(flash_dkdv_kernel<T, DP>, smem);
+  cudaError_t err = prepare(flash_dkdv_kernel<DP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTile - 1) / kTile, bh);
-  flash_dkdv_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, D, scale, causal);
+  flash_dkdv_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), S, D, scale,
+      causal);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq_out, int bh,
                int S, int D, float scale, bool causal, cudaStream_t stream) {
   const size_t smem = bwd_smem(DP);
-  cudaError_t err = prepare(flash_dq_kernel<T, DP>, smem);
+  cudaError_t err = prepare(flash_dq_kernel<DP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTile - 1) / kTile, bh);
-  flash_dq_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq_out), S, D, scale, causal);
+  flash_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq_out), S, D, scale, causal);
   return cudaGetLastError();
 }
 
 // The head dimension padded to the tile width the kernel is built for:
 // 16, 32, 64 or 128 (the wrapper accepts multiples of 8 up to 128).
-#define HVD_FLASH_DISPATCH(fn, T, D, ...)                      \
-  ((D) <= 16   ? fn<T, 16>(__VA_ARGS__)                         \
-   : (D) <= 32 ? fn<T, 32>(__VA_ARGS__)                         \
-   : (D) <= 64 ? fn<T, 64>(__VA_ARGS__)                         \
-               : fn<T, 128>(__VA_ARGS__))
+#define HVD_FLASH_DISPATCH(fn, D, ...) \
+  ((D) <= 16   ? fn<16>(__VA_ARGS__)     \
+   : (D) <= 32 ? fn<32>(__VA_ARGS__)     \
+   : (D) <= 64 ? fn<64>(__VA_ARGS__)     \
+               : fn<128>(__VA_ARGS__))
 
 }  // namespace
 
 // The C interface: every function launches on `stream` and returns a CUDA
 // error code (0 on success), so a refused launch reaches the caller.
-// `is_bf16` selects bf16 tensors, else fp32; it also selects the route of
-// B7 and B8 (the tensor-core kernels for bf16). hvd_flash_last_route reads
-// the route the calling thread's last B7 or B8 launch took, recorded in the
-// branch that launched it: 1 the tensor-core kernels, 2 the CUDA-core ones.
+// `is_bf16` selects bf16 tensors and the tensor-core kernels, else fp32
+// tensors and the CUDA-core ones. hvd_flash_last_route reads the route the
+// calling thread's last B7, B8 or B9 launch took, recorded in the branch
+// that launched it: 1 the tensor-core kernels, 2 the CUDA-core ones.
 namespace {
 constexpr int kRouteMma = 1;
 constexpr int kRouteCudaCore = 2;
@@ -529,7 +515,7 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                                   causal != 0, st);
     g_last_route = kRouteMma;
   } else {
-    err = HVD_FLASH_DISPATCH(fwd, float, D, q, k, v, o, lse, bh, S, D, scale,
+    err = HVD_FLASH_DISPATCH(fwd, D, q, k, v, o, lse, bh, S, D, scale,
                              causal != 0, st);
     g_last_route = kRouteCudaCore;
   }
@@ -547,7 +533,7 @@ int hvd_flash_dkdv(const void* q, const void* k, const void* v,
                                    D, scale, causal != 0, st);
     g_last_route = kRouteMma;
   } else {
-    err = HVD_FLASH_DISPATCH(dkdv, float, D, q, k, v, dout, lse, delta, dk,
+    err = HVD_FLASH_DISPATCH(dkdv, D, q, k, v, dout, lse, delta, dk,
                              dv, bh, S, D, scale, causal != 0, st);
     g_last_route = kRouteCudaCore;
   }
@@ -559,12 +545,16 @@ int hvd_flash_dq(const void* q, const void* k, const void* v,
                  void* dq_out, int bh, int S, int D, float scale, int causal,
                  int is_bf16, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? HVD_FLASH_DISPATCH(dq, __nv_bfloat16, D, q, k, v, dout, lse,
-                                   delta, dq_out, bh, S, D, scale,
-                                   causal != 0, st)
-              : HVD_FLASH_DISPATCH(dq, float, D, q, k, v, dout, lse, delta,
-                                   dq_out, bh, S, D, scale, causal != 0, st);
+  cudaError_t err;
+  if (is_bf16) {
+    err = hvd_flash_mma::dq_bf16(q, k, v, dout, lse, delta, dq_out, bh, S, D,
+                                 scale, causal != 0, st);
+    g_last_route = kRouteMma;
+  } else {
+    err = HVD_FLASH_DISPATCH(dq, D, q, k, v, dout, lse, delta, dq_out, bh, S,
+                             D, scale, causal != 0, st);
+    g_last_route = kRouteCudaCore;
+  }
   return static_cast<int>(err);
 }
 

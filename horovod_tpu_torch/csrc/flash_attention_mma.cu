@@ -2,19 +2,22 @@
 // fed by cp.async. flash_attention.cu's C entry points launch these for
 // bf16 tensors; fp32 tensors keep that file's CUDA-core kernels.
 //
-// They replace two Pallas TPU kernels of horovod_tpu/ops/flash_attention.py:
+// They replace the three Pallas TPU kernels of
+// horovod_tpu/ops/flash_attention.py:
 //   B7 flash_fwd  <- _fwd_call (_fwd_kernel): o and the row logsumexp;
-//   B8 flash_dkdv <- _flash_bhsd_bwd's first pallas_call (_dkdv_kernel).
+//   B8 flash_dkdv <- _flash_bhsd_bwd's first pallas_call (_dkdv_kernel);
+//   B9 flash_dq   <- _flash_bhsd_bwd's second pallas_call (_dq_kernel).
 //
 // What bounds them on an H100: operations. At the GPT path's shape (BH 16,
 // S 4096, D 64, causal) B7 does two products of 2 * D flops for each of
 // the 134M causal (query, key) pairs, 34.4 GFLOP in all, 0.0348 ms at the
-// card's 989 TFLOP/s of bf16; B8 does four, twice that. Every byte they
-// must move is some thousand flops away, so the design keeps the logits
-// in registers and the products on the tensor cores:
-//   * a block of 4 warps owns a 64-row tile (queries in B7, keys in B8);
-//     each warp owns 16 of its rows and keeps them as mma A fragments in
-//     registers for the whole loop over the other operand's tiles;
+// card's 989 TFLOP/s of bf16; B8 does four, twice that; B9 three, 51.6
+// GFLOP or 0.0521 ms. Every byte they must move is some thousand flops
+// away, so the design keeps the logits in registers and the products on
+// the tensor cores:
+//   * a block of 4 warps owns a 64-row tile (queries in B7 and B9, keys in
+//     B8); each warp owns 16 of its rows and keeps them as mma A fragments
+//     in registers for the whole loop over the other operand's tiles;
 //   * the loop's tiles stay bf16 in shared memory, loaded with 16-byte
 //     cp.async copies into a two-stage ring, so tile j + 1 is in flight
 //     while tile j computes; each row is padded by 16 bytes, which puts the
@@ -27,11 +30,12 @@
 //
 // Numerics against the fp32 plain versions: the products of bf16 inputs
 // are exact in fp32; the scale is applied to the fp32 logits after the
-// product; P (both kernels) and dS (B8) are rounded to bf16 before they
+// product; P (B7, B8) and dS (B8, B9) are rounded to bf16 before they
 // enter a product, a relative error of at most 2^-8 each, which the
 // checks add to the bf16 bound as 4 * 2^-8 * sqrt(sum P^2 V^2) (o),
-// sqrt(sum P^2 dO^2) (dV) and scale * sqrt(sum dS^2 Q^2) (dK): round to
-// nearest errs both ways (flash_attention.py, mma_rounding_terms). B7
+// sqrt(sum P^2 dO^2) (dV), scale * sqrt(sum dS^2 Q^2) (dK) and
+// scale * sqrt(sum dS^2 K^2) (dQ): round to nearest errs both ways
+// (flash_attention.py, mma_rounding_terms). B7
 // takes exp2 of logits pre-scaled by log2(e) (P is rounded to bf16
 // anyway); lse stays fp32 in natural-log units. Masks, the -1e30 masked
 // logit and l = 0 read as 1 follow the TPU kernels and flash_attention.cu.
@@ -482,6 +486,162 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// B9: one block per (64-row query tile, bh), the longest causal rows first;
+// it loops over the key tiles its rows see (up to the diagonal when
+// causal), as _dq_kernel's grid does, and no block writes what another
+// reads. Each warp holds its 16 query rows of Q and dO as A fragments (D
+// <= 64; at D 128 it reloads them from shared memory per product, as B8
+// does with K and V) and lse (in log2 units) and delta of its rows g and
+// g + 8 in registers; K and V stream through the two-stage ring:
+//   S = Q Kᵀ, P = exp(S scale - lse) (masked to 0), dP = dO Vᵀ,
+//   dS = P (dP - delta), dQ += dS K;
+// dS goes from the accumulators to the A fragment of dS K in registers,
+// and K contracts over its rows through ldmatrix.trans. dQ is multiplied
+// by scale once at the end, as _dq_kernel does.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int S, int D, float scale,
+                        bool causal) {
+  constexpr bool kHold = DP <= 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sO = sQ + tile_elems<DP>();      // dO
+  bf16* sK = sO + tile_elems<DP>();      // two stages
+  bf16* sV = sK + 2 * tile_elems<DP>();  // two stages
+
+  const int n_tiles = (S + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - blockIdx.x;
+  const int q0 = qt * kTile;
+  const int64_t rows = static_cast<int64_t>(blockIdx.y) * S;
+  const bf16* kb = k + rows * D;
+  const bf16* vb = v + rows * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int last = causal ? qt : n_tiles - 1;
+
+  load_tile<DP>(sQ, q + rows * D, q0, S, D);
+  load_tile<DP>(sO, dout + rows * D, q0, S, D);
+  cp_async_commit();
+  load_tile<DP>(sK, kb, 0, S, D);
+  load_tile<DP>(sV, vb, 0, S, D);
+  cp_async_commit();
+  // Rows past S read 0 for both: their q and dO are zeros, so dS is 0.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + g + 8 * r;
+    lse2[r] = row < S ? lse[rows + row] * kLog2e : 0.0f;
+    dl[r] = row < S ? delta[rows + row] : 0.0f;
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[kHold ? DP / 16 : 1][4], of[kHold ? DP / 16 : 1][4];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int kc = 0; kc < DP / 16; ++kc) {
+      ldmatrix_x4(qf[kc], frag_rows<DP>(sQ, 16 * warp, 16 * kc, lane));
+      ldmatrix_x4(of[kc], frag_rows<DP>(sO, 16 * warp, 16 * kc, lane));
+    }
+  }
+  auto q_frag = [&](int kc, uint32_t af[4]) {
+    if constexpr (kHold) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) af[i] = qf[kc][i];
+    } else {
+      ldmatrix_x4(af, frag_rows<DP>(sQ, 16 * warp, 16 * kc, lane));
+    }
+  };
+  auto o_frag = [&](int kc, uint32_t af[4]) {
+    if constexpr (kHold) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) af[i] = of[kc][i];
+    } else {
+      ldmatrix_x4(af, frag_rows<DP>(sO, 16 * warp, 16 * kc, lane));
+    }
+  };
+
+  float gq[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gq[n][e] = 0.0f;
+  const float scale_log2 = scale * kLog2e;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    const int stage = kt & 1;
+    if (kt < last) {
+      load_tile<DP>(sK + (stage ^ 1) * tile_elems<DP>(), kb, (kt + 1) * kTile,
+                    S, D);
+      load_tile<DP>(sV + (stage ^ 1) * tile_elems<DP>(), vb, (kt + 1) * kTile,
+                    S, D);
+    }
+    cp_async_commit();  // empty on the last tile: the wait stays uniform
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* tK = sK + stage * tile_elems<DP>();
+    const bf16* tV = sV + stage * tile_elems<DP>();
+
+    // S = Q Kᵀ, then P in place: rows are this warp's queries g and g + 8
+    // (registers e / 2), columns the tile's keys 8 j + 2 t + e % 2.
+    float s[kTileN][4];
+#pragma unroll
+    for (int j = 0; j < kTileN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    product_abt<DP>(s, tK, lane, q_frag);
+    const int k0 = kt * kTile;
+    const bool need_mask = (causal && kt == qt) || k0 + kTile > S;
+#pragma unroll
+    for (int j = 0; j < kTileN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[j][e], scale_log2, -lse2[e >> 1]));
+        if (need_mask) {
+          const int query = q0 + 16 * warp + g + 8 * (e >> 1);
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const bool keep = key < S && (!causal || query >= key);
+          p = keep ? p : 0.0f;
+        }
+        s[j][e] = p;
+      }
+
+    float dp[kTileN][4];  // dP = dO Vᵀ
+#pragma unroll
+    for (int j = 0; j < kTileN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.0f;
+    product_abt<DP>(dp, tV, lane, o_frag);
+#pragma unroll
+    for (int j = 0; j < kTileN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - dl[e >> 1];  // dS
+
+    product_ct<DP>(gq, s, tK, lane);  // dQ += bf16(dS) K
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + g + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * t;
+      if (d < D)
+        *reinterpret_cast<uint32_t*>(dq + (rows + row) * D + d) =
+            pack_bf16(gq[n][2 * r] * scale, gq[n][2 * r + 1] * scale);
+    }
+  }
+}
+
 template <int DP>
 constexpr size_t fwd_smem() {
   return 5 * tile_elems<DP>() * sizeof(bf16);  // Q, K x 2, V x 2
@@ -489,6 +649,10 @@ constexpr size_t fwd_smem() {
 template <int DP>
 constexpr size_t dkdv_smem() {
   return 6 * tile_elems<DP>() * sizeof(bf16) + 4 * kTile * sizeof(float);
+}
+template <int DP>
+constexpr size_t dq_smem() {
+  return 6 * tile_elems<DP>() * sizeof(bf16);  // Q, dO, K x 2, V x 2
 }
 
 template <int DP>
@@ -526,6 +690,23 @@ cudaError_t dkdv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq_out, int bh,
+               int S, int D, float scale, bool causal, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kTile - 1) / kTile, bh);
+  flash_dq_mma_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dq_out), S, D, scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The head dimension padded to the template it is built for.
@@ -548,6 +729,14 @@ cudaError_t dkdv_bf16(const void* q, const void* k, const void* v,
                       bool causal, cudaStream_t stream) {
   return HVD_MMA_DISPATCH(dkdv, D, q, k, v, dout, lse, delta, dk, dv, bh, S,
                           D, scale, causal, stream);
+}
+
+cudaError_t dq_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq_out, int bh, int S, int D, float scale,
+                    bool causal, cudaStream_t stream) {
+  return HVD_MMA_DISPATCH(dq, D, q, k, v, dout, lse, delta, dq_out, bh, S, D,
+                          scale, causal, stream);
 }
 
 }  // namespace hvd_flash_mma

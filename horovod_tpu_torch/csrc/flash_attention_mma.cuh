@@ -13,7 +13,8 @@
 //     c2, c3 = C[g+8][2t..2t+1].
 // So the C tiles of two neighbouring n-tiles, rounded to bf16 and packed in
 // pairs, are the A fragment of a product that contracts over those 16
-// columns: probabilities never leave the registers between two products.
+// columns: probabilities and dS never leave the registers between two
+// products.
 //
 // ldmatrix.x4 reads four 8 x 8 bf16 matrices whose rows are 16 bytes in
 // shared memory; lanes 8i..8i+7 give the row addresses of matrix i, and
@@ -39,6 +40,10 @@ cudaError_t dkdv_bf16(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dk, void* dv, int bh, int S, int D, float scale,
                       bool causal, cudaStream_t stream);
+cudaError_t dq_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq, int bh, int S, int D, float scale, bool causal,
+                    cudaStream_t stream);
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -13,15 +13,15 @@ for Hopper in ``horovod_tpu_torch/csrc/``:
 The kernels take ``[BH, S, D]`` tensors in bf16 or fp32 and keep ``lse``
 as fp32 ``[BH, S]``; nothing is padded (the TPU's lane-replicated
 ``[BH, S, 128]`` statistics and the padding of S to 128 are not carried
-over). The type chooses the route: bf16 B7 and B8 run on the tensor cores
+over). The type chooses the route: bf16 runs on the tensor cores
 (``flash_attention_mma.cu``: ``mma.sync`` tiles fed by ``cp.async``, with
 P and dS rounded to bf16 before their products, see
-:func:`mma_rounding_terms`); fp32 B7 and B8, and B9 in both types, run the
-CUDA-core kernels of ``flash_attention.cu``. Each wrapper takes the plain
-PyTorch version beside it for tensors on the CPU, launches its kernel for
-CUDA tensors, and raises for any other device: there is no fallback.
-``LAUNCHES`` counts kernel launches and ``ROUTES`` the launches of B7 and
-B8 by the route the C entry point reports it took.
+:func:`mma_rounding_terms`); fp32 runs the CUDA-core kernels of
+``flash_attention.cu``. Each wrapper takes the plain PyTorch version beside
+it for tensors on the CPU, launches its kernel for CUDA tensors, and raises
+for any other device: there is no fallback. ``LAUNCHES`` counts kernel
+launches and ``ROUTES`` the launches of each kernel by the route the C
+entry point reports it took.
 """
 
 from __future__ import annotations
@@ -38,11 +38,11 @@ from ..utils import cuda_build
 NEG_INF = -1e30  # the TPU kernels' masked logit: exp never sees inf - inf
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0}
-# Launches of B7 and B8 by route: the tensor-core kernels (bf16) or the
+# Launches of B7, B8 and B9 by route: the tensor-core kernels (bf16) or the
 # CUDA-core ones (fp32), as ``hvd_flash_last_route`` reports the branch the
 # C entry point launched from.
 ROUTES: Dict[str, Dict[str, int]] = {
-    name: {"mma_bf16": 0, "fp32": 0} for name in ("flash_fwd", "flash_dkdv")}
+    name: {"mma_bf16": 0, "fp32": 0} for name in LAUNCHES}
 _ROUTE_NAMES = {1: "mma_bf16", 2: "fp32"}
 
 
@@ -127,10 +127,10 @@ def _check_device(first: torch.Tensor, *others: torch.Tensor) -> bool:
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
-    """The tensor-core B7 and B8 (bf16) copy rows with 16-byte
-    ``cp.async``: each bf16 input must be 16-byte aligned (a view that
-    starts inside an allocation may not be). The CUDA-core kernels load
-    one element at a time and need no check."""
+    """The tensor-core kernels (bf16) copy rows with 16-byte ``cp.async``:
+    each bf16 input must be 16-byte aligned (a view that starts inside an
+    allocation may not be). The CUDA-core kernels (fp32) load one element
+    at a time and need no check."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"argument at {t.data_ptr():#x} is not 16-byte "
@@ -192,26 +192,27 @@ def flash_dq_plain(q, k, v, do, lse, delta, scale: float, causal: bool
 
 def mma_rounding_terms(q, k, v, do, lse, delta, scale: float, causal: bool
                        ) -> Dict[str, torch.Tensor]:
-    """What the tensor-core route (bf16 B7 and B8) may add to the bound of
-    its outputs against the plain versions, element by element, in fp32.
+    """What the tensor-core route (bf16 B7, B8 and B9) may add to the bound
+    of its outputs against the plain versions, element by element, in fp32.
 
     That route multiplies bf16 operands exactly with fp32 sums, but rounds
     two fp32 intermediates to bf16 before they enter a product: P (before
-    ``P V`` and ``Pᵀ dO``) and dS (before ``dSᵀ Q``). Rounding to nearest
-    moves a value x by at most u|x|, u = 2^-8, so an output element
-    ``sum_j x_j y_j`` moves by ``sum_j e_j y_j`` with ``|e_j| <= u |x_j|``.
-    The term is ``4 u sqrt(sum_j x_j^2 y_j^2)``: for ``o`` x is p
-    (normalised: ``exp(s - lse)``) and y is v; for dV p and dO; for dK dS
-    and q, times ``scale``. Where at most 16 products carry the sum, the
-    worst case ``u sum_j |x_j y_j|`` is within it (Cauchy-Schwarz); where
-    many do, the rounding errors act as independent, zero-mean and of
+    ``P V`` and ``Pᵀ dO``) and dS (before ``dSᵀ Q`` and ``dS K``).
+    Rounding to nearest moves a value x by at most u|x|, u = 2^-8, so an
+    output element ``sum_j x_j y_j`` moves by ``sum_j e_j y_j`` with
+    ``|e_j| <= u |x_j|``. The term is ``4 u sqrt(sum_j x_j^2 y_j^2)``: for
+    ``o`` x is p (normalised: ``exp(s - lse)``) and y is v; for dV p and
+    dO; for dK dS and q, for dQ dS and k, both times ``scale``. Where at
+    most 16 products carry the sum, the worst case ``u sum_j |x_j y_j|`` is
+    within it (Cauchy-Schwarz); where many do, the rounding errors act as
+    independent, zero-mean and of
     variance at most ``u^2 x_j^2 / 3``, and the term is 6.9 of the sum's
     standard deviations (a normal tail of 4e-12 an element). The worst-case
     sum itself would grow to several times a typical value of ``o`` in long
     causal rows and let an error of a few percent pass.
     ``tests/test_torch_flash_rounding.py`` holds an emulation of the route
-    to this bound and shows that a 2% error fails it. dQ, lse and fp32
-    outputs get no term. Costs one product of squares each."""
+    to this bound and shows that a 2% error fails it. lse and fp32 outputs
+    get no term. Costs one product of squares each."""
     p, ds = _dscores(q, k, v, do, lse, delta, scale, causal)
     factor = 4 * 2.0 ** -8
 
@@ -220,7 +221,8 @@ def mma_rounding_terms(q, k, v, do, lse, delta, scale: float, causal: bool
 
     return {"o": factor * rss(p, v),
             "dv": factor * rss(p.transpose(-1, -2), do),
-            "dk": (factor * scale) * rss(ds.transpose(-1, -2), q)}
+            "dk": (factor * scale) * rss(ds.transpose(-1, -2), q),
+            "dq": (factor * scale) * rss(ds, k)}
 
 
 # ---------------------------------------------------------------------------
@@ -275,12 +277,15 @@ def flash_dq(q, k, v, do, lse, delta, scale: float, causal: bool
     _check_stats(q, lse, delta)
     if on_cpu:
         return flash_dq_plain(q, k, v, do, lse, delta, scale, causal)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v, do)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         cuda_build.launch(LAUNCHES, "flash_dq", _lib().hvd_flash_dq,
                           q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                           dq.data_ptr(), *_flags(q, scale, causal))
+    _count_route("flash_dq")
     return dq
 
 

@@ -1,20 +1,21 @@
-"""The bound that holds bf16 B7 and B8 on the tensor cores to their plain
-versions, checked on the CPU against an emulation of that route.
+"""The bound that holds bf16 B7, B8 and B9 on the tensor cores to their
+plain versions, checked on the CPU against an emulation of that route.
 
 The route (``horovod_tpu_torch/csrc/flash_attention_mma.cu``) multiplies
 bf16 operands exactly with fp32 sums, applies the scale to the fp32 logits
 after the product, and rounds two intermediates to bf16 before they enter a
-product: P (before ``P V`` and ``Pᵀ dO``) and dS (before ``dSᵀ Q``). The
-emulation below does just that in plain PyTorch, over whole rows instead of
-64-key tiles: a rounding to bf16 is relative, so the bound does not depend
-on the running maximum the kernel rounds against.
+product: P (before ``P V`` and ``Pᵀ dO``) and dS (before ``dSᵀ Q`` and
+``dS K``). The emulation below does just that in plain PyTorch, over whole
+rows instead of 64-key tiles: a rounding to bf16 is relative, so the bound
+does not depend on the running maximum the kernel rounds against.
 
 The bound, element by element, is the one of every bf16 output of the
 attention kernels, ``2^-7 |ref| + 2^-8 mean|ref| + 2^-14``, plus
 ``mma_rounding_terms`` of ``horovod_tpu_torch.ops.flash_attention``,
 computed on the plain side: ``4 u sqrt(sum_j p_ij^2 v_j^2)`` for ``o``,
-``4 u sqrt(sum_i p_ij^2 dO_i^2)`` for dV and
-``4 u scale sqrt(sum_i dS_ij^2 q_i^2)`` for dK, with u = 2^-8, the largest
+``4 u sqrt(sum_i p_ij^2 dO_i^2)`` for dV,
+``4 u scale sqrt(sum_i dS_ij^2 q_i^2)`` for dK and
+``4 u scale sqrt(sum_j dS_ij^2 k_j^2)`` for dQ, with u = 2^-8, the largest
 relative error of rounding to bf16.
 
 Why a root-sum-square, and why 4. A rounded x_j moves an output element
@@ -55,7 +56,11 @@ from horovod_tpu_torch.ops import flash_attention as flash
 
 B, H, S, D = 1, 2, 256, 64
 SCALE = 1.0 / D ** 0.5
-OUTPUTS = ("o", "dk", "dv")
+OUTPUTS = ("o", "dk", "dv", "dq")
+# The rows whose sums are longest in causal attention, where a planted error
+# shows first: the last queries for the outputs summed over keys (o, dQ),
+# the first keys for those summed over queries (dK, dV).
+LAST_QUERIES = ("o", "dq")
 
 
 def _inputs(seed: int = 11, s: int = S):
@@ -111,6 +116,15 @@ def emulate_dkdv(q, k, v, do, lse, delta, causal: bool):
     return dk.bfloat16(), dv.bfloat16()
 
 
+def emulate_dq(q, k, v, do, lse, delta, causal: bool):
+    """B9 on the tensor cores: dS (from the fp32 P) rounded before
+    ``dS K``, dQ scaled at the end."""
+    p = torch.exp(_logits(q, k, causal) - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    return (torch.matmul(_rounded(ds), k.float()) * SCALE).bfloat16()
+
+
 def _beyond(got, want, term, extra_step: bool = False) -> int:
     """Elements of ``got`` beyond the bound around ``want`` (``term`` None:
     today's bound without the rounding term)."""
@@ -135,10 +149,13 @@ def _case(causal: bool, s: int = S):
     dk_ref, dv_ref = flash.flash_dkdv_plain(q, k, v, w, lse, delta, SCALE,
                                             causal)
     o, lse_emulated = emulate_fwd(q, k, v, causal)
+    dq_ref = flash.flash_dq_plain(q, k, v, w, lse, delta, SCALE, causal)
     dk, dv = emulate_dkdv(q, k, v, w, lse, delta, causal)
+    dq = emulate_dq(q, k, v, w, lse, delta, causal)
     terms = flash.mma_rounding_terms(q, k, v, w, lse, delta, SCALE, causal)
-    return ({"o": o_ref, "dk": dk_ref, "dv": dv_ref},
-            {"o": o, "dk": dk, "dv": dv}, terms, (lse, lse_emulated))
+    return ({"o": o_ref, "dk": dk_ref, "dv": dv_ref, "dq": dq_ref},
+            {"o": o, "dk": dk, "dv": dv, "dq": dq}, terms,
+            (lse, lse_emulated))
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,7 +172,8 @@ def _jax(causal: bool):
     (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2),
                                          has_aux=True)(jq, jk, jv)
     as_np = lambda x: np.array(x.astype(jnp.float32))  # noqa: E731
-    return {"o": as_np(out), "dk": as_np(grads[1]), "dv": as_np(grads[2])}
+    return {"o": as_np(out), "dq": as_np(grads[0]), "dk": as_np(grads[1]),
+            "dv": as_np(grads[2])}
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
@@ -180,8 +198,10 @@ def test_emulation_within_bound_of_jax(causal):
     o, lse = emulate_fwd(q, k, v, causal)
     delta = (w.float() * o.float()).sum(dim=-1)
     dk, dv = emulate_dkdv(q, k, v, w, lse, delta, causal)
+    dq = emulate_dq(q, k, v, w, lse, delta, causal)
     want = _jax(causal)
-    got = {"o": _from_bhsd(o), "dk": _from_bhsd(dk), "dv": _from_bhsd(dv)}
+    got = {"o": _from_bhsd(o), "dk": _from_bhsd(dk), "dv": _from_bhsd(dv),
+           "dq": _from_bhsd(dq)}
     for name in OUTPUTS:
         term = torch.from_numpy(_from_bhsd(terms[name]))
         assert _beyond(got[name], want[name], term, extra_step=True) == 0, \
@@ -203,14 +223,16 @@ def test_rounding_term_is_needed(causal, name):
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
 def test_planted_error_fails_the_bound(causal, name):
     """An error of 2% in the rows with the longest sums (the last quarter of
-    the queries for ``o``, the first quarter of the keys for dK and dV) is
+    the queries for ``o`` and dQ, the first quarter of the keys for dK and
+    dV) is
     caught at S 1024, where the emulated route itself stays within the
     bound; the worst-case sum ``u sum_j |x_j y_j|`` as the term would let the
     planted error in ``o`` pass there."""
     s = 1024
     want, got, terms, _ = _case(causal, s)
     assert _beyond(got[name], want[name], terms[name]) == 0
-    rows = slice(3 * s // 4, s) if name == "o" else slice(0, s // 4)
+    rows = (slice(3 * s // 4, s) if name in LAST_QUERIES
+            else slice(0, s // 4))
     planted = got[name].float().clone()
     planted[:, rows] *= 1.02
     assert _beyond(planted, want[name], terms[name]) > 0

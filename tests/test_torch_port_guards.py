@@ -12,8 +12,8 @@ both sides round an fp32 value to bf16 and may land one bf16 step apart,
 at most 2^-7 of the value; to that come 2^-8 of the mean |value| and 2^-14
 for values near zero, where the fp32 sums differ by more than a bf16 step
 of the value (at S = 1, dK and dQ are zero in exact arithmetic and rounding
-noise in both). bf16 B7 and B8 run on the tensor cores, which round P and
-dS to bf16 before their products: their ``o``, dK and dV also get
+noise in both). bf16 B7, B8 and B9 run on the tensor cores, which round P
+and dS to bf16 before their products: their ``o``, dK, dV and dQ also get
 ``mma_rounding_terms`` (``tests/test_torch_flash_rounding.py`` derives it)."""
 
 import ast
@@ -313,8 +313,8 @@ def test_cuda_flash_matches_plain(s, d, causal, dtype):
 @pytest.mark.parametrize("dtype,route", [("bfloat16", "mma_bf16"),
                                          ("float32", "fp32")])
 def test_cuda_flash_route_follows_type(dtype, route):
-    """A bf16 call of B7 and B8 counts on the tensor-core route, an fp32
-    call on the CUDA-core one, and nothing else moves."""
+    """A bf16 call of B7, B8 and B9 counts on the tensor-core route, an
+    fp32 call on the CUDA-core one, and nothing else moves."""
     dev = _cuda()
     x = torch.randn(2, 100, 64, generator=torch.Generator().manual_seed(0)
                     ).to(dev, getattr(torch, dtype))
@@ -322,27 +322,30 @@ def test_cuda_flash_route_follows_type(dtype, route):
     flash.reset_launches()
     flash.flash_fwd(x, x, x, 0.125, True)
     flash.flash_dkdv(x, x, x, x, stats, stats, 0.125, True)
+    flash.flash_dq(x, x, x, x, stats, stats, 0.125, True)
     torch.cuda.synchronize()
     other = "fp32" if route == "mma_bf16" else "mma_bf16"
     assert flash.ROUTES == {name: {route: 1, other: 0}
-                            for name in ("flash_fwd", "flash_dkdv")}
+                            for name in ("flash_fwd", "flash_dkdv",
+                                         "flash_dq")}
     assert flash.LAUNCHES == {"flash_fwd": 1, "flash_dkdv": 1,
-                              "flash_dq": 0}
+                              "flash_dq": 1}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_dkdv"])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_dkdv", "flash_dq"])
 def test_cuda_flash_refuses_misaligned_pointers(name):
     """A contiguous view that starts one element into its allocation is not
-    16-byte aligned: the bf16 B7 and B8 wrappers, whose kernels copy rows
-    with 16-byte ``cp.async``, raise and launch nothing."""
+    16-byte aligned: the bf16 B7, B8 and B9 wrappers, whose kernels copy
+    rows with 16-byte ``cp.async``, raise and launch nothing."""
     dev = _cuda()
     flat = torch.zeros(2 * 64 * 16 + 1, device=dev, dtype=torch.bfloat16)
     bad = flat[1:].view(2, 64, 16)
     good = torch.zeros(2, 64, 16, device=dev, dtype=torch.bfloat16)
     stats = torch.zeros(2, 64, device=dev)
     args = {"flash_fwd": (good, bad, good, 0.25, True),
-            "flash_dkdv": (good, good, good, bad, stats, stats, 0.25, True)}
+            "flash_dkdv": (good, good, good, bad, stats, stats, 0.25, True),
+            "flash_dq": (good, good, bad, good, stats, stats, 0.25, True)}
     flash.reset_launches()
     with pytest.raises(ValueError, match="16-byte aligned"):
         getattr(flash, name)(*args[name])
@@ -350,17 +353,13 @@ def test_cuda_flash_refuses_misaligned_pointers(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,dtype", [("flash_fwd", "float32"),
-                                        ("flash_dkdv", "float32"),
-                                        ("flash_dq", "float32"),
-                                        ("flash_dq", "bfloat16")])
-def test_cuda_flash_cuda_core_kernels_take_offset_views(name, dtype):
-    """The CUDA-core kernels load one element at a time: a view one element
-    into its allocation runs and matches the plain version."""
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_dkdv", "flash_dq"])
+def test_cuda_flash_cuda_core_kernels_take_offset_views(name):
+    """The CUDA-core kernels (fp32) load one element at a time: a view one
+    element into its allocation runs and matches the plain version."""
     dev = _cuda()
-    dt = getattr(torch, dtype)
     gen = torch.Generator().manual_seed(3)
-    flat = torch.randn(2 * 64 * 16 + 1, generator=gen).to(dev, dt)
+    flat = torch.randn(2 * 64 * 16 + 1, generator=gen).to(dev)
     x = flat[1:].view(2, 64, 16)
     stats = torch.zeros(2, 64, device=dev)
     args = {"flash_fwd": (x, x, x, 0.25, True)}.get(

@@ -4,7 +4,7 @@ H100).
 
 Run from the root of a checkout, with no arguments::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 It builds the CUDA kernels from the checkout's sources and holds each
 kernel against its plain PyTorch version on the card. Then it drives the
@@ -29,12 +29,17 @@ just after:
 Each path takes 2 warm-up and 10 timed steps. The script checks that the
 loss is finite and falls, that the steps launched each kernel of the path
 as often as the path requires (and no other kernel; every B7, B8 and B9
-launch of the GPT path on the tensor-core route), and that the trained model of
-the first ResNet-50 path and of the GPT path agrees with a CPU copy of
-itself on a small input. Then it times each kernel, its plain version and,
-where one exists, the PyTorch call that computes the same function, at the
-shapes of the path (the attention kernels and B4 in alternating rounds
-with that call, with the card's clocks read before and after).
+launch of the GPT path on the tensor-core route, every B5 launch on the
+packed bisection route and every B2 launch on the packed route), and that
+the trained model of the first ResNet-50 path and of the GPT path agrees
+with a CPU copy of itself on a small input. Then it times each kernel, its
+plain version and, where one exists, the PyTorch call that computes the
+same function, at the shapes of the path (the attention kernels and B4 in
+alternating rounds with that call, B2 and B5 in alternating rounds with
+their packed route on an input that is not 16-byte aligned, with the
+card's clocks read before and after). ``--parent DIR``, a checkout of the
+parent commit, adds the parent's B2 and B5 plus ``pack_bits`` to those
+rounds.
 
 Output: the card's name and power limit as ``nvidia-smi`` reports them, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -45,6 +50,7 @@ package.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
 import json
@@ -110,6 +116,23 @@ PATH_LAUNCHES = {
                           "maxmin_dequantize_sum": 1,
                           "maxmin_dequantize": 2},
 }
+# The route every launch of a phase's packed kernels must take: the
+# buckets of 512 are read once into registers and the codes written packed;
+# the uniform table is searched by bisection.
+PATH_ROUTES = {"resnet_uni": {"norm_quantize": "packed_search"},
+               "resnet_stochastic": {"maxmin_quantize_stochastic": "packed"}}
+# The least work B2's function needs a value, in issue slots (one warp
+# instruction a lane; an FMA takes one): Philox4x32-10 is 10 rounds of two
+# 32x32->64-bit multiplies, which the card issues at half rate (2 slots
+# each), and two three-input XORs, shared by the 4 values of a counter;
+# then the subtraction of the bucket's min, the division by its unit (a
+# multiply and two FMAs on a reciprocal the bucket shares), the noise (the
+# 24-bit mask and its conversion; its scale by 2^-24 joins the add in one
+# FMA), the code (that FMA, floor, two clamps, the conversion), its packing
+# (one shift-or), and the bucket's min and max. Whatever a build adds to
+# this is the kernel's cost, not the function's.
+B2_SLOTS = {"philox": 10 * (2 * 2 + 2) / 4, "subtract min": 1, "divide": 3,
+            "noise": 2, "code": 5, "pack": 1, "min and max": 2}
 # Data-sheet rates (dense, no sparsity): device-memory bytes/s, fp32
 # operations/s outside the tensor cores, bf16 tensor-core operations/s.
 RATES = {"H100 PCIe": (2.0e12, 51e12, 756e12),
@@ -228,94 +251,273 @@ def special_values(gen, dev, n: int, bucket: int) -> torch.Tensor:
     return x
 
 
+def at_offset(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``x`` as a view ``shift`` values into a new buffer (at shift 1 its
+    address is not a multiple of 16 bytes)."""
+    buf = torch.zeros(x.shape[0] + shift, device=x.device)
+    buf[shift:] = x
+    return buf[shift:]
+
+
+# Divisors that are hard for a division through a refined reciprocal
+# (hvd_groups::divide): significands of all ones, just above 1 and just
+# below 2 and 1.5, over magnitudes inside the range it checks (2^-40 to
+# 2^40), at both of its ends and outside them (where __fdiv_rn runs).
+HARD_SIGNIFICANDS = (2 - 2**-23, 1 + 2**-23, 1 + 2**-22, 2 - 2**-22,
+                     1.5 - 2**-23, 1.5 + 2**-23, 1.75 + 2**-23, 1.0)
+HARD_EXPONENTS = (-100, -60, -41, -40, -39, -20, -1, 0, 1, 20, 39, 40, 41,
+                  60, 100)
+HARD_TARGETS = 25
+
+
+def hard_divisors(bucket: int, seed: int):
+    """Values that pin B5's quotient ``|x| / norm`` to the ulp, with their
+    level table: one bucket for each divisor of ``HARD_SIGNIFICANDS`` x
+    ``HARD_EXPONENTS``, holding that divisor (the linf norm), values
+    fl(q d) for ``HARD_TARGETS`` quotients q, random signs, and a few
+    zeros and values below 2^-40 d (the per-value range check). The table
+    holds each q and the 2 fp32 values on either side of it, and 0: every
+    quotient that is fl(q d) / d rounded lands on an entry, and so does
+    each of its fp32 neighbours, so the code of every such value tells its
+    quotient to the ulp. Returns float32 numpy arrays (x, table)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    # Quotients in [2^-5, 1) away from the ends of their binade.
+    q = np.ldexp(1 + rng.randint(8, 2**23 - 8, HARD_TARGETS) / 2.0**23,
+                 -rng.randint(1, 6, HARD_TARGETS)).astype(f32)
+    near = [q]
+    for direction in (np.inf, -np.inf):
+        step = q
+        for _ in range(2):
+            step = np.nextafter(step, f32(direction))
+            near.append(step)
+    table = np.unique(np.concatenate(near + [np.zeros(1, f32)]))[::-1]
+    if table.shape[0] != 5 * HARD_TARGETS + 1:
+        raise AssertionError("hard_divisors: targets overlap")
+    divisors = np.array([np.ldexp(s, e) for s in HARD_SIGNIFICANDS
+                         for e in HARD_EXPONENTS])
+    pick = rng.randint(0, HARD_TARGETS, (divisors.shape[0], bucket))
+    x = (q[pick].astype(np.float64) * divisors[:, None]).astype(f32)
+    x[:, bucket // 2:bucket // 2 + 2] = 0
+    x[:, 3] = (divisors * 2.0**-45).astype(f32)
+    x[:, 0] = divisors.astype(f32)
+    x *= rng.choice(np.array([-1, 1], f32), x.shape)
+    return x.reshape(-1), np.ascontiguousarray(table)
+
+
+def routed(module, name: str, fn):
+    """``fn()`` and the route its one launch of kernel ``name`` took."""
+    before = dict(module.ROUTES[name])
+    out = fn()
+    taken = [r for r, count in module.ROUTES[name].items()
+             if count != before[r]]
+    if len(taken) != 1:
+        raise AssertionError(f"{name}: routes {before} -> "
+                             f"{module.ROUTES[name]}")
+    return out, taken[0]
+
+
 def check_stochastic(kernels, dev, n_values: int):
     """B2 bitwise against its plain version (the same Philox words): at the
     path's shape, then ragged sizes with special buckets, buckets whose
-    counters straddle two buckets, and 64-bit seeds and offsets. Returns
-    the largest error at the path's shape."""
+    counters straddle two buckets (125, the byte-code route), views at an
+    offset of one value (read one value at a time on the packed route),
+    64-bit seeds and offsets, and buckets whose units are the divisors of
+    :func:`hard_divisors` (min 0, max the divisor: at 1 bit the unit is the
+    divisor itself). Min, unit and byte codes are bitwise; the packed
+    route's payload is bitwise against ``pack_bits`` of the plain codes.
+    Returns the largest error at the path's shape and the launches by
+    route."""
+    from horovod_tpu_torch.compression.quantize import pack_bits
+
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = [(n_values, BITS, BUCKET, 0, 0, False)] + [
-        (n, bits, bucket, seed, offset, True)
+    cases = [(n_values, BITS, BUCKET, 0, 0, False, 0)] + [
+        (n, bits, bucket, seed, offset, True, shift)
         for n in (1, 511, 513, 100_003) for bits in (1, 2, 4, 8)
         for bucket in (64, 125, 512)
-        for seed, offset in ((0, 0), (2**40 + 3, 2**33 + 1))]
-    error = None
-    for n, bits, bucket, seed, offset, special in cases:
-        x = special_values(gen, dev, n, bucket) if special else \
-            torch.randn(n, generator=gen, device=dev) * 1e-2
-        got = kernels.maxmin_quantize_stochastic(x, bits, bucket, seed,
-                                                 offset)
+        for seed, offset, shift in ((0, 0, 0), (2**40 + 3, 2**33 + 1, 0),
+                                    (5, 7, 1))] + [
+        (None, bits, bucket, 9, 0, "hard", shift) for bits in (1, 8)
+        for bucket in (64, 512) for shift in (0, 1)]
+    error, routes = None, {}
+    for n, bits, bucket, seed, offset, special, shift in cases:
+        if special == "hard":
+            # min 0 (the zeros), max the divisor
+            x = torch.from_numpy(abs(hard_divisors(bucket, bits)[0])).to(dev)
+            n = x.shape[0]
+        elif special:
+            x = special_values(gen, dev, n, bucket)
+        else:
+            x = torch.randn(n, generator=gen, device=dev) * 1e-2
+        where = (f"n={n} bits={bits} bucket={bucket} seed={seed} "
+                 f"offset={offset} shift={shift} values={special}")
+        x = at_offset(x, shift)
+        got, route = routed(kernels, "maxmin_quantize_stochastic",
+                            lambda: kernels.maxmin_quantize_stochastic(
+                                x, bits, bucket, seed, offset))
         want = kernels.maxmin_quantize_stochastic_plain(x, bits, bucket,
                                                         seed, offset)
+        if route != ("packed" if bucket % 8 == 0 else "bytes"):
+            raise AssertionError(f"B2 took route {route} at {where}")
+        routes[route] = routes.get(route, 0) + 1
+        if route == "packed":
+            want = (pack_bits(want[0], bits),) + want[1:]
         for g, w, what in zip(got, want, ("codes", "min", "unit")):
             if not bitwise(g, w):
-                raise AssertionError(f"B2 {what} differ at n={n} bits={bits} "
-                                     f"bucket={bucket} seed={seed} "
-                                     f"offset={offset}")
+                raise AssertionError(f"B2 {what} differ at {where}")
         if error is None:
             error = max(float((g.float() - w.float()).abs().max())
                         for g, w in zip(got, want))
     torch.cuda.synchronize()
-    return error
+    return error, routes
+
+
+def norm_tables(bits: int):
+    """The level tables ``check_norm`` codes against: uniform and
+    exponential (bisection), and two that take the scan: the uniform table
+    rotated by one (unsorted) and one with equal neighbours."""
+    import numpy as np
+    from horovod_tpu_torch.compression.quantize import default_levels
+
+    uni = default_levels(bits, "uni")
+    return {"uni": uni, "exp": default_levels(bits, "exp"),
+            "unsorted": np.roll(uni, 1),
+            "equal": np.repeat(uni[::2], 2)[:uni.shape[0]]}
+
+
+def planted(table, gen, dev, n: int, bucket: int) -> torch.Tensor:
+    """Buckets whose largest magnitude is 1, so the linf ratio is |x|
+    itself, filled with the table's levels, the midpoints of neighbouring
+    levels and the fp32 neighbours of both, with random signs: every tie
+    and near-tie of the search."""
+    import numpy as np
+
+    lv = torch.from_numpy(np.sort(table)[::-1].copy()).to(dev)
+    mid = (lv[1:] + lv[:-1]) / 2
+    probes = torch.cat([lv, mid])
+    probes = torch.cat([probes, torch.nextafter(probes, probes + 1),
+                        torch.nextafter(probes, probes - 1)])
+    probes = probes[probes.abs() <= 1]
+    pick = torch.randint(0, probes.shape[0], (n,), generator=gen,
+                         device=dev)
+    sign = torch.randint(0, 2, (n,), generator=gen, device=dev) * 2 - 1
+    x = probes[pick] * sign
+    x[::bucket] = 1.0
+    return x
+
+
+def level_steps(levels: torch.Tensor, got: torch.Tensor,
+                want: torch.Tensor) -> torch.Tensor:
+    """How many distinct level values apart the levels of two code arrays
+    are: the index step of a descending table, and the step between the
+    values of a table that is unsorted or repeats a level."""
+    distinct = torch.unique(levels)
+    ranks = [torch.searchsorted(distinct, levels[(q >> 1).long()])
+             for q in (got, want)]
+    return (ranks[0] - ranks[1]).abs()
 
 
 def check_norm(norm_kernels, dev, n_values: int):
     """B5 and B6 against their plain versions: at the path's shape (4 bits,
     uniform levels, linf), then n in {1, 511, 513, 100003} x bits {2, 4, 8}
-    x uniform or exponential levels x linf or l2 x buckets of 64 or 512,
-    with special buckets, and l2 and 8 bits at the path's shape. linf codes
-    and norms are bitwise; l2 norms sum in another order and agree to rtol
-    1e-6, and a code may then take the neighbouring level index where the
-    ratio lies within a few ulp of a midpoint (never another sign). B6 is
-    bitwise on the kernel's codes, and with a 2-entry table (the clip).
-    Returns the largest errors at the path's shape and the count of l2
-    midpoint codes over all cases."""
-    from horovod_tpu_torch.compression.quantize import default_levels
+    x uniform or exponential levels x linf or l2 x buckets of 64, 125 or
+    512, with special buckets, and l2 and 8 bits at the path's shape; then
+    at 100003 values, for each bits and norm: the two scan tables of
+    :func:`norm_tables`, a view at an offset of one value (the packed
+    route, read one value at a time), and buckets planted with every level,
+    midpoint and their neighbours (:func:`planted`); last, at 8 bits and
+    linf, the quotients of :func:`hard_divisors`, each pinned to the ulp by
+    its table, in buckets of 64 and 512, aligned and at an offset. The
+    kernel gets each searchable table as a ``LevelTable`` and the others
+    as a plain tensor, which it checks itself. linf codes and norms are
+    bitwise, the packed payload against ``pack_bits`` of the plain codes;
+    l2 norms sum in another order and agree to rtol 1e-6, and a code may
+    then take the neighbouring level (by value: :func:`level_steps`) where
+    the ratio lies within a few ulp of a midpoint (never another sign). B6
+    is bitwise on the kernel's codes, and with a 2-entry table (the clip).
+    Returns the largest errors at the path's shape, the count of l2
+    midpoint codes over all cases and the launches by route."""
+    from horovod_tpu_torch.compression.quantize import pack_bits, unpack_bits
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    cases = [(n_values, 4, "uni", "linf", BUCKET, False),
-             (n_values, 4, "uni", "l2", BUCKET, False),
-             (n_values, 8, "uni", "linf", BUCKET, False)] + [
-        (n, bits, kind, norm, bucket, True)
+    cases = [(n_values, 4, "uni", "linf", BUCKET, "path", 0),
+             (n_values, 4, "uni", "l2", BUCKET, "path", 0),
+             (n_values, 8, "uni", "linf", BUCKET, "path", 0)] + [
+        (n, bits, kind, norm, bucket, "special", 0)
         for n in (1, 511, 513, 100_003) for bits in (2, 4, 8)
         for kind in ("uni", "exp") for norm in ("linf", "l2")
-        for bucket in (64, 512)]
-    errors, midpoints = {}, 0
-    for n, bits, kind, norm, bucket, special in cases:
+        for bucket in (64, 125, 512)] + [
+        (100_003, bits, kind, norm, BUCKET, values, shift)
+        for bits in (2, 4, 8) for norm in ("linf", "l2")
+        for kind, values, shift in (
+            ("unsorted", "special", 0), ("equal", "special", 0),
+            ("uni", "special", 1), ("uni", "planted", 0),
+            ("exp", "planted", 0), ("uni", "planted", 1))] + [
+        (None, 8, "hard", "linf", bucket, "hard", shift)
+        for bucket in (64, 512) for shift in (0, 1)]
+    errors, midpoints, routes = {}, 0, {}
+    for n, bits, kind, norm, bucket, values, shift in cases:
+        if values == "hard":
+            x, table = hard_divisors(bucket, bucket + shift)
+            x = torch.from_numpy(x).to(dev)
+            n = x.shape[0]
+        else:
+            table = norm_tables(bits)[kind]
+        if values == "planted":
+            x = planted(table, gen, dev, n, bucket)
+        elif values == "special":
+            x = special_values(gen, dev, n, bucket)
+        elif values == "path":
+            x = torch.randn(n, generator=gen, device=dev) * 1e-2
+        x = at_offset(x, shift)
         where = (f"n={n} bits={bits} levels={kind} norm={norm} "
-                 f"bucket={bucket}")
-        x = special_values(gen, dev, n, bucket) if special else \
-            torch.randn(n, generator=gen, device=dev) * 1e-2
-        levels = torch.from_numpy(default_levels(bits, kind)).to(dev)
-        q, nrm = norm_kernels.norm_quantize(x, levels, bucket, norm == "l2")
+                 f"bucket={bucket} values={values} shift={shift}")
+        search = norm_kernels.searchable(table)
+        levels = torch.from_numpy(table).to(dev)
+        given = norm_kernels.LevelTable(table, dev) if search else levels
+        (q, nrm), route = routed(
+            norm_kernels, "norm_quantize",
+            lambda: norm_kernels.norm_quantize(x, given, bucket,
+                                               norm == "l2", bits))
+        packed = bucket % 8 == 0
+        want_route = ("packed_search" if search else "packed_scan") \
+            if packed else "bytes"
+        if route != want_route:
+            raise AssertionError(f"B5 took route {route} at {where}")
+        routes[route] = routes.get(route, 0) + 1
+        codes = unpack_bits(q, bits, bucket) if packed else q
         wq, wnrm = norm_kernels.norm_quantize_plain(x, levels, bucket,
                                                     norm == "l2")
         if norm == "linf":
-            if not (bitwise(q, wq) and bitwise(nrm, wnrm)):
+            if not (bitwise(q, pack_bits(wq, bits) if packed else wq) and
+                    bitwise(nrm, wnrm)):
                 raise AssertionError(f"B5 differs at {where}")
         else:
             torch.testing.assert_close(nrm, wnrm, rtol=1e-6, atol=0,
                                        equal_nan=True, msg=where)
-            step = ((q >> 1).int() - (wq >> 1).int()).abs()
-            if not torch.equal(q & 1, wq & 1) or int(step.max()) > 1:
+            step = level_steps(levels, codes, wq)
+            if not torch.equal(codes & 1, wq & 1) or int(step.max()) > 1:
                 raise AssertionError(f"B5 codes differ at {where}")
             midpoints += int((step > 0).sum())
-        back = norm_kernels.norm_dequantize(q, levels, nrm)
+        back = norm_kernels.norm_dequantize(codes, levels, nrm)
         short = levels[:2].contiguous()
         if not (bitwise(back, norm_kernels.norm_dequantize_plain(
-                q, levels, nrm)) and bitwise(
-                norm_kernels.norm_dequantize(q, short, nrm),
-                norm_kernels.norm_dequantize_plain(q, short, nrm))):
+                codes, levels, nrm)) and bitwise(
+                norm_kernels.norm_dequantize(codes, short, nrm),
+                norm_kernels.norm_dequantize_plain(codes, short, nrm))):
             raise AssertionError(f"B6 differs at {where}")
-        if not special and "norm_quantize" not in errors:
+        if values == "path" and "norm_quantize" not in errors:
             errors["norm_quantize"] = max(
-                float((q.float() - wq.float()).abs().max()),
+                float((codes.float() - wq.float()).abs().max()),
                 float((nrm - wnrm).abs().max()))
             errors["norm_dequantize"] = float(
-                (back - norm_kernels.norm_dequantize_plain(q, levels, nrm))
+                (back - norm_kernels.norm_dequantize_plain(codes, levels,
+                                                           nrm))
                 .abs().max())
     torch.cuda.synchronize()
-    return errors, midpoints
+    return errors, midpoints, routes
 
 
 def flash_inputs(dev, bh: int, s: int, d: int, dtype, seed: int):
@@ -445,6 +647,13 @@ def read_launches():
             for name, count in module.LAUNCHES.items()}
 
 
+def read_routes():
+    """Launches by route of the kernels that count them (B2, B5)."""
+    kernels, norm_kernels, _ = kernel_modules()
+    return {name: dict(counts) for module in (kernels, norm_kernels)
+            for name, counts in module.ROUTES.items()}
+
+
 def check_launches(path: str, launches, per_step) -> None:
     want = {name: per_step.get(name, 0) * STEPS for name in launches}
     if launches != want:
@@ -523,6 +732,7 @@ def train(hvd, dev, path: str = "resnet", check_copy: bool = True):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
+    routes = read_routes()
     losses = [float(v) for v in losses]
     log(f"{path}: ResNet-50, {n_params} parameters, batch {BATCH}, "
         f"{IMAGE}x{IMAGE}, lr {LR}, {compressor!r}; losses {losses}")
@@ -534,6 +744,13 @@ def train(hvd, dev, path: str = "resnet", check_copy: bool = True):
         raise AssertionError(f"ResNet-50 has {n_params} parameters")
     check_losses(losses)
     check_launches(path, launches, PATH_LAUNCHES[path])
+    for name, route in PATH_ROUTES.get(path, {}).items():
+        want = {r: launches[name] if r == route else 0 for r in routes[name]}
+        if routes[name] != want:
+            raise AssertionError(f"{path}: {name} routes {routes[name]}, "
+                                 f"expected {want}")
+        log(f"{path}: every {name} launch on the {route} route "
+            f"{routes[name]}")
     if not check_copy:
         return launches
 
@@ -643,46 +860,61 @@ def train_gpt(hvd, dev):
 
 
 def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
-            rates):
+            rates, parent=None):
     """B1–B6 at the ResNet path's shape (4 bits, buckets of 512), and B5
-    also with the 128-level table of 8 bits (its longest search). Bound:
-    each input read once and each output written once at the memory rate,
-    against the operations per padded value at the fp32 rate outside the
-    tensor cores (integer operations counted as fp32 ones): B1 7 (min, max,
-    subtract, divide, round, two clamps), B2 36 (the same with add and
-    floor, and a quarter of Philox4x32-10's 98 integer operations per
-    counter, and the noise's mask, convert and scale), B3 3 and B4 2 (a
-    multiply and an add), B5 5 + 3L for L levels (abs, max, divide, then
-    subtract, abs and compare per level, and the code's shift and or), B6
-    4 (shift, clip, sign, multiply). Yardstick of B4: the one PyTorch call
-    that computes ``min + q unit``, ``torch.addcmul``, timed beside it in
-    ``FLASH_ROUNDS`` alternating rounds (medians). It rounds once where B4
-    rounds twice, so it measures rate only; B4 stays bitwise against its
-    plain version."""
-    from horovod_tpu_torch.compression.quantize import default_levels
+    also with the 128-level table of 8 bits. Bound: each input read once
+    and each output written once at the memory rate (B2 and B5 write their
+    codes packed), against the work at the card's rate outside the tensor
+    cores. B1, B3, B4 and B6 count operations per padded value at the fp32
+    rate (integer operations counted as fp32 ones): B1 7 (min, max,
+    subtract, divide, round, two clamps), B3 3 and B4 2 (a multiply and an
+    add), B6 4 (shift, clip, sign, multiply). B2 and B5 count issue slots,
+    one per warp instruction and lane, at half the fp32 rate (one FMA, two
+    operations, takes one slot): B2 the sum of ``B2_SLOTS`` per value, the
+    least its function needs; B5 ``15 + 3 s`` for s bisection steps
+    (abs and max for the norm, divide, a load, compare and select per
+    step, two distances, the tie check, the code and its packing).
+    Yardstick of B4: the one PyTorch call that computes ``min + q unit``,
+    ``torch.addcmul``, timed beside it in ``FLASH_ROUNDS`` alternating
+    rounds (medians). It rounds once where B4 rounds twice, so it measures
+    rate only; B4 stays bitwise against its plain version. B2 and B5 (4
+    and 8 bits) are timed in alternating rounds beside their packed route
+    on the same values at an offset of one value (read one value at a
+    time), and with ``parent`` beside the parent checkout's kernel plus
+    ``pack_bits`` (the design they replace); all must give the same
+    payload bytes."""
+    from horovod_tpu_torch.compression.quantize import (default_levels,
+                                                        unpack_bits)
 
     bandwidth, fp32, _ = rates
+    issue = fp32 / 2
     n_buckets = -(-n_values // BUCKET)
     padded = n_buckets * BUCKET
     x = torch.randn(n_values, device=dev) * 1e-2
+    shifted = at_offset(x, 1)
     q, mn, unit = kernels.maxmin_quantize(x, BITS, BUCKET)
     qs, mns, units = q[None], mn[None], unit[None]
-    tables = {bits: torch.from_numpy(default_levels(bits, "uni")).to(dev)
+    tables = {bits: norm_kernels.LevelTable(default_levels(bits, "uni"), dev)
               for bits in (BITS, 8)}
-    nq, nrm = norm_kernels.norm_quantize(x, tables[BITS], BUCKET, False)
+    nq, nrm = norm_kernels.norm_quantize(x, tables[BITS], BUCKET, False,
+                                         BITS)
+    nq = unpack_bits(nq, BITS, BUCKET)
     quantize_bytes = 4 * n_values + padded + 8 * n_buckets
     decode_bytes = padded + 8 * n_buckets + 4 * padded
+    b2_slots = sum(B2_SLOTS.values()) * padded
 
     def norm_work(bits):
-        levels = tables[bits]
-        return (lambda: norm_kernels.norm_quantize(x, levels, BUCKET, False),
-                lambda: norm_kernels.norm_quantize_plain(x, levels, BUCKET,
-                                                         False),
-                4 * n_values + padded + 4 * n_buckets,
-                (5 + 3 * levels.shape[0]) * padded)
+        table = tables[bits]
+        steps = table.levels.shape[0].bit_length()
+        return (lambda: norm_kernels.norm_quantize(x, table, BUCKET, False,
+                                                   bits),
+                lambda: norm_kernels.norm_quantize_plain(x, table.levels,
+                                                         BUCKET, False),
+                4 * n_values + padded * bits // 8 + 4 * n_buckets,
+                (15 + 3 * steps) * padded * fp32 / issue)
 
     work = {
-        # name: (kernel, plain, bytes moved, operations)
+        # name: (kernel, plain, bytes moved, operations at the fp32 rate)
         "maxmin_quantize": (
             lambda: kernels.maxmin_quantize(x, BITS, BUCKET),
             lambda: kernels.maxmin_quantize_plain(x, BITS, BUCKET),
@@ -691,7 +923,8 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
             lambda: kernels.maxmin_quantize_stochastic(x, BITS, BUCKET, 0),
             lambda: kernels.maxmin_quantize_stochastic_plain(x, BITS, BUCKET,
                                                              0),
-            quantize_bytes, 36 * padded),
+            4 * n_values + padded * BITS // 8 + 8 * n_buckets,
+            b2_slots * fp32 / issue),
         "maxmin_dequantize_sum": (
             lambda: kernels.maxmin_dequantize_sum(qs, mns, units),
             lambda: kernels.maxmin_dequantize_sum_plain(qs, mns, units),
@@ -702,8 +935,10 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
             decode_bytes, 2 * padded),
         "norm_quantize": norm_work(BITS),
         "norm_dequantize": (
-            lambda: norm_kernels.norm_dequantize(nq, tables[BITS], nrm),
-            lambda: norm_kernels.norm_dequantize_plain(nq, tables[BITS], nrm),
+            lambda: norm_kernels.norm_dequantize(nq, tables[BITS].levels,
+                                                 nrm),
+            lambda: norm_kernels.norm_dequantize_plain(
+                nq, tables[BITS].levels, nrm),
             padded + 4 * n_buckets + 4 * padded, 4 * padded),
     }
 
@@ -714,9 +949,12 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
                 "bound_ms": max(byte_ms, op_ms),
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
 
+    packed = packed_rounds(kernels, norm_kernels, x, shifted, tables, parent)
     library = {"maxmin_dequantize": (
         *yardstick_b4(work["maxmin_dequantize"][0], q, mn, unit),
         "torch.addcmul(mn[:, None], q, unit[:, None]) on the uint8 codes")}
+    for name in ("maxmin_quantize_stochastic", "norm_quantize"):
+        library[name] = (packed[name], None, None)
     rows = []
     for name, (kernel, plain, nbytes, ops) in work.items():
         source = "norm" if name.startswith("norm") else "maxmin"
@@ -728,12 +966,12 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
         if lib is not None:
             row["library"] = lib
         if name == "norm_quantize":
-            row.update({f"{k}_at_8_bits": v
-                        for k, v in timed(*norm_work(8)).items()})
+            row.update({f"{k}_at_8_bits": v for k, v in timed(
+                *norm_work(8), packed["norm_quantize_8"]).items()})
         rows.append(row)
         log(f"kernel {name}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}"
             f" ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
-            f"{nbytes} bytes, {ops} operations)"
+            f"{nbytes} bytes, {ops:.0f} operations at the fp32 rate)"
             + (f"; {lib} {lib_ms:.4f} ms" if lib else ""))
     eight = next(row for row in rows if row["name"] == "norm_quantize")
     log(f"kernel norm_quantize at 8 bits (128 levels): "
@@ -742,6 +980,93 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
         f"{eight['bound_ms_at_8_bits']:.4f} ms by "
         f"{eight['bound_by_at_8_bits']})")
     return rows
+
+
+def packed_rounds(kernels, norm_kernels, x, shifted, tables, parent):
+    """B2 and B5 (4 and 8 bits) on their packed routes, in ``FLASH_ROUNDS``
+    alternating rounds beside the same route on ``shifted`` (the same
+    values at an offset of one value, read one value at a time) and, with
+    ``parent``, beside the parent checkout's kernel followed by
+    ``pack_bits``. The payloads must be the same bytes. Returns the packed
+    route's median ms of each on the aligned input."""
+    from horovod_tpu_torch.compression.quantize import pack_bits
+
+    def b2(t):
+        return kernels.maxmin_quantize_stochastic(t, BITS, BUCKET, 0)[0]
+
+    def b5(t, bits):
+        return norm_kernels.norm_quantize(t, tables[bits], BUCKET, False,
+                                          bits)[0]
+
+    groups = {
+        "maxmin_quantize_stochastic": (lambda: b2(x), lambda: b2(shifted),
+                                       BITS),
+        "norm_quantize": (lambda: b5(x, BITS), lambda: b5(shifted, BITS),
+                          BITS),
+        "norm_quantize_8": (lambda: b5(x, 8), lambda: b5(shifted, 8), 8)}
+    old = parent_kernels(parent, x, tables) if parent else {}
+    medians = {}
+    for name, (packed, unaligned, bits) in groups.items():
+        fns = {"packed": packed, "packed_unaligned": unaligned}
+        if name in old:
+            fns["parent_and_pack_bits"] = lambda f=old[name], b=bits: \
+                pack_bits(f(), b)
+        outs = {k: fn() for k, fn in fns.items()}
+        flat = {k: v.reshape(-1) for k, v in outs.items()}
+        if any(not torch.equal(v, flat["packed"]) for v in flat.values()):
+            raise AssertionError(f"{name}: the routes' payloads differ")
+        log(f"{name} timing: clocks.sm, clocks.max.sm, power.draw before "
+            f"{smi_clocks()}")
+        med, readings = paired_ms(fns)
+        log(f"{name} timing: clocks.sm, clocks.max.sm, power.draw after "
+            f"{smi_clocks()}")
+        log(f"{name} timing: {FLASH_ROUNDS} alternating rounds, ms "
+            f"{json.dumps(readings)}; medians {json.dumps(med)}")
+        medians[name] = med["packed"]
+    return medians
+
+
+def parent_kernels(parent: str, x, tables):
+    """The parent checkout's B2 and B5 at the path's shape, built from its
+    own sources by its own ``utils/cuda_build.py`` into its own tree, and
+    called through their C entry points (one byte per code)."""
+    import ctypes
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_cuda_build",
+        os.path.join(parent, "horovod_tpu_torch", "utils", "cuda_build.py"))
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    lib = ctypes.CDLL(str(build.build()))
+    ptr, i64, i32, u64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                          ctypes.c_uint64)
+    lib.hvd_maxmin_quantize_stochastic.argtypes = [
+        ptr, i64, i64, i32, i32, u64, u64, ptr, ptr, ptr, ptr]
+    lib.hvd_norm_quantize.argtypes = [ptr, i64, i64, i32, ptr, i32, i32,
+                                      ptr, ptr, ptr]
+    n = x.shape[0]
+    n_buckets = -(-n // BUCKET)
+    q = torch.empty((n_buckets, BUCKET), dtype=torch.uint8, device=x.device)
+    meta = torch.empty((2, n_buckets), device=x.device)
+
+    def run(fn, *args):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent kernel launch failed ({err})")
+        return q
+
+    return {
+        "maxmin_quantize_stochastic": lambda: run(
+            lib.hvd_maxmin_quantize_stochastic, x.data_ptr(), n, n_buckets,
+            BUCKET, BITS, 0, 0, q.data_ptr(), meta[0].data_ptr(),
+            meta[1].data_ptr()),
+        **{name: lambda levels=tables[bits].levels: run(
+            lib.hvd_norm_quantize, x.data_ptr(), n, n_buckets, BUCKET,
+            levels.data_ptr(), levels.shape[0], 0, q.data_ptr(),
+            meta[0].data_ptr())
+           for name, bits in (("norm_quantize", BITS),
+                              ("norm_quantize_8", 8))}}
 
 
 def yardstick_b4(kernel, q, mn, unit):
@@ -865,6 +1190,12 @@ def measure_flash(flash, dev, launches, errors, rates):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--parent", default=None,
+        help="a checkout of the parent commit: time its B2 and B5 (plus "
+             "pack_bits) beside this tree's in alternating rounds")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -896,15 +1227,19 @@ def main() -> int:
         errors = check_kernels(kernels, dev, RESNET50_PARAMS)
         log(f"kernels: B1 and B4 bitwise, B3 within rtol 1e-5; errors at "
             f"the path's shape {errors}")
-        errors["maxmin_quantize_stochastic"] = check_stochastic(
+        errors["maxmin_quantize_stochastic"], routes = check_stochastic(
             kernels, dev, RESNET50_PARAMS)
-        log("kernels: B2 bitwise at 97 shapes and seeds")
-        norm_errors, midpoints = check_norm(norm_kernels, dev,
-                                            RESNET50_PARAMS)
+        log(f"kernels: B2 bitwise (packed payloads against pack_bits of "
+            f"the plain codes) at {sum(routes.values())} shapes, seeds and "
+            f"offsets; launches by route {routes}")
+        norm_errors, midpoints, routes = check_norm(norm_kernels, dev,
+                                                    RESNET50_PARAMS)
         errors.update(norm_errors)
-        log(f"kernels: B5 bitwise (linf) and within rtol 1e-6 with "
-            f"{midpoints} midpoint codes one level apart (l2), B6 bitwise, "
-            f"at 99 shapes; errors at the path's shape {norm_errors}")
+        log(f"kernels: B5 bitwise (linf; packed payloads against pack_bits "
+            f"of the plain codes) and within rtol 1e-6 with {midpoints} "
+            f"midpoint codes one level apart (l2), B6 bitwise, at "
+            f"{sum(routes.values())} shapes; launches by route {routes}; "
+            f"errors at the path's shape {norm_errors}")
         flash_err = check_flash(flash, dev)
         log(f"kernels: B7, B8 and B9 within their tolerances at 49 shapes "
             f"(bf16 on the tensor cores); errors at the GPT path's shape "
@@ -921,7 +1256,7 @@ def main() -> int:
                                  "resnet")
                     for name in PATH_LAUNCHES[path]}
         rows = measure(kernels, norm_kernels, dev, RESNET50_PARAMS,
-                       launches, errors, rates)
+                       launches, errors, rates, args.parent)
         rows += measure_flash(flash, dev, flash_launches, flash_err, rates)
     finally:
         hvd.shutdown()

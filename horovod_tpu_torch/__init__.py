@@ -18,9 +18,9 @@ Usage::
 """
 
 from .compression import Compression, set_quantization_levels  # noqa: F401
-from .ops.collectives import (Average, ReduceOp, Sum,  # noqa: F401
-                              allgather, allreduce, alltoall, broadcast,
-                              grouped_allreduce)
+from .ops.collectives import (Average, Max, Min, Product,  # noqa: F401
+                              ReduceOp, Sum, allgather, allreduce, alltoall,
+                              broadcast, grouped_allreduce)
 from .parallel import (DistributedOptimizer,  # noqa: F401
                        broadcast_optimizer_state, broadcast_parameters)
 from .runtime import (cross_rank, cross_size, device, init,  # noqa: F401

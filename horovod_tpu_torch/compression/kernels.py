@@ -10,7 +10,10 @@ into one shared library at first use (``utils/cuda_build.py``).
 Each wrapper takes the plain PyTorch version beside it for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for any other device:
 there is no fallback. ``LAUNCHES`` counts kernel launches, so a run can show
-that its path went through the kernels.
+that its path went through the kernels, and ``ROUTES`` counts B2's launches
+by the route the C entry point reports (``hvd_maxmin_last_route``): on the
+``packed`` route (:func:`packed_route`) the kernel writes the codes packed as
+``pack_bits`` packs them, on the ``bytes`` route one byte per code.
 """
 
 from __future__ import annotations
@@ -31,9 +34,40 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+ROUTES: Dict[str, Dict[str, int]] = {
+    "maxmin_quantize_stochastic": {"packed": 0, "bytes": 0}}
+_ROUTE_NAMES = {1: "packed", 2: "bytes"}
+# The packed routes of B2 and B5 hold a bucket in registers, 8 groups of 8
+# values a lane at most (csrc/bucket_groups.cuh).
+PACKED_MAX_BUCKET = 2048
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for routes in ROUTES.values():
+        for route in routes:
+            routes[route] = 0
+
+
+def packed_route(bucket_size: int) -> bool:
+    """Whether B2 and B5 take a packed route for buckets of ``bucket_size``
+    values (the rule of ``packed_groups_per_lane`` in
+    ``csrc/bucket_groups.cuh``): a multiple of 8 values, at most
+    ``PACKED_MAX_BUCKET``, at any address. Other buckets take the
+    byte-code route."""
+    return bucket_size % 8 == 0 and bucket_size <= PACKED_MAX_BUCKET
+
+
+def count_route(routes: Dict[str, int], names: Dict[int, str], code: int,
+                expected: str, what: str) -> None:
+    """Count the route a C entry point reports; raise if it is not the one
+    the wrapper allocated its output for."""
+    route = names.get(code)
+    if route != expected:
+        raise RuntimeError(f"{what}: the library reports route {code} "
+                           f"({route}), the wrapper expected {expected}")
+    routes[route] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,6 +82,8 @@ def _lib() -> ctypes.CDLL:
                                                    u64, u64, ptr, ptr, ptr,
                                                    ptr]
     lib.hvd_maxmin_quantize_stochastic.restype = i32
+    lib.hvd_maxmin_last_route.argtypes = []
+    lib.hvd_maxmin_last_route.restype = i32
     lib.hvd_maxmin_dequantize.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
     lib.hvd_maxmin_dequantize.restype = i32
     lib.hvd_maxmin_dequantize_sum.argtypes = [ptr, ptr, ptr, i32, i64, i32,
@@ -128,9 +164,10 @@ def _check_quantize_args(bits: int, bucket_size: int) -> None:
         raise ValueError("bucket_size must be positive")
 
 
-def _quantize_outputs(flat: torch.Tensor, bucket_size: int):
+def _quantize_outputs(flat: torch.Tensor, bucket_size: int,
+                      row_bytes: int):
     n_buckets = -(-flat.shape[0] // bucket_size)
-    q = torch.empty((n_buckets, bucket_size), dtype=torch.uint8,
+    q = torch.empty((n_buckets, row_bytes), dtype=torch.uint8,
                     device=flat.device)
     mn = torch.empty((n_buckets,), dtype=torch.float32, device=flat.device)
     return q, mn, torch.empty_like(mn)
@@ -146,7 +183,7 @@ def maxmin_quantize(flat: torch.Tensor, bits: int, bucket_size: int
     _check_quantize_args(bits, bucket_size)
     if _check(flat, "flat", torch.float32, 1):
         return maxmin_quantize_plain(flat, bits, bucket_size)
-    q, mn, unit = _quantize_outputs(flat, bucket_size)
+    q, mn, unit = _quantize_outputs(flat, bucket_size, bucket_size)
     if q.numel():
         with torch.cuda.device(flat.device):
             cuda_build.launch(LAUNCHES, "maxmin_quantize",
@@ -215,20 +252,33 @@ def maxmin_quantize_stochastic(flat: torch.Tensor, bits: int,
                                           torch.Tensor]:
     """B2: :func:`maxmin_quantize` with stochastic rounding, the noise of
     value ``i`` of the padded layout drawn from Philox4x32-10 at counter
-    ``(i // 4, offset)`` under the 64-bit ``seed``."""
+    ``(i // 4, offset)`` under the 64-bit ``seed``.
+
+    On the card's packed route (:func:`packed_route`) the codes come back
+    packed, ``[n_buckets, bucket_size * bits // 8]``: each row is
+    ``pack_bits`` of the bucket's codes, and the rows together are
+    ``pack_bits`` of the flat codes. Elsewhere, and on the CPU, they come
+    one per byte, ``[n_buckets, bucket_size]``."""
     _check_quantize_args(bits, bucket_size)
     seed, offset = seed & (2**64 - 1), offset & (2**64 - 1)
     if _check(flat, "flat", torch.float32, 1):
         return maxmin_quantize_stochastic_plain(flat, bits, bucket_size,
                                                 seed, offset)
-    q, mn, unit = _quantize_outputs(flat, bucket_size)
+    packed = packed_route(bucket_size)
+    q, mn, unit = _quantize_outputs(
+        flat, bucket_size, bucket_size * bits // 8 if packed else bucket_size)
     if q.numel():
         with torch.cuda.device(flat.device):
+            lib = _lib()
             cuda_build.launch(LAUNCHES, "maxmin_quantize_stochastic",
-                              _lib().hvd_maxmin_quantize_stochastic,
+                              lib.hvd_maxmin_quantize_stochastic,
                               flat.data_ptr(), flat.shape[0], q.shape[0],
                               bucket_size, bits, seed, offset, q.data_ptr(),
                               mn.data_ptr(), unit.data_ptr())
+            count_route(ROUTES["maxmin_quantize_stochastic"], _ROUTE_NAMES,
+                        lib.hvd_maxmin_last_route(),
+                        "packed" if packed else "bytes",
+                        "maxmin_quantize_stochastic")
     return q, mn, unit
 
 

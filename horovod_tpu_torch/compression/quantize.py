@@ -11,8 +11,11 @@ and ``GPUTopKCompressor``, default bucket size 512 (``compressor.h:11``).
 On the card the max-min quantizer runs kernel B1 (B2 when stochastic) and
 decodes with B4 (:mod:`horovod_tpu_torch.compression.kernels`); the
 normalized quantizer runs B5 and decodes with B6
-(:mod:`horovod_tpu_torch.compression.norm_kernels`). Packing the codes into
-bytes stays plain PyTorch, as it is plain jnp in the JAX package.
+(:mod:`horovod_tpu_torch.compression.norm_kernels`). On their packed routes
+B2 and B5 write the payload's packed codes themselves (:func:`_payload`);
+B1's codes, and those of the byte-code routes and of the CPU, are packed by
+:func:`pack_bits` in plain PyTorch, as they are by plain jnp in the JAX
+package.
 
 Every quantizer takes ``key`` in ``compress``: an ``int`` seed, a CPU
 ``torch.Generator`` (one seed is drawn from it) or None (seed 0, as the JAX
@@ -113,6 +116,18 @@ def fold_in(key: Key, data: int) -> int:
     return int(w[0]) | (int(w[1]) << 32)
 
 
+def _payload(q: torch.Tensor, bits: int, bucket_size: int,
+             *lead: int) -> torch.Tensor:
+    """The packed codes of a payload, shaped ``(*lead, -1)``, from the
+    codes ``q [n_buckets, .]`` of a quantize kernel: packed by the kernel
+    (``q.shape[1] < bucket_size``; a bucket is then whole bytes, so the flat
+    and the per-row packing are the same bytes), or one byte per code,
+    packed here."""
+    if q.shape[1] != bucket_size:
+        return q.view(*lead, -1)
+    return pack_bits(q.view(*lead, -1), bits)
+
+
 def _padded_rows(rows: torch.Tensor, padded: int) -> torch.Tensor:
     """``rows [n, m]`` in fp32, zero-padded to ``[n, padded]`` and
     flattened."""
@@ -203,7 +218,7 @@ class MaxMinQuantizer(_Bucketed):
         ctx = self.context(x.shape, x.dtype)
         flat = x.reshape(-1).to(torch.float32)
         q, mn, unit = self._quantize(flat.contiguous(), key)
-        return {"q": pack_bits(q.view(-1), self.bits), "min": mn,
+        return {"q": _payload(q, self.bits, self.bucket_size), "min": mn,
                 "unit": unit}, ctx
 
     def decompress(self, payload: Dict[str, torch.Tensor], ctx: QuantContext
@@ -222,7 +237,7 @@ class MaxMinQuantizer(_Bucketed):
         ctx = self.context((m,), rows.dtype)
         padded = self._padded(m)
         q, mn, unit = self._quantize(_padded_rows(rows, padded), key)
-        return {"q": pack_bits(q.view(n, padded), self.bits),
+        return {"q": _payload(q, self.bits, self.bucket_size, n),
                 "min": mn.view(n, -1), "unit": unit.view(n, -1)}, ctx
 
     def decompress_rows(self, payload: Dict[str, torch.Tensor],
@@ -274,9 +289,12 @@ def default_levels(bits: int, kind: str) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _table_on(table: bytes, device: torch.device) -> torch.Tensor:
-    """A level table on ``device``, copied there once."""
-    return torch.frombuffer(bytearray(table), dtype=torch.float32).to(device)
+def _table_on(table: bytes, device: torch.device
+              ) -> norm_kernels.LevelTable:
+    """A level table on ``device``, copied there and checked once
+    (:class:`norm_kernels.LevelTable`)."""
+    return norm_kernels.LevelTable(np.frombuffer(table, dtype=np.float32),
+                                   device)
 
 
 class NormalizedQuantizer(_Bucketed):
@@ -323,24 +341,25 @@ class NormalizedQuantizer(_Bucketed):
                 "quantizer?)")
         return levels
 
-    def _table(self, device: torch.device) -> torch.Tensor:
+    def _table(self, device: torch.device) -> norm_kernels.LevelTable:
         return _table_on(self._levels().tobytes(), torch.device(device))
 
     def _quantize(self, flat: torch.Tensor):
         return norm_kernels.norm_quantize(flat, self._table(flat.device),
                                           self.bucket_size,
-                                          self.norm == "l2")
+                                          self.norm == "l2", self.bits)
 
     def compress(self, x: torch.Tensor, key: Key = None
                  ) -> Tuple[Dict[str, torch.Tensor], QuantContext]:
         ctx = self.context(x.shape, x.dtype)
         q, norm = self._quantize(x.reshape(-1).to(torch.float32).contiguous())
-        return {"q": pack_bits(q.view(-1), self.bits), "norm": norm}, ctx
+        return {"q": _payload(q, self.bits, self.bucket_size),
+                "norm": norm}, ctx
 
     def _dequantize(self, packed: torch.Tensor, norm: torch.Tensor,
                     padded: int, bits: int) -> torch.Tensor:
         q = unpack_bits(packed, bits, padded).reshape(-1, self.bucket_size)
-        return norm_kernels.norm_dequantize(q, self._table(q.device),
+        return norm_kernels.norm_dequantize(q, self._table(q.device).levels,
                                             norm.reshape(-1))
 
     def decompress(self, payload: Dict[str, torch.Tensor], ctx: QuantContext
@@ -357,7 +376,7 @@ class NormalizedQuantizer(_Bucketed):
         n, m = rows.shape
         padded = self._padded(m)
         q, norm = self._quantize(_padded_rows(rows, padded))
-        return {"q": pack_bits(q.view(n, padded), self.bits),
+        return {"q": _payload(q, self.bits, self.bucket_size, n),
                 "norm": norm.view(n, -1)}, self.context((m,), rows.dtype)
 
     def decompress_rows(self, payload: Dict[str, torch.Tensor],

@@ -270,16 +270,15 @@ def _reduce_fused(leaves, compressor, reduction, op, res_leaves, key,
     """Run the named reducer once over the fused buffer of ``leaves``;
     returns (out_leaves, new_res_leaves or None). ``_reduce_in_step`` in the
     JAX package."""
-    fused = _fuse_leaves(leaves)
-    if prescale != 1.0:
-        fused = fused * prescale
+    # The fused buffer, and so every scaled tensor here, is fp32: the
+    # dense collectives' scaling is the reference's float32 multiply.
+    fused = C._apply_scale(_fuse_leaves(leaves), prescale)
     res_fused = None if res_leaves is None else _fuse_leaves(res_leaves)
     out, new_res = _REDUCERS[reduction](fused, compressor,
                                         residual=res_fused, key=key)
     if op == C.ReduceOp.AVERAGE:
         out = (out.to(torch.float32) / runtime.size()).to(out.dtype)
-    if postscale != 1.0:
-        out = (out.to(torch.float32) * postscale).to(out.dtype)
+    out = C._apply_scale(out, postscale)
     out_leaves = _split_leaves(out.to(torch.float32), leaves)
     new_res_leaves = None
     if res_leaves is not None:

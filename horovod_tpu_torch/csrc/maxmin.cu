@@ -12,33 +12,62 @@
 //   B4 maxmin_dequantize      <- maxmin_dequantize_pallas (_dequantize_kernel)
 //
 // All four do a handful of fp32 operations per byte they move, so on an
-// H100 they are bound by device-memory bytes, not by operations. The design
-// answer is to touch each byte once: B1 reads a bucket once from device
-// memory (the second pass over it hits L1) and B3 decodes and sums every
-// rank's codes in one pass instead of n dequantize passes plus n adds.
+// H100 they are bound by device-memory bytes, not by operations (B2's
+// Philox4x32-10 adds about 15 issue slots a value, which with the rest of
+// its work, about 29, stays under the byte bound; chip_smoke.py counts it
+// in B2_SLOTS).
+// The design answer is to touch each byte once: B1 reads a bucket once from
+// device memory (the second pass over it hits L1), B2's packed route reads
+// it once into registers and writes the packed payload itself, and B3
+// decodes and sums every rank's codes in one pass instead of n dequantize
+// passes plus n adds.
 // Bytes moved, for n values in n_buckets buckets of `bucket` values:
-//   B1, B2: 4n read + n_buckets*bucket codes + 8*n_buckets min/unit written
+//   B1: 4n read + n_buckets*bucket codes + 8*n_buckets min/unit written
+//   B2: 4n read + n_buckets*bucket*bits/8 packed codes (one byte a code on
+//       its byte-code route) + 8*n_buckets min/unit written
 //   B4: n_buckets*bucket codes + 8*n_buckets read, 4*n_buckets*bucket written
 //   B3: n_ranks*(n_buckets*bucket + 8*n_buckets) read,
 //       4*n_buckets*bucket written
 //
+// B2's routes, chosen in hvd_maxmin_quantize_stochastic from the input and
+// reported by hvd_maxmin_last_route:
+//   packed  bucket % 8 == 0 and bucket <= 2048, at any address: the
+//           bucket read once, coalesced, into registers
+//           (bucket_groups.cuh); min and max from the registers; a group of
+//           8 values is exactly Philox counters 2g and 2g + 1, so no
+//           counter straddles two buckets; the codes packed by the kernel;
+//   bytes   any other bucket: a strided pass for min and max and one per
+//           Philox counter for the codes (a counter may straddle two
+//           buckets), one byte per code, packed by pack_bits outside.
+//
 // Every rounding step is spelled out with an IEEE intrinsic (__fsub_rn,
 // __fdiv_rn, __fmul_rn, __fadd_rn, rintf) so nvcc cannot contract or
 // approximate it: the codes and the decoded values are bitwise equal to the
-// plain PyTorch versions in horovod_tpu_torch/compression/kernels.py. Do not
-// build with --use_fast_math.
+// plain PyTorch versions in horovod_tpu_torch/compression/kernels.py. B2's
+// packed route divides by the bucket's unit through hvd_groups::divide
+// (bucket_groups.cuh): nvcc's IEEE division, its reciprocal refined once a
+// bucket. Do not build with --use_fast_math.
 //
-// Packing the codes into bytes (pack_bits/unpack_bits) stays outside.
+// B1's codes are packed into bytes outside (pack_bits/unpack_bits).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bucket_groups.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kQuantizeWarps = 8;     // buckets per block in B1
+using hvd_groups::kGroup;
+using hvd_groups::kWarp;
+
+constexpr int kQuantizeWarps = 8;     // buckets per block in B1 and B2
 constexpr int kElementwiseThreads = 256;
+
+// Routes of B2, as hvd_maxmin_last_route reports them.
+constexpr int kRoutePacked = 1;
+constexpr int kRouteBytes = 2;
+thread_local int g_maxmin_route = 0;
 
 // min and max that pass a NaN through, as torch.amin/amax and jnp.min/max
 // do (fminf/fmaxf would drop it): once `acc` is NaN no comparison is true.
@@ -111,31 +140,151 @@ struct Words4 {
   uint32_t x, y, z, w;
 };
 
-__device__ __forceinline__ Words4 philox4x32_10(Words4 c, uint32_t k0,
-                                                uint32_t k1) {
+// The ten round keys of a 64-bit key, computed once per thread: the rounds
+// then do two 32x32->64-bit multiplies (one IMAD.WIDE.U32 each) and two
+// three-input XORs, and nothing else.
+struct PhiloxKey {
+  uint32_t k0[10], k1[10];
+};
+
+__device__ __forceinline__ PhiloxKey philox_key(uint32_t k0, uint32_t k1) {
+  PhiloxKey key;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
+    key.k0[r] = k0 + r * 0x9E3779B9u;
+    key.k1[r] = k1 + r * 0xBB67AE85u;
+  }
+  return key;
+}
+
+__device__ __forceinline__ Words4 philox4x32_10(Words4 c,
+                                                const PhiloxKey& key) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
     const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
     const uint32_t lo0 = 0xD2511F53u * c.x;
     const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
     const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = Words4{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
+    c = Words4{hi1 ^ c.y ^ key.k0[r], lo1, hi0 ^ c.w ^ key.k1[r], lo0};
   }
   return c;
 }
 
-// B2: B1 with stochastic rounding, q = clip(floor(scaled + u), 0, levels)
-// with u = (w & 0xffffff) * 2^-24, the 24 low bits the TPU kernel masks.
-// w is word i % 4 of Philox4x32-10 at counter (i / 4, offset) under the
-// key `seed`, where i is the value's index in the padded
+// The noise of one value: u = (w & 0xffffff) * 2^-24, the 24 low bits the
+// TPU kernel masks (exact: a 24-bit integer times a power of two), and the
+// code clip(floor(scaled + u), 0, levels) of its scaled value
+// (v - lo) / safe.
+__device__ __forceinline__ uint32_t stochastic_code(float scaled,
+                                                    float levels,
+                                                    uint32_t w) {
+  const float u = static_cast<float>(w & 0xffffffu) * 0x1p-24f;
+  const float code = fminf(fmaxf(floorf(__fadd_rn(scaled, u)), 0.0f), levels);
+  return static_cast<uint32_t>(code);
+}
+
+// B2: B1 with stochastic rounding, q = clip(floor(scaled + u), 0, levels).
+// u comes from word i % 4 of Philox4x32-10 at counter (i / 4, offset) under
+// the key `seed`, where i is the value's index in the padded
 // [n_buckets * bucket] layout, so the codes do not depend on the launch
-// geometry. One warp per bucket; each lane draws one counter (four words)
-// at a time and codes the values of the bucket among its four.
-__global__ void maxmin_quantize_stochastic_kernel(
+// geometry or the route.
+//
+// Packed route: one warp per bucket of `bucket` values (a multiple of 8, at
+// most 256 * kGroups), read once into registers; lane l codes groups l,
+// l + 32, ... and draws Philox counters 2g and 2g + 1 of each (64-bit
+// counters: the bucket's first counter is computed once, in 64 bits, and
+// every round is 32-bit). The kernel waits on its loads and on the
+// division's and Philox's chains more than on issue, so at 1 and 2 groups a
+// lane (buckets of up to 512) it is held to 48 registers for 5 blocks an SM
+// in place of 4, without a spill (PERF.md). At 4 and 8 groups a lane holds
+// 32 and 64 values, which do not fit in 48 registers: those instances
+// keep the compiler's own register count.
+template <int kGroups>
+__global__ void __launch_bounds__(kQuantizeWarps * kWarp,
+                                  kGroups <= 2 ? 5 : 1)
+maxmin_quantize_stochastic_packed_kernel(
+    const float* __restrict__ x, int64_t n, int64_t n_buckets, int bucket,
+    float levels, int bits, uint32_t k0, uint32_t k1, uint32_t off0,
+    uint32_t off1, uint8_t* __restrict__ q, float* __restrict__ mn_out,
+    float* __restrict__ unit_out) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kQuantizeWarps +
+                    threadIdx.x / kWarp;
+  if (b >= n_buckets) return;  // warp-uniform: the shuffles stay full-warp
+  const int64_t base = b * bucket;
+  const int groups = bucket / kGroup;
+  const bool aligned = hvd_groups::vector_aligned(x);
+
+  float v[kGroups][kGroup];
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) {
+    const int g = j * kWarp + lane;
+    if (g < groups) {
+      hvd_groups::load_group(x, aligned, n, base + kGroup * g, v[j]);
+    }
+  }
+  // fminf and fmaxf drop a NaN; a flag beside them passes it through, as
+  // nan_min and nan_max do, in three instructions a value instead of
+  // about eight.
+  float lo = INFINITY;
+  float hi = -INFINITY;
+  bool nan = false;
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) {
+    if (j * kWarp + lane >= groups) continue;
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) {
+      lo = fminf(lo, v[j][t]);
+      hi = fmaxf(hi, v[j][t]);
+      nan |= isnan(v[j][t]);
+    }
+  }
+  for (int off = kWarp / 2; off > 0; off /= 2) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  if (__any_sync(0xffffffffu, nan)) {
+    lo = NAN;
+    hi = NAN;
+  }
+  const float unit = __fdiv_rn(__fsub_rn(hi, lo), levels);
+  const hvd_groups::Divisor safe =
+      hvd_groups::make_divisor(unit == 0.0f ? 1.0f : unit);
+  const PhiloxKey key = philox_key(k0, k1);
+  const uint64_t first_counter = static_cast<uint64_t>(base) / 4;
+#pragma unroll
+  for (int j = 0; j < kGroups; ++j) {
+    const int g = j * kWarp + lane;
+    if (g >= groups) continue;
+    const uint64_t c = first_counter + 2 * static_cast<uint64_t>(g);
+    const Words4 r0 = philox4x32_10(
+        Words4{static_cast<uint32_t>(c), static_cast<uint32_t>(c >> 32),
+               off0, off1}, key);
+    const Words4 r1 = philox4x32_10(
+        Words4{static_cast<uint32_t>(c + 1),
+               static_cast<uint32_t>((c + 1) >> 32), off0, off1}, key);
+    const uint32_t words[kGroup] = {r0.x, r0.y, r0.z, r0.w,
+                                    r1.x, r1.y, r1.z, r1.w};
+    float above_min[kGroup], scaled[kGroup];
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) above_min[t] = __fsub_rn(v[j][t], lo);
+    hvd_groups::divide(above_min, safe, scaled);
+    uint32_t codes[kGroup];
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) {
+      codes[t] = stochastic_code(scaled[t], levels, words[t]);
+    }
+    hvd_groups::store_packed(q + (base / kGroup + g) * bits, codes, bits);
+  }
+  if (lane == 0) {
+    mn_out[b] = lo;
+    unit_out[b] = unit;
+  }
+}
+
+// Byte-code route: one warp per bucket of any size; each lane
+// draws one counter (four words) at a time and codes the values of the
+// bucket among its four.
+__global__ void maxmin_quantize_stochastic_bytes_kernel(
     const float* __restrict__ x, int64_t n, int64_t n_buckets, int bucket,
     float levels, uint32_t k0, uint32_t k1, uint32_t off0, uint32_t off1,
     uint8_t* __restrict__ q, float* __restrict__ mn_out,
@@ -151,22 +300,20 @@ __global__ void maxmin_quantize_stochastic_kernel(
   bucket_min_max(x, n, base, bucket, lane, &lo, &hi);
   const float unit = __fdiv_rn(__fsub_rn(hi, lo), levels);
   const float safe = unit == 0.0f ? 1.0f : unit;
+  const PhiloxKey key = philox_key(k0, k1);
   for (int64_t c = base / 4 + lane; c <= (end - 1) / 4; c += kWarp) {
     const Words4 r = philox4x32_10(
         Words4{static_cast<uint32_t>(c), static_cast<uint32_t>(c >> 32),
                off0, off1},
-        k0, k1);
+        key);
     const uint32_t words[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int64_t i = 4 * c + k;
       if (i < base || i >= end) continue;
       const float v = i < n ? x[i] : 0.0f;
-      // Exact: a 24-bit integer times a power of two.
-      const float u = static_cast<float>(words[k] & 0xffffffu) * 0x1p-24f;
-      float code = floorf(__fadd_rn(__fdiv_rn(__fsub_rn(v, lo), safe), u));
-      code = fminf(fmaxf(code, 0.0f), levels);
-      q[i] = static_cast<uint8_t>(code);
+      q[i] = static_cast<uint8_t>(stochastic_code(
+          __fdiv_rn(__fsub_rn(v, lo), safe), levels, words[k]));
     }
   }
   if (lane == 0) {
@@ -233,17 +380,42 @@ int hvd_maxmin_quantize(const float* x, int64_t n, int64_t n_buckets,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The route of the calling thread's last hvd_maxmin_quantize_stochastic
+// launch: 1 packed, 2 bytes (see the top of this file).
+int hvd_maxmin_last_route(void) { return g_maxmin_route; }
+
+// B2. On the packed route q receives n_buckets * bucket * bits / 8 bytes,
+// on the byte-code route n_buckets * bucket bytes.
 int hvd_maxmin_quantize_stochastic(const float* x, int64_t n,
                                    int64_t n_buckets, int bucket, int bits,
                                    uint64_t seed, uint64_t offset, uint8_t* q,
                                    float* mn, float* unit, void* stream) {
   const float levels = static_cast<float>((1 << bits) - 1);
-  maxmin_quantize_stochastic_kernel<<<blocks_for(n_buckets, kQuantizeWarps),
-                                      kQuantizeWarps * kWarp, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      x, n, n_buckets, bucket, levels, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(seed >> 32), static_cast<uint32_t>(offset),
-      static_cast<uint32_t>(offset >> 32), q, mn, unit);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = blocks_for(n_buckets, kQuantizeWarps);
+  const unsigned int threads = kQuantizeWarps * kWarp;
+  const uint32_t k0 = static_cast<uint32_t>(seed);
+  const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+  const uint32_t off0 = static_cast<uint32_t>(offset);
+  const uint32_t off1 = static_cast<uint32_t>(offset >> 32);
+  const int groups_per_lane = hvd_groups::packed_groups_per_lane(bucket);
+  if (groups_per_lane == 0) {
+    g_maxmin_route = kRouteBytes;
+    maxmin_quantize_stochastic_bytes_kernel<<<blocks, threads, 0, s>>>(
+        x, n, n_buckets, bucket, levels, k0, k1, off0, off1, q, mn, unit);
+    return static_cast<int>(cudaGetLastError());
+  }
+  g_maxmin_route = kRoutePacked;
+#define HVD_B2_PACKED(G)                                                  \
+  maxmin_quantize_stochastic_packed_kernel<G><<<blocks, threads, 0, s>>>( \
+      x, n, n_buckets, bucket, levels, bits, k0, k1, off0, off1, q, mn, unit)
+  switch (groups_per_lane) {
+    case 1: HVD_B2_PACKED(1); break;
+    case 2: HVD_B2_PACKED(2); break;
+    case 4: HVD_B2_PACKED(4); break;
+    default: HVD_B2_PACKED(8);
+  }
+#undef HVD_B2_PACKED
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,16 +47,25 @@ _DIST_OPS = {
     ReduceOp.MAX: dist.ReduceOp.MAX,
     ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT,
 }
+# Product of these dtypes is taken in float32 (see _reduce_flat). Integer
+# Product stays exact: the reference's exp(psum(log|x|)) truncates, for
+# example 7 * 11 to 76 in int32, and the port does not copy that.
+_WIDENED_PRODUCT = (torch.float16, torch.bfloat16)
 
 
 def _apply_scale(x: torch.Tensor, factor: float) -> torch.Tensor:
-    """``x * factor`` in x's dtype; integers scale in float32 and cast back
-    (as ``collectives._apply_scale`` in the JAX package)."""
+    """``x * factor`` as ``collectives._apply_scale`` in the JAX package
+    computes it: integers scale in float32 and cast back; floating tensors
+    multiply by the factor rounded to their own dtype
+    (``jnp.asarray(factor, dtype=x.dtype)``). The factor is rounded here on
+    the host and passed as a number, so no tensor goes to the device; a
+    product of two bf16 or fp16 values is exact in the float32 that PyTorch
+    multiplies them in, so the result is rounded once, to x's dtype."""
     if factor == 1.0:
         return x
     if not (x.is_floating_point() or x.is_complex()):
         return (x.to(torch.float32) * factor).to(x.dtype)
-    return x * factor
+    return x * torch.tensor(factor, dtype=x.dtype).item()
 
 
 def _reduce_flat(buf: torch.Tensor, op: ReduceOp, prescale: float,
@@ -66,6 +75,12 @@ def _reduce_flat(buf: torch.Tensor, op: ReduceOp, prescale: float,
             f"{op!r} is not ported yet (Adasum lands with the other "
             "data-parallel variants)")
     y = _apply_scale(buf, prescale)
+    if op == ReduceOp.PRODUCT and y.dtype in _WIDENED_PRODUCT:
+        # gloo and NCCL multiply 16-bit floats with a rounding at each hop;
+        # the reference takes the product in float32 and casts it once.
+        wide = y.to(torch.float32)
+        dist.all_reduce(wide, op=dist.ReduceOp.PRODUCT)
+        return _apply_scale(wide.to(y.dtype), postscale)
     if y is buf:
         y = buf.clone()
     dist.all_reduce(y, op=_DIST_OPS[op])

@@ -3,16 +3,23 @@
 
 Run from the root of a checkout on a machine with the CUDA toolkit::
 
-    python3 scripts/kernel_resources.py [--match flash]
+    python3 scripts/kernel_resources.py [--match flash] [--dump FILE]
 
 It builds the library as ``chip_smoke.py`` does (``utils/cuda_build.py``;
 nothing is compiled again when it exists) and reads it with ``cuobjdump``:
 ``-res-usage`` gives each kernel's registers per thread and its stack
 frame in bytes (where spilled registers go: a kernel without local arrays
-spills when it is not 0); ``-sass`` gives the count of tensor-core products
-(``HMMA``), fp32 FMAs (``FFMA``), ``ldmatrix`` loads (``LDSM``) and
-asynchronous copies (``LDGSTS``). One JSON line per kernel whose demangled
-name holds ``--match``.
+spills when it is not 0); ``-sass`` gives the count of its instructions
+(``total``), of tensor-core products (``HMMA``), fp32 FMAs (``FFMA``),
+``ldmatrix`` loads (``LDSM``), asynchronous copies (``LDGSTS``), integer
+multiply-adds (``IMAD``, every form), three-input logic (``LOP3``), the
+special-function unit (``MUFU``), shared-memory loads (``LDS``) and
+conversions (``I2F``, ``F2I``, ``FRND``), and of each form of global load
+and store by its full name (``LDG.E.128.CONSTANT`` against ``LDG.E``,
+``STG.E.64`` against ``STG.E.U8``: the width each moves). Counts are of the
+instructions in the code, not of those executed. One JSON line per kernel
+whose demangled name holds ``--match``; ``--dump`` writes those kernels'
+SASS to a file.
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ sys.path.insert(0, str(ROOT))
 
 from horovod_tpu_torch.utils import cuda_build  # noqa: E402
 
-OPCODES = ("HMMA", "FFMA", "LDSM", "LDGSTS")
+OPCODES = ("HMMA", "FFMA", "LDSM", "LDGSTS", "IMAD", "LOP3", "MUFU", "LDS",
+           "I2F", "F2I", "FRND")
+MEMORY = ("LDG", "STG")
 
 
 def _tool(name: str) -> str:
@@ -46,8 +55,9 @@ def _cuobjdump(flag: str, library: Path) -> str:
 
 
 def resources(library: Path):
-    """{mangled kernel: {registers, stack, opcode counts}}."""
-    kernels, current = {}, None
+    """({mangled kernel: {registers, stack, instruction counts}},
+    {mangled kernel: its SASS lines})."""
+    kernels, sass, current = {}, {}, None
     for line in _cuobjdump("-res-usage", library).splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
@@ -61,27 +71,43 @@ def resources(library: Path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             current = kernels.setdefault(m.group(1), {})
-            current.update(dict.fromkeys(OPCODES, 0))
+            current.update(total=0, **dict.fromkeys(OPCODES, 0),
+                           memory={})
+            lines = sass.setdefault(m.group(1), [])
             continue
-        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
-                      line)
-        if current is not None and m and m.group(1) in OPCODES:
-            current[m.group(1)] += 1
-    return kernels
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z0-9]+(?:\.[A-Z0-9_]+)*)", line)
+        if current is None or not m:
+            continue
+        lines.append(line.strip())
+        name = m.group(1)
+        base = name.split(".")[0]
+        current["total"] += 1
+        if base in OPCODES:
+            current[base] += 1
+        if base in MEMORY:
+            current["memory"][name] = current["memory"].get(name, 0) + 1
+    return kernels, sass
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--match", default="")
+    parser.add_argument("--dump", default=None)
     args = parser.parse_args()
-    kernels = resources(cuda_build.build())
+    kernels, sass = resources(cuda_build.build())
     demangled = subprocess.run([_tool("cu++filt")], input="\n".join(kernels),
                                capture_output=True, text=True,
                                check=True).stdout.splitlines()
-    for name, info in sorted(zip(demangled, kernels.values()),
-                             key=lambda kv: kv[0]):
+    dump = []
+    for name, mangled in sorted(zip(demangled, kernels)):
         if args.match in name:
-            print(json.dumps({"kernel": name, **info}), flush=True)
+            print(json.dumps({"kernel": name, **kernels[mangled]}),
+                  flush=True)
+            dump += [f"// {name}", *sass.get(mangled, []), ""]
+    if args.dump:
+        Path(args.dump).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.dump).write_text("\n".join(dump))
     return 0
 
 

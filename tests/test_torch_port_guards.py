@@ -28,7 +28,7 @@ import torch
 import horovod_tpu_torch as thvd
 from horovod_tpu_torch.compression import kernels, norm_kernels
 from horovod_tpu_torch.utils import cuda_build
-from horovod_tpu_torch.compression.quantize import default_levels
+from horovod_tpu_torch.compression.quantize import default_levels, pack_bits
 from horovod_tpu_torch.ops import flash_attention as flash
 from horovod_tpu_torch.exceptions import NotInitializedError
 
@@ -213,13 +213,17 @@ def _special_values(n: int, bucket: int, seed: int, dev) -> torch.Tensor:
 def test_cuda_stochastic_quantize_matches_plain(n, bucket, bits, seed,
                                                 offset):
     """B2 bitwise against its plain version, with the same Philox words:
-    ragged sizes, odd buckets (whose counters straddle two buckets), a NaN
-    and an inf bucket, and 64-bit seeds and offsets."""
+    ragged sizes, odd buckets (whose counters straddle two buckets, on the
+    byte-code route), a NaN and an inf bucket, and 64-bit seeds and
+    offsets. On the packed route the codes are ``pack_bits`` of the plain
+    version's, bucket by bucket."""
     dev = _cuda()
     x = _special_values(n, bucket, n + bits, dev)
     got = kernels.maxmin_quantize_stochastic(x, bits, bucket, seed, offset)
     want = kernels.maxmin_quantize_stochastic_plain(x, bits, bucket, seed,
                                                     offset)
+    if bucket % 8 == 0:
+        want = (pack_bits(want[0], bits),) + want[1:]
     for g, w in zip(got, want):
         _assert_bitwise(g, w)
 

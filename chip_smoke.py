@@ -32,14 +32,16 @@ as often as the path requires (and no other kernel; every B7, B8 and B9
 launch of the GPT path on the tensor-core route, every B5 launch on the
 packed bisection route and every B2 launch on the packed route), and that
 the trained model of the first ResNet-50 path and of the GPT path agrees
-with a CPU copy of itself on a small input. Then it times each kernel, its
-plain version and, where one exists, the PyTorch call that computes the
-same function, at the shapes of the path (the attention kernels and B4 in
-alternating rounds with that call, B2 and B5 in alternating rounds with
-their packed route on an input that is not 16-byte aligned, with the
-card's clocks read before and after). ``--parent DIR``, a checkout of the
-parent commit, adds the parent's B2 and B5 plus ``pack_bits`` to those
-rounds.
+with a CPU copy of itself on a small input; every B3 and B4 launch of the
+max-min phases must read the packed payload (route ``packed``). Then it
+times each kernel, its plain version and, where one exists, the PyTorch
+call that computes the same function, at the shapes of the path (the
+attention kernels and B4 in alternating rounds with that call; B2, B5, B3
+and B4 in alternating rounds with their packed route on an input that is
+not aligned, with the card's clocks read before and after).
+``--parent DIR``, a checkout of the parent commit, adds the parent's B3
+and B4 after ``unpack_bits`` (the design this tree's B3 and B4 replace)
+to those rounds.
 
 Output: the card's name and power limit as ``nvidia-smi`` reports them, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -51,8 +53,10 @@ package.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -118,9 +122,17 @@ PATH_LAUNCHES = {
 }
 # The route every launch of a phase's packed kernels must take: the
 # buckets of 512 are read once into registers and the codes written packed;
-# the uniform table is searched by bisection.
-PATH_ROUTES = {"resnet_uni": {"norm_quantize": "packed_search"},
-               "resnet_stochastic": {"maxmin_quantize_stochastic": "packed"}}
+# the uniform table is searched by bisection; B3 and B4 read the packed
+# payload as it crossed the wire.
+DECODE_ROUTES = {"maxmin_dequantize_sum": "packed",
+                 "maxmin_dequantize": "packed"}
+PATH_ROUTES = {"resnet": DECODE_ROUTES,
+               "resnet_uni": {"norm_quantize": "packed_search"},
+               "resnet_stochastic": {"maxmin_quantize_stochastic": "packed",
+                                     **DECODE_ROUTES}}
+# B3 at a world of 4: the scatter_allgather chunk of the ResNet path's
+# gradient buffer (12,480 buckets of 512) from each of 4 ranks.
+B3_RANKS, B3_RANK_BUCKETS = 4, 12_480
 # The least work B2's function needs a value, in issue slots (one warp
 # instruction a lane; an FMA takes one): Philox4x32-10 is 10 rounds of two
 # 32x32->64-bit multiplies, which the card issues at half rate (2 slots
@@ -155,6 +167,11 @@ RATES = {"H100 PCIe": (2.0e12, 51e12, 756e12),
 FLASH_TOL = (1e-4, 5e-4)
 PLANTED = 0.02
 FLASH_ROUNDS = 5  # alternating timing rounds of each attention kernel
+GRAPH_REPLAYS = 5  # replays of a captured graph of timed calls
+# Copies of a timed decode's inputs, and its outputs kept alive, that its
+# calls cycle through: B3 at 4 ranks moves 38 MB a call, under the card's
+# 50 MB L2, so one buffer reused would be timed from the cache.
+ROTATE = 4
 BF16_TOL = (2**-7, 2**-8, 2**-14)  # of |value|, of mean |value|, absolute
 
 
@@ -169,12 +186,29 @@ def card_rates(name: str):
     raise RuntimeError(f"no data-sheet rates for {name!r}")
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of one call, by CUDA events over ``iters`` calls."""
+def time_ms(fn, iters: int = 20, graph: bool = False) -> float:
+    """Mean device time of one call, by CUDA events over ``iters`` calls.
+    With ``graph`` the calls are captured once in a CUDA graph and the
+    graph is replayed ``GRAPH_REPLAYS`` times, so that the host's cost of
+    launching them (the wrappers' checks and allocations, comparable to a
+    kernel of 0.05 ms) is not timed: what is left is the device's time."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            for _ in range(iters):
+                fn()
+        captured.replay()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(GRAPH_REPLAYS):
+            captured.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (iters * GRAPH_REPLAYS)
     torch.cuda.synchronize()
     start.record()
     for _ in range(iters):
@@ -193,52 +227,116 @@ def bitwise(got, want) -> bool:
 
 def check_kernels(kernels, dev, n_values: int):
     """Every kernel against its plain version on the card; returns the
-    largest error of each at the main path's shape. Besides the path's
-    shape: ragged sizes with a constant first bucket and, where there is
-    room, a bucket holding a NaN and one holding an inf."""
+    largest error of each at the main path's shape. B1 bitwise: at the
+    path's shape, then ragged sizes with a constant first bucket and, where
+    there is room, a bucket holding a NaN and one holding an inf, at 1, 2,
+    4 and 8 bits and buckets of 64, 512 and 100 (not a multiple of 8). B4
+    bitwise on each of B1's results in four forms, all decoding to the same
+    values: packed as ``compress`` packs it (one row), the byte codes at 8
+    bits, the packed row one byte into a buffer, and packed in rows as
+    ``compress_rows`` packs them (:func:`decode_rows`). B3 bitwise at 1 to
+    4 ranks: at the path's shape, then at 1, 2, 4 and 8 bits, buckets of
+    64, 512 and 100, aligned and one byte into a buffer. Every B3 and B4
+    launch on the route its bucket asks for."""
+    from horovod_tpu_torch.compression.quantize import pack_bits
+
     gen = torch.Generator(device=dev).manual_seed(1)
     errors = {}
     cases = [(n_values, BITS, BUCKET, False)] + [
         (n, bits, bucket, True) for n in (1, 511, 513, 100_003)
-        for bits in (1, 2, 4, 8) for bucket in (64, 512)]
+        for bits in (1, 2, 4, 8) for bucket in (64, 512, 100)]
     for n, bits, bucket, special in cases:
+        where = f"n={n} bits={bits} bucket={bucket}"
         x = special_values(gen, dev, n, bucket) if special else \
             torch.randn(n, generator=gen, device=dev) * 1e-2
         got = kernels.maxmin_quantize(x, bits, bucket)
         want = kernels.maxmin_quantize_plain(x, bits, bucket)
         for g, w, what in zip(got, want, ("codes", "min", "unit")):
             if not bitwise(g, w):
-                raise AssertionError(f"B1 {what} differ at n={n} bits={bits} "
-                                     f"bucket={bucket}")
-        back = kernels.maxmin_dequantize(*got)
-        back_plain = kernels.maxmin_dequantize_plain(*got)
-        if not bitwise(back, back_plain):
-            raise AssertionError(f"B4 differs at n={n} bits={bits} "
-                                 f"bucket={bucket}")
+                raise AssertionError(f"B1 {what} differ at {where}")
+        q, mn, unit = got
+        packed = pack_bits(q.view(1, -1), bits)
+        rows = decode_rows(q.shape[0])
+        forms = {"packed": (packed, bits), "bytes": (q, 8),
+                 "misaligned": (at_offset(packed, 1), bits),
+                 f"{rows} rows": (pack_bits(q.view(rows, -1), bits), bits)}
+        decoded = []
+        for form, (codes, width) in forms.items():
+            back, route = routed(kernels, "maxmin_dequantize",
+                                 lambda: kernels.maxmin_dequantize(
+                                     codes, mn, unit, width, bucket))
+            check_route("B4", route, bucket, f"{where} {form}")
+            if not bitwise(back, kernels.maxmin_dequantize_plain(
+                    codes, mn, unit, width, bucket)):
+                raise AssertionError(f"B4 differs at {where} {form}")
+            decoded.append(back)
+        if not all(bitwise(d, decoded[0]) for d in decoded):
+            raise AssertionError(f"B4's forms decode differently at {where}")
         if special and n > 2 * bucket and not (
                 torch.isnan(back[1:3]).all() and
                 torch.isfinite(back[0]).all()):
             raise AssertionError(f"a NaN or inf bucket decoded to a number "
-                                 f"at n={n} bits={bits} bucket={bucket}")
+                                 f"at {where}")
         if n == n_values:
             errors["maxmin_quantize"] = max(
                 float((g.float() - w.float()).abs().max())
                 for g, w in zip(got, want))
             errors["maxmin_dequantize"] = float(
-                (back - back_plain).abs().max())
+                (decoded[0] - kernels.maxmin_dequantize_plain(
+                    packed, mn, unit, bits, bucket)).abs().max())
     n_buckets = -(-n_values // BUCKET)
-    for n_ranks in (1, 2, 4):
-        q = torch.randint(0, 1 << BITS, (n_ranks, n_buckets, BUCKET),
-                          generator=gen, device=dev, dtype=torch.uint8)
-        mn = torch.randn(n_ranks, n_buckets, generator=gen, device=dev)
-        unit = torch.rand(n_ranks, n_buckets, generator=gen, device=dev) / 15
-        got = kernels.maxmin_dequantize_sum(q, mn, unit)
-        want = kernels.maxmin_dequantize_sum_plain(q, mn, unit)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
-        if n_ranks == 1:
-            errors["maxmin_dequantize_sum"] = float((got - want).abs().max())
+    sums = [(n_ranks, n_buckets, BITS, BUCKET, 0) for n_ranks in (1, 2, 3, 4)
+            ] + [(n_ranks, 1001, bits, bucket, shift)
+                 for n_ranks in (1, 2, 3, 4) for bits in (1, 2, 4, 8)
+                 for bucket in (64, 512, 100) for shift in (0, 1)]
+    for n_ranks, buckets, bits, bucket, shift in sums:
+        where = (f"n_ranks={n_ranks} n_buckets={buckets} bits={bits} "
+                 f"bucket={bucket} shift={shift}")
+        q, mn, unit = packed_ranks(gen, dev, n_ranks, buckets, bits, bucket)
+        q = at_offset(q, shift)
+        got, route = routed(kernels, "maxmin_dequantize_sum",
+                            lambda: kernels.maxmin_dequantize_sum(
+                                q, mn, unit, bits, bucket))
+        check_route("B3", route, bucket, where)
+        want = kernels.maxmin_dequantize_sum_plain(q, mn, unit, bits, bucket)
+        if not bitwise(got, want):
+            raise AssertionError(f"B3 differs at {where}")
+        if buckets == n_buckets and n_ranks == 1:
+            # Bitwise, NaN for NaN: the largest error of the numbers.
+            errors["maxmin_dequantize_sum"] = float(
+                (got - want).nan_to_num(0.0).abs().max())
     torch.cuda.synchronize()
     return errors
+
+
+def check_route(kernel: str, route: str, bucket: int, where: str) -> None:
+    """B3 and B4 take the packed route for a bucket of a multiple of 8, at
+    any address, and the generic one for any other."""
+    if route != ("packed" if bucket % 8 == 0 else "generic"):
+        raise AssertionError(f"{kernel} took route {route} at {where}")
+
+
+def decode_rows(n_buckets: int) -> int:
+    """Rows of a ``compress_rows``-like payload of ``n_buckets`` buckets:
+    the first of 7, 3 and 2 that divides it (at 1 bit and buckets of 100
+    a row of an odd count of buckets ends inside a byte), else 1."""
+    return next((r for r in (7, 3, 2) if n_buckets % r == 0), 1)
+
+
+def packed_ranks(gen, dev, n_ranks: int, n_buckets: int, bits: int,
+                 bucket: int):
+    """B3's input: each rank's packed row of random codes, ``min`` and
+    ``unit`` ``[n_ranks, n_buckets]``, with a NaN min and an infinite unit
+    in rank 0's first and last buckets."""
+    from horovod_tpu_torch.compression.quantize import pack_bits
+
+    codes = torch.randint(0, 1 << bits, (n_ranks, n_buckets * bucket),
+                          generator=gen, device=dev, dtype=torch.uint8)
+    mn = torch.randn(n_ranks, n_buckets, generator=gen, device=dev)
+    unit = torch.rand(n_ranks, n_buckets, generator=gen,
+                      device=dev) / ((1 << bits) - 1)
+    mn[0, 0], unit[0, -1] = float("nan"), float("inf")
+    return pack_bits(codes, bits), mn, unit
 
 
 def special_values(gen, dev, n: int, bucket: int) -> torch.Tensor:
@@ -252,11 +350,12 @@ def special_values(gen, dev, n: int, bucket: int) -> torch.Tensor:
 
 
 def at_offset(x: torch.Tensor, shift: int) -> torch.Tensor:
-    """``x`` as a view ``shift`` values into a new buffer (at shift 1 its
-    address is not a multiple of 16 bytes)."""
-    buf = torch.zeros(x.shape[0] + shift, device=x.device)
-    buf[shift:] = x
-    return buf[shift:]
+    """``x`` as a view ``shift`` elements into a new buffer (at shift 1 the
+    address of fp32 values is not a multiple of 16 bytes, that of uint8
+    codes not a multiple of 2, 4 or 8)."""
+    buf = x.new_zeros(x.numel() + shift)
+    buf[shift:] = x.reshape(-1)
+    return buf[shift:].view(x.shape)
 
 
 # Divisors that are hard for a division through a refined reciprocal
@@ -648,7 +747,7 @@ def read_launches():
 
 
 def read_routes():
-    """Launches by route of the kernels that count them (B2, B5)."""
+    """Launches by route of the kernels that count them (B2–B5)."""
     kernels, norm_kernels, _ = kernel_modules()
     return {name: dict(counts) for module in (kernels, norm_kernels)
             for name, counts in module.ROUTES.items()}
@@ -874,16 +973,28 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
     least its function needs; B5 ``15 + 3 s`` for s bisection steps
     (abs and max for the norm, divide, a load, compare and select per
     step, two distances, the tie check, the code and its packing).
-    Yardstick of B4: the one PyTorch call that computes ``min + q unit``,
-    ``torch.addcmul``, timed beside it in ``FLASH_ROUNDS`` alternating
-    rounds (medians). It rounds once where B4 rounds twice, so it measures
-    rate only; B4 stays bitwise against its plain version. B2 and B5 (4
-    and 8 bits) are timed in alternating rounds beside their packed route
-    on the same values at an offset of one value (read one value at a
-    time), and with ``parent`` beside the parent checkout's kernel plus
-    ``pack_bits`` (the design they replace); all must give the same
-    payload bytes."""
+    B3 and B4 read the payload packed at 4 bits (B3 from one rank, as at
+    the path's world of one, and from ``B3_RANKS`` ranks of
+    ``B3_RANK_BUCKETS`` buckets each, the chunk a rank of a world of 4
+    sums). Yardstick of B4: the one PyTorch call that computes ``min + q
+    unit``, ``torch.addcmul``, on the unpacked uint8 codes. It rounds once
+    where B4 rounds twice and reads a byte a code, so it measures rate
+    only; B4 stays bitwise against its plain version. B2 and B5 (4 and 8
+    bits), B3 and B4 are timed in ``FLASH_ROUNDS`` alternating rounds
+    (medians) beside their packed route on an input that is not aligned
+    (B2, B5: one value into its buffer, read one value at a time; B3, B4:
+    one byte, read one byte at a time), and B3 and B4 with ``parent``
+    beside the parent checkout's kernel after ``unpack_bits``: the design
+    they replace. All must give the same bytes. Every ``ms``,
+    ``plain_ms`` and ``library_ms`` is CUDA events around eager calls, as
+    for every other kernel; B3's and B4's rounds are also timed as CUDA
+    graphs of the calls (``time_ms(graph=True)``: device time without the
+    wrappers' host cost, which at 0.02-0.05 ms a kernel shows), in the
+    ``*_graph`` fields. Their calls cycle through ``ROTATE`` copies of the
+    inputs and keep ``ROTATE`` outputs alive (:func:`rotating`), so that
+    no reading is served from the L2."""
     from horovod_tpu_torch.compression.quantize import (default_levels,
+                                                        pack_bits,
                                                         unpack_bits)
 
     bandwidth, fp32, _ = rates
@@ -892,16 +1003,37 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
     padded = n_buckets * BUCKET
     x = torch.randn(n_values, device=dev) * 1e-2
     shifted = at_offset(x, 1)
-    q, mn, unit = kernels.maxmin_quantize(x, BITS, BUCKET)
-    qs, mns, units = q[None], mn[None], unit[None]
+    codes, mn, unit = kernels.maxmin_quantize(x, BITS, BUCKET)
+    q = pack_bits(codes.view(1, -1), BITS)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    decode_inputs = {name: [tuple(t.clone() for t in args)
+                            for _ in range(ROTATE)]
+                     for name, args in {
+        "maxmin_dequantize": (q, mn, unit),
+        "maxmin_dequantize_sum": (q, mn[None], unit[None]),
+        "maxmin_dequantize_sum_4_ranks": packed_ranks(
+            gen, dev, B3_RANKS, B3_RANK_BUCKETS, BITS, BUCKET)}.items()}
     tables = {bits: norm_kernels.LevelTable(default_levels(bits, "uni"), dev)
               for bits in (BITS, 8)}
     nq, nrm = norm_kernels.norm_quantize(x, tables[BITS], BUCKET, False,
                                          BITS)
     nq = unpack_bits(nq, BITS, BUCKET)
     quantize_bytes = 4 * n_values + padded + 8 * n_buckets
-    decode_bytes = padded + 8 * n_buckets + 4 * padded
     b2_slots = sum(B2_SLOTS.values()) * padded
+
+    def decode_work(name, ops_per_value):
+        inputs = decode_inputs[name]
+        qd, mnd, _ = inputs[0]
+        b3 = name.startswith("maxmin_dequantize_sum")
+        kernel = kernels.maxmin_dequantize_sum if b3 else \
+            kernels.maxmin_dequantize
+        plain = kernels.maxmin_dequantize_sum_plain if b3 else \
+            kernels.maxmin_dequantize_plain
+        values = mnd.shape[-1] * BUCKET
+        return (rotating(lambda *a: kernel(*a, BITS, BUCKET), inputs),
+                rotating(lambda *a: plain(*a, BITS, BUCKET), inputs),
+                qd.numel() + 8 * mnd.numel() + 4 * values,
+                ops_per_value * qd.shape[0] * values)
 
     def norm_work(bits):
         table = tables[bits]
@@ -925,14 +1057,8 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
                                                              0),
             4 * n_values + padded * BITS // 8 + 8 * n_buckets,
             b2_slots * fp32 / issue),
-        "maxmin_dequantize_sum": (
-            lambda: kernels.maxmin_dequantize_sum(qs, mns, units),
-            lambda: kernels.maxmin_dequantize_sum_plain(qs, mns, units),
-            decode_bytes, 3 * padded),
-        "maxmin_dequantize": (
-            lambda: kernels.maxmin_dequantize(q, mn, unit),
-            lambda: kernels.maxmin_dequantize_plain(q, mn, unit),
-            decode_bytes, 2 * padded),
+        "maxmin_dequantize_sum": decode_work("maxmin_dequantize_sum", 3),
+        "maxmin_dequantize": decode_work("maxmin_dequantize", 2),
         "norm_quantize": norm_work(BITS),
         "norm_dequantize": (
             lambda: norm_kernels.norm_dequantize(nq, tables[BITS].levels,
@@ -949,11 +1075,17 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
                 "bound_ms": max(byte_ms, op_ms),
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
 
-    packed = packed_rounds(kernels, norm_kernels, x, shifted, tables, parent)
+    packed = packed_rounds(kernels, norm_kernels, x, shifted, tables)
+    decoded, graphed = decode_rounds(
+        kernels, decode_inputs, codes,
+        parent_kernels(parent) if parent else {})
+    packed.update(decoded)
     library = {"maxmin_dequantize": (
-        *yardstick_b4(work["maxmin_dequantize"][0], q, mn, unit),
-        "torch.addcmul(mn[:, None], q, unit[:, None]) on the uint8 codes")}
-    for name in ("maxmin_quantize_stochastic", "norm_quantize"):
+        packed["maxmin_dequantize"], packed["addcmul"],
+        "torch.addcmul(mn[:, None], q, unit[:, None]) on the unpacked uint8 "
+        "codes (rate only: one rounding, a byte a code)")}
+    for name in ("maxmin_quantize_stochastic", "norm_quantize",
+                 "maxmin_dequantize_sum"):
         library[name] = (packed[name], None, None)
     rows = []
     for name, (kernel, plain, nbytes, ops) in work.items():
@@ -965,9 +1097,23 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
                **timed(kernel, plain, nbytes, ops, ms), "library_ms": lib_ms}
         if lib is not None:
             row["library"] = lib
+        if name in graphed:
+            row.update(graphed[name])
         if name == "norm_quantize":
             row.update({f"{k}_at_8_bits": v for k, v in timed(
                 *norm_work(8), packed["norm_quantize_8"]).items()})
+        if name == "maxmin_dequantize_sum":
+            row.update({f"{k}_at_{B3_RANKS}_ranks": v for k, v in timed(
+                *decode_work("maxmin_dequantize_sum_4_ranks", 3),
+                packed["maxmin_dequantize_sum_4_ranks"]).items()})
+            row.update({f"{k}_at_{B3_RANKS}_ranks": v for k, v in
+                        graphed["maxmin_dequantize_sum_4_ranks"].items()})
+            log(f"kernel maxmin_dequantize_sum at {B3_RANKS} ranks of "
+                f"{B3_RANK_BUCKETS} buckets: "
+                f"{row['ms_at_4_ranks']:.4f} ms (plain "
+                f"{row['plain_ms_at_4_ranks']:.4f} ms, bound "
+                f"{row['bound_ms_at_4_ranks']:.6f} ms by "
+                f"{row['bound_by_at_4_ranks']})")
         rows.append(row)
         log(f"kernel {name}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}"
             f" ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
@@ -982,15 +1128,12 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
     return rows
 
 
-def packed_rounds(kernels, norm_kernels, x, shifted, tables, parent):
+def packed_rounds(kernels, norm_kernels, x, shifted, tables):
     """B2 and B5 (4 and 8 bits) on their packed routes, in ``FLASH_ROUNDS``
     alternating rounds beside the same route on ``shifted`` (the same
-    values at an offset of one value, read one value at a time) and, with
-    ``parent``, beside the parent checkout's kernel followed by
-    ``pack_bits``. The payloads must be the same bytes. Returns the packed
-    route's median ms of each on the aligned input."""
-    from horovod_tpu_torch.compression.quantize import pack_bits
-
+    values at an offset of one value, read one value at a time). The
+    payloads must be the same bytes. Returns the packed route's median ms
+    of each on the aligned input."""
     def b2(t):
         return kernels.maxmin_quantize_stochastic(t, BITS, BUCKET, 0)[0]
 
@@ -999,39 +1142,105 @@ def packed_rounds(kernels, norm_kernels, x, shifted, tables, parent):
                                           bits)[0]
 
     groups = {
-        "maxmin_quantize_stochastic": (lambda: b2(x), lambda: b2(shifted),
-                                       BITS),
-        "norm_quantize": (lambda: b5(x, BITS), lambda: b5(shifted, BITS),
-                          BITS),
-        "norm_quantize_8": (lambda: b5(x, 8), lambda: b5(shifted, 8), 8)}
-    old = parent_kernels(parent, x, tables) if parent else {}
+        "maxmin_quantize_stochastic": (lambda: b2(x), lambda: b2(shifted)),
+        "norm_quantize": (lambda: b5(x, BITS), lambda: b5(shifted, BITS)),
+        "norm_quantize_8": (lambda: b5(x, 8), lambda: b5(shifted, 8))}
     medians = {}
-    for name, (packed, unaligned, bits) in groups.items():
+    for name, (packed, unaligned) in groups.items():
         fns = {"packed": packed, "packed_unaligned": unaligned}
-        if name in old:
-            fns["parent_and_pack_bits"] = lambda f=old[name], b=bits: \
-                pack_bits(f(), b)
         outs = {k: fn() for k, fn in fns.items()}
         flat = {k: v.reshape(-1) for k, v in outs.items()}
         if any(not torch.equal(v, flat["packed"]) for v in flat.values()):
             raise AssertionError(f"{name}: the routes' payloads differ")
-        log(f"{name} timing: clocks.sm, clocks.max.sm, power.draw before "
-            f"{smi_clocks()}")
-        med, readings = paired_ms(fns)
-        log(f"{name} timing: clocks.sm, clocks.max.sm, power.draw after "
-            f"{smi_clocks()}")
-        log(f"{name} timing: {FLASH_ROUNDS} alternating rounds, ms "
-            f"{json.dumps(readings)}; medians {json.dumps(med)}")
-        medians[name] = med["packed"]
+        medians[name] = timed_rounds(name, fns)["packed"]
     return medians
 
 
-def parent_kernels(parent: str, x, tables):
-    """The parent checkout's B2 and B5 at the path's shape, built from its
-    own sources by its own ``utils/cuda_build.py`` into its own tree, and
-    called through their C entry points (one byte per code)."""
+def timed_rounds(name: str, fns, graph: bool = False):
+    """``paired_ms`` of ``fns``, logged with the clocks before and after;
+    returns the medians."""
+    log(f"{name} timing: clocks.sm, clocks.max.sm, power.draw before "
+        f"{smi_clocks()}")
+    med, readings = paired_ms(fns, graph=graph)
+    log(f"{name} timing: clocks.sm, clocks.max.sm, power.draw after "
+        f"{smi_clocks()}")
+    log(f"{name} timing: {FLASH_ROUNDS} alternating rounds, ms "
+        f"{json.dumps(readings)}; medians {json.dumps(med)}")
+    return med
+
+
+def rotating(fn, inputs):
+    """A function that calls ``fn`` on each tuple of ``inputs`` in turn and
+    keeps its last ``ROTATE`` outputs alive, so that successive calls read
+    and write other memory."""
+    turn = itertools.cycle(inputs)
+    alive = collections.deque(maxlen=ROTATE)
+
+    def call():
+        alive.append(fn(*next(turn)))
+        return alive[-1]
+    return call
+
+
+def decode_rounds(kernels, inputs, codes, old):
+    """B4 and B3 (one rank, and ``B3_RANKS`` ranks) on the packed payload,
+    in ``FLASH_ROUNDS`` alternating rounds beside the same kernel on the
+    payload one byte into its buffer (read one byte at a time) and beside
+    the parent checkout's kernel after ``unpack_bits``, where ``old`` has
+    it; B4 also beside ``torch.addcmul`` on ``codes``, its unpacked uint8
+    codes. Each function cycles through the ``ROTATE`` copies of its
+    inputs (:func:`rotating`). The outputs on the first copy must be the
+    same bytes. The rounds run twice: with CUDA events around eager calls,
+    and as CUDA graphs of the calls (device time only). Returns the eager
+    medians of the packed route (by name) and of addcmul, and by name the
+    fields of the graph medians and of the parent's (``device_ms_graph``,
+    ``library_ms_graph``, ``parent_ms``, ``parent_ms_graph``)."""
+    eager, graphed = {}, {}
+    for name, copies in inputs.items():
+        kernel = kernels.maxmin_dequantize if name == "maxmin_dequantize" \
+            else kernels.maxmin_dequantize_sum
+        def decode(q, mn, unit, k=kernel):
+            return k(q, mn, unit, BITS, BUCKET)
+
+        shifted = [(at_offset(q, 1), mn, unit) for q, mn, unit in copies]
+        designs = {"packed": (decode, copies),
+                   "packed_misaligned": (decode, shifted)}
+        if name in old:
+            designs["parent_and_unpack_bits"] = (old[name], copies)
+        outs = {k: fn(*args[0]) for k, (fn, args) in designs.items()}
+        if any(not bitwise(v, outs["packed"]) for v in outs.values()):
+            raise AssertionError(f"{name}: the designs' outputs differ")
+        fns = {k: rotating(fn, args) for k, (fn, args) in designs.items()}
+        if name == "maxmin_dequantize":
+            fns["addcmul"] = rotating(
+                lambda c, mn, unit: torch.addcmul(mn[:, None], c,
+                                                  unit[:, None]),
+                [(codes.clone(), mn, unit) for _, mn, unit in copies])
+        med = timed_rounds(name, fns)
+        med_graph = timed_rounds(f"{name} (CUDA graphs)", fns, graph=True)
+        eager[name] = med["packed"]
+        fields = {"device_ms_graph": med_graph["packed"]}
+        if "addcmul" in med:
+            eager["addcmul"] = med["addcmul"]
+            fields["library_ms_graph"] = med_graph["addcmul"]
+        if name in old:
+            fields["parent_ms"] = med["parent_and_unpack_bits"]
+            fields["parent_ms_graph"] = med_graph["parent_and_unpack_bits"]
+        graphed[name] = fields
+    return eager, graphed
+
+
+def parent_kernels(parent: str):
+    """The parent checkout's B4 and B3, each after ``unpack_bits`` (the
+    design this tree's packed B3 and B4 replace), built from its own
+    sources by its own ``utils/cuda_build.py`` into its own tree, and
+    called through their C entry points, which take one byte a code: by
+    name, functions of a packed payload, ``min`` and ``unit`` as B3 and B4
+    take them."""
     import ctypes
     import importlib.util
+
+    from horovod_tpu_torch.compression.quantize import unpack_bits
 
     spec = importlib.util.spec_from_file_location(
         "parent_cuda_build",
@@ -1039,48 +1248,32 @@ def parent_kernels(parent: str, x, tables):
     build = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(build)
     lib = ctypes.CDLL(str(build.build()))
-    ptr, i64, i32, u64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                          ctypes.c_uint64)
-    lib.hvd_maxmin_quantize_stochastic.argtypes = [
-        ptr, i64, i64, i32, i32, u64, u64, ptr, ptr, ptr, ptr]
-    lib.hvd_norm_quantize.argtypes = [ptr, i64, i64, i32, ptr, i32, i32,
-                                      ptr, ptr, ptr]
-    n = x.shape[0]
-    n_buckets = -(-n // BUCKET)
-    q = torch.empty((n_buckets, BUCKET), dtype=torch.uint8, device=x.device)
-    meta = torch.empty((2, n_buckets), device=x.device)
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.hvd_maxmin_dequantize.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
+    lib.hvd_maxmin_dequantize_sum.argtypes = [ptr, ptr, ptr, i32, i64, i32,
+                                              ptr, ptr]
 
-    def run(fn, *args):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"parent kernel launch failed ({err})")
-        return q
+    def decode(name):
+        def call(packed, mn, unit):
+            n_ranks, n_buckets = packed.shape[0], mn.shape[-1]
+            out = torch.empty((n_buckets, BUCKET), device=packed.device)
+            if name == "maxmin_dequantize":
+                fn, sizes = lib.hvd_maxmin_dequantize, (n_buckets, BUCKET)
+            else:
+                fn, sizes = lib.hvd_maxmin_dequantize_sum, (
+                    n_ranks, n_buckets, BUCKET)
+            codes = unpack_bits(packed, BITS, n_buckets * BUCKET)
+            err = fn(codes.data_ptr(), mn.data_ptr(), unit.data_ptr(),
+                     *sizes, out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"parent kernel launch failed ({err})")
+            return out
+        return call
 
-    return {
-        "maxmin_quantize_stochastic": lambda: run(
-            lib.hvd_maxmin_quantize_stochastic, x.data_ptr(), n, n_buckets,
-            BUCKET, BITS, 0, 0, q.data_ptr(), meta[0].data_ptr(),
-            meta[1].data_ptr()),
-        **{name: lambda levels=tables[bits].levels: run(
-            lib.hvd_norm_quantize, x.data_ptr(), n, n_buckets, BUCKET,
-            levels.data_ptr(), levels.shape[0], 0, q.data_ptr(),
-            meta[0].data_ptr())
-           for name, bits in (("norm_quantize", BITS),
-                              ("norm_quantize_8", 8))}}
-
-
-def yardstick_b4(kernel, q, mn, unit):
-    """B4 and ``torch.addcmul(mn[:, None], q, unit[:, None])`` on its uint8
-    codes, in alternating rounds: (B4 ms, addcmul ms)."""
-    out = torch.addcmul(mn[:, None], q, unit[:, None])
-    if out.dtype != torch.float32 or out.shape != q.shape:
-        raise AssertionError(f"addcmul gave {out.dtype} {tuple(out.shape)}")
-    medians, readings = paired_ms({
-        "maxmin_dequantize": kernel,
-        "addcmul": lambda: torch.addcmul(mn[:, None], q, unit[:, None])})
-    log(f"B4 timing: {FLASH_ROUNDS} alternating rounds with addcmul, ms "
-        f"{json.dumps(readings)}")
-    return medians["maxmin_dequantize"], medians["addcmul"]
+    return {name: decode(name) for name in ("maxmin_dequantize",
+                                            "maxmin_dequantize_sum",
+                                            "maxmin_dequantize_sum_4_ranks")}
 
 
 def smi_clocks() -> str:
@@ -1091,14 +1284,14 @@ def smi_clocks() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def paired_ms(fns, rounds: int = FLASH_ROUNDS):
+def paired_ms(fns, rounds: int = FLASH_ROUNDS, graph: bool = False):
     """Median of ``rounds`` ``time_ms`` readings of each function, taken in
     alternating rounds (every function once per round, in order), so that
     a kernel and its yardstick see the same clocks."""
     times = {name: [] for name in fns}
     for _ in range(rounds):
         for name, fn in fns.items():
-            times[name].append(time_ms(fn))
+            times[name].append(time_ms(fn, graph=graph))
     return {name: statistics.median(t) for name, t in times.items()}, times
 
 
@@ -1193,8 +1386,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--parent", default=None,
-        help="a checkout of the parent commit: time its B2 and B5 (plus "
-             "pack_bits) beside this tree's in alternating rounds")
+        help="a checkout of the parent commit: time its B3 and B4 (after "
+             "unpack_bits) beside this tree's in alternating rounds")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1225,8 +1418,9 @@ def main() -> int:
     try:
         dev = hvd.device()
         errors = check_kernels(kernels, dev, RESNET50_PARAMS)
-        log(f"kernels: B1 and B4 bitwise, B3 within rtol 1e-5; errors at "
-            f"the path's shape {errors}")
+        log(f"kernels: B1, B3 and B4 bitwise (B3 and B4 on packed "
+            f"payloads at every width, aligned or not, and on byte codes); "
+            f"errors at the path's shape {errors}")
         errors["maxmin_quantize_stochastic"], routes = check_stochastic(
             kernels, dev, RESNET50_PARAMS)
         log(f"kernels: B2 bitwise (packed payloads against pack_bits of "

@@ -10,10 +10,17 @@ into one shared library at first use (``utils/cuda_build.py``).
 Each wrapper takes the plain PyTorch version beside it for a tensor on the
 CPU, launches its kernel for a CUDA tensor, and raises for any other device:
 there is no fallback. ``LAUNCHES`` counts kernel launches, so a run can show
-that its path went through the kernels, and ``ROUTES`` counts B2's launches
-by the route the C entry point reports (``hvd_maxmin_last_route``): on the
-``packed`` route (:func:`packed_route`) the kernel writes the codes packed as
-``pack_bits`` packs them, on the ``bytes`` route one byte per code.
+that its path went through the kernels, and ``ROUTES`` counts the launches
+of B2, B3 and B4 by the route the C entry point reports
+(``hvd_maxmin_last_route``). On B2's ``packed`` route (:func:`packed_route`)
+the kernel writes the codes packed as ``pack_bits`` packs them, on its
+``bytes`` route one byte per code. B3 and B4 read the packed payload as it
+crossed the wire, on the ``packed`` route where a bucket is a multiple of 8
+codes (:func:`decode_route`), else on the ``generic`` one; 8 bits is one
+byte per code, so B1's codes go through them as they are. The packing
+itself (:func:`pack_bits`, :func:`unpack_bits`; the JAX package's
+``compression/quantize.py:36-58``) lives here, and ``quantize`` re-exports
+it.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import functools
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..utils import cuda_build
 
@@ -35,8 +43,10 @@ LAUNCHES: Dict[str, int] = {
 
 
 ROUTES: Dict[str, Dict[str, int]] = {
-    "maxmin_quantize_stochastic": {"packed": 0, "bytes": 0}}
-_ROUTE_NAMES = {1: "packed", 2: "bytes"}
+    "maxmin_quantize_stochastic": {"packed": 0, "bytes": 0},
+    "maxmin_dequantize": {"packed": 0, "generic": 0},
+    "maxmin_dequantize_sum": {"packed": 0, "generic": 0}}
+_ROUTE_NAMES = {1: "packed", 2: "bytes", 3: "generic"}
 # The packed routes of B2 and B5 hold a bucket in registers, 8 groups of 8
 # values a lane at most (csrc/bucket_groups.cuh).
 PACKED_MAX_BUCKET = 2048
@@ -57,6 +67,13 @@ def packed_route(bucket_size: int) -> bool:
     ``PACKED_MAX_BUCKET``, at any address. Other buckets take the
     byte-code route."""
     return bucket_size % 8 == 0 and bucket_size <= PACKED_MAX_BUCKET
+
+
+def decode_route(bucket_size: int) -> str:
+    """The route of B3 and B4 for buckets of ``bucket_size`` values, by the
+    bucket alone: ``packed`` (8 codes are ``bits`` whole bytes, read with
+    one load) for a multiple of 8, else ``generic``."""
+    return "packed" if bucket_size % 8 == 0 else "generic"
 
 
 def count_route(routes: Dict[str, int], names: Dict[int, str], code: int,
@@ -84,10 +101,11 @@ def _lib() -> ctypes.CDLL:
     lib.hvd_maxmin_quantize_stochastic.restype = i32
     lib.hvd_maxmin_last_route.argtypes = []
     lib.hvd_maxmin_last_route.restype = i32
-    lib.hvd_maxmin_dequantize.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
+    lib.hvd_maxmin_dequantize.argtypes = [ptr, i64, i64, ptr, ptr, i64, i32,
+                                          i32, ptr, ptr]
     lib.hvd_maxmin_dequantize.restype = i32
-    lib.hvd_maxmin_dequantize_sum.argtypes = [ptr, ptr, ptr, i32, i64, i32,
-                                              ptr, ptr]
+    lib.hvd_maxmin_dequantize_sum.argtypes = [ptr, i32, i64, ptr, ptr, i64,
+                                              i32, i32, ptr, ptr]
     lib.hvd_maxmin_dequantize_sum.restype = i32
     return lib
 
@@ -283,79 +301,154 @@ def maxmin_quantize_stochastic(flat: torch.Tensor, bits: int,
 
 
 # ---------------------------------------------------------------------------
-# B4: max-min dequantize
+# bit packing
 # ---------------------------------------------------------------------------
 
-def maxmin_dequantize_plain(q: torch.Tensor, mn: torch.Tensor,
-                            unit: torch.Tensor) -> torch.Tensor:
-    """Plain version of B4: ``min + q * unit`` per bucket."""
-    return mn[:, None] + q.to(torch.float32) * unit[:, None]
+def pack_bits(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack uint8 values (< 2**bits) along the last dim into bytes, the
+    first value in the lowest bits; ``bits`` must divide 8. Zero-pads the
+    last dim to a multiple of 8//bits values. Byte-equal to the JAX
+    package's ``pack_bits`` on each row."""
+    q = q.to(torch.uint8)
+    if bits == 8:
+        return q
+    per = 8 // bits
+    rem = q.shape[-1] % per
+    if rem:
+        q = F.pad(q, (0, per - rem))
+    q = q.reshape(*q.shape[:-1], -1, per)
+    packed = q[..., 0].clone()
+    for i in range(1, per):
+        packed |= q[..., i] << (i * bits)
+    return packed
 
 
-def _check_meta(q: torch.Tensor, mn: torch.Tensor, unit: torch.Tensor,
-                lead: Tuple[int, ...]) -> bool:
-    on_cpu = _check(q, "q", torch.uint8, len(lead) + 1)
-    _check(mn, "min", torch.float32, len(lead))
-    _check(unit, "unit", torch.float32, len(lead))
-    if tuple(mn.shape) != lead or tuple(unit.shape) != lead:
+def unpack_bits(p: torch.Tensor, bits: int, count: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: the first ``count`` values of each
+    row. The plain B3 and B4 decode with it; their kernels read the packed
+    bytes themselves."""
+    if bits == 8:
+        return p[..., :count]
+    shifts = torch.arange(0, 8, bits, dtype=torch.uint8, device=p.device)
+    vals = (p.unsqueeze(-1) >> shifts) & ((1 << bits) - 1)
+    return vals.reshape(*p.shape[:-1], -1)[..., :count]
+
+
+# ---------------------------------------------------------------------------
+# B4 and B3: decode the packed payload
+# ---------------------------------------------------------------------------
+
+def _check_decode(q: torch.Tensor, mn: torch.Tensor, unit: torch.Tensor,
+                  bits: int, bucket_size: int, per_row: int,
+                  meta_shape: Tuple[int, ...]) -> bool:
+    """Validate a packed payload: rows of exactly the bytes that
+    ``pack_bits`` makes of ``per_row`` buckets, and ``min``/``unit`` of
+    ``meta_shape``. True when it lies on the CPU."""
+    _check_quantize_args(bits, bucket_size)
+    on_cpu = _check(q, "q", torch.uint8, 2)
+    _check(mn, "min", torch.float32, len(meta_shape))
+    _check(unit, "unit", torch.float32, len(meta_shape))
+    if tuple(mn.shape) != meta_shape or tuple(unit.shape) != meta_shape:
         raise ValueError(f"min {tuple(mn.shape)} and unit "
-                         f"{tuple(unit.shape)} must both be {lead}")
+                         f"{tuple(unit.shape)} must both be {meta_shape}")
+    want = -(-per_row * bucket_size * bits // 8)
+    if q.shape[1] != want:
+        raise ValueError(f"q rows must hold {want} bytes (the packed codes "
+                         f"of {per_row} buckets of {bucket_size} at {bits} "
+                         f"bits), got {tuple(q.shape)}")
     _same_device(q, mn, unit)
     return on_cpu
 
 
-def maxmin_dequantize(q: torch.Tensor, mn: torch.Tensor, unit: torch.Tensor
-                      ) -> torch.Tensor:
-    """B4: codes ``[n_buckets, bucket]`` uint8 with ``min``/``unit``
-    ``[n_buckets]`` -> fp32 ``[n_buckets, bucket]``."""
-    if q.dim() != 2:
-        raise ValueError(f"q must be [n_buckets, bucket], got "
-                         f"{tuple(q.shape)}")
-    n_buckets, bucket = q.shape
-    if _check_meta(q, mn, unit, (n_buckets,)):
-        return maxmin_dequantize_plain(q, mn, unit)
-    out = torch.empty((n_buckets, bucket), dtype=torch.float32,
+def _per_row(q: torch.Tensor, mn: torch.Tensor) -> int:
+    """Buckets a row of B4's ``q [rows, row_bytes]`` for ``min
+    [n_buckets]``."""
+    if q.dim() != 2 or mn.dim() != 1:
+        raise ValueError(f"q must be [rows, row_bytes] and min [n_buckets], "
+                         f"got {tuple(q.shape)} and {tuple(mn.shape)}")
+    rows, n_buckets = q.shape[0], mn.shape[0]
+    if rows == 0 or n_buckets % rows:
+        raise ValueError(f"{n_buckets} buckets do not fill the {rows} rows "
+                         f"of q")
+    return n_buckets // rows
+
+
+def maxmin_dequantize_plain(q: torch.Tensor, mn: torch.Tensor,
+                            unit: torch.Tensor, bits: int, bucket_size: int
+                            ) -> torch.Tensor:
+    """Plain version of B4: the codes of the packed rows, then
+    ``min + q * unit`` per bucket."""
+    codes = unpack_bits(q, bits, _per_row(q, mn) * bucket_size)
+    codes = codes.reshape(-1, bucket_size)
+    return mn[:, None] + codes.to(torch.float32) * unit[:, None]
+
+
+def _launch_decode(name: str, fn: str, q: torch.Tensor, n_buckets: int,
+                   bucket_size: int, *args) -> torch.Tensor:
+    """Launch B3 or B4 (C entry point ``fn``) into a new fp32
+    ``[n_buckets, bucket_size]`` output and count its route."""
+    out = torch.empty((n_buckets, bucket_size), dtype=torch.float32,
                       device=q.device)
-    if out.numel():
-        with torch.cuda.device(q.device):
-            cuda_build.launch(LAUNCHES, "maxmin_dequantize",
-                              _lib().hvd_maxmin_dequantize, q.data_ptr(),
-                              mn.data_ptr(), unit.data_ptr(), n_buckets,
-                              bucket, out.data_ptr())
+    if not out.numel():
+        return out
+    with torch.cuda.device(q.device):
+        lib = _lib()
+        cuda_build.launch(LAUNCHES, name, getattr(lib, fn), q.data_ptr(),
+                          *args, out.data_ptr())
+        count_route(ROUTES[name], _ROUTE_NAMES, lib.hvd_maxmin_last_route(),
+                    decode_route(bucket_size), name)
     return out
 
 
-# ---------------------------------------------------------------------------
-# B3: fused dequantize-sum over ranks
-# ---------------------------------------------------------------------------
+def maxmin_dequantize(q: torch.Tensor, mn: torch.Tensor, unit: torch.Tensor,
+                      bits: int, bucket_size: int) -> torch.Tensor:
+    """B4: decode a packed payload to fp32 ``[n_buckets, bucket_size]``.
+
+    ``q`` is uint8 ``[rows, row_bytes]``: each row is ``pack_bits`` of the
+    codes of ``n_buckets / rows`` buckets (code ``j`` of a row at bit
+    ``j * bits``); ``min`` and ``unit`` are fp32 ``[n_buckets]``. A flat
+    payload is one row; at 8 bits each code is one byte, so
+    ``[n_buckets, bucket_size]`` byte codes go through as they are."""
+    per_row = _per_row(q, mn)
+    n_buckets = mn.shape[0]
+    if _check_decode(q, mn, unit, bits, bucket_size, per_row, (n_buckets,)):
+        return maxmin_dequantize_plain(q, mn, unit, bits, bucket_size)
+    return _launch_decode("maxmin_dequantize", "hvd_maxmin_dequantize", q,
+                          n_buckets, bucket_size, q.shape[0], q.shape[1],
+                          mn.data_ptr(), unit.data_ptr(), n_buckets,
+                          bucket_size, bits)
+
 
 def maxmin_dequantize_sum_plain(q: torch.Tensor, mn: torch.Tensor,
-                                unit: torch.Tensor) -> torch.Tensor:
-    """Plain version of B3: decode each rank and add, rank by rank, in the
-    order of the JAX package's per-rank loop (``reducers.py:68-72``)."""
-    total = torch.zeros(q.shape[1:], dtype=torch.float32, device=q.device)
+                                unit: torch.Tensor, bits: int,
+                                bucket_size: int) -> torch.Tensor:
+    """Plain version of B3: decode each rank's row and add, rank by rank,
+    in the order of the JAX package's per-rank loop (``reducers.py:68-72``).
+    """
+    total = torch.zeros((mn.shape[1], bucket_size), dtype=torch.float32,
+                        device=q.device)
     for r in range(q.shape[0]):
-        total = total + maxmin_dequantize_plain(q[r], mn[r], unit[r])
+        total = total + maxmin_dequantize_plain(q[r:r + 1], mn[r], unit[r],
+                                                bits, bucket_size)
     return total
 
 
 def maxmin_dequantize_sum(q: torch.Tensor, mn: torch.Tensor,
-                          unit: torch.Tensor) -> torch.Tensor:
-    """B3: codes ``[n_ranks, n_buckets, bucket]`` uint8 with per-rank
-    ``min``/``unit`` ``[n_ranks, n_buckets]`` -> the fp32 sum over ranks of
-    the decoded values, ``[n_buckets, bucket]``."""
-    if q.dim() != 3:
-        raise ValueError(f"q must be [n_ranks, n_buckets, bucket], got "
-                         f"{tuple(q.shape)}")
-    n_ranks, n_buckets, bucket = q.shape
-    if _check_meta(q, mn, unit, (n_ranks, n_buckets)):
-        return maxmin_dequantize_sum_plain(q, mn, unit)
-    out = torch.empty((n_buckets, bucket), dtype=torch.float32,
-                      device=q.device)
-    if out.numel():
-        with torch.cuda.device(q.device):
-            cuda_build.launch(LAUNCHES, "maxmin_dequantize_sum",
-                              _lib().hvd_maxmin_dequantize_sum, q.data_ptr(),
-                              mn.data_ptr(), unit.data_ptr(), n_ranks,
-                              n_buckets, bucket, out.data_ptr())
-    return out
+                          unit: torch.Tensor, bits: int, bucket_size: int
+                          ) -> torch.Tensor:
+    """B3: the fp32 sum over ranks of the decoded payloads,
+    ``[n_buckets, bucket_size]``. ``q`` is uint8 ``[n_ranks, row_bytes]``,
+    each row ``pack_bits`` of that rank's codes of ``n_buckets`` buckets;
+    ``min`` and ``unit`` are fp32 ``[n_ranks, n_buckets]``."""
+    if q.dim() != 2 or mn.dim() != 2 or q.shape[0] != mn.shape[0]:
+        raise ValueError(f"q [n_ranks, row_bytes] and min [n_ranks, "
+                         f"n_buckets] must agree, got {tuple(q.shape)} and "
+                         f"{tuple(mn.shape)}")
+    n_ranks, n_buckets = mn.shape
+    if _check_decode(q, mn, unit, bits, bucket_size, n_buckets,
+                     (n_ranks, n_buckets)):
+        return maxmin_dequantize_sum_plain(q, mn, unit, bits, bucket_size)
+    return _launch_decode("maxmin_dequantize_sum",
+                          "hvd_maxmin_dequantize_sum", q, n_buckets,
+                          bucket_size, n_ranks, q.shape[1], mn.data_ptr(),
+                          unit.data_ptr(), n_buckets, bucket_size, bits)

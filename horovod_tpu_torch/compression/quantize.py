@@ -1,6 +1,8 @@
 """Bucketed lossy gradient quantizers and top-k sparsification
 (counterpart of ``horovod_tpu/compression/quantize.py``:
-``pack_bits``/``unpack_bits`` :36-58, ``QuantContext`` :110-117,
+``pack_bits``/``unpack_bits`` :36-58, defined in
+:mod:`horovod_tpu_torch.compression.kernels` and re-exported here,
+``QuantContext`` :110-117,
 ``MaxMinQuantizer`` :120-207, the level tables :210-236,
 ``NormalizedQuantizer`` :239-343, ``TopKCompressor`` :346-378 and
 ``compressed_size_bytes`` :381-384).
@@ -15,7 +17,8 @@ normalized quantizer runs B5 and decodes with B6
 B2 and B5 write the payload's packed codes themselves (:func:`_payload`);
 B1's codes, and those of the byte-code routes and of the CPU, are packed by
 :func:`pack_bits` in plain PyTorch, as they are by plain jnp in the JAX
-package.
+package. B4 (and B3 in the reducers) reads the packed codes as they are;
+only B6's codes go through :func:`unpack_bits` first.
 
 Every quantizer takes ``key`` in ``compress``: an ``int`` seed, a CPU
 ``torch.Generator`` (one seed is drawn from it) or None (seed 0, as the JAX
@@ -35,42 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels, norm_kernels
+from .kernels import pack_bits, unpack_bits
 
 DEFAULT_BUCKET_SIZE = 512  # reference: compressor.h:11
-
-
-# ---------------------------------------------------------------------------
-# bit packing
-# ---------------------------------------------------------------------------
-
-def pack_bits(q: torch.Tensor, bits: int) -> torch.Tensor:
-    """Pack uint8 values (< 2**bits) along the last dim into bytes, the
-    first value in the lowest bits; ``bits`` must divide 8. Zero-pads the
-    last dim to a multiple of 8//bits values. Byte-equal to the JAX
-    package's ``pack_bits`` on each row."""
-    q = q.to(torch.uint8)
-    if bits == 8:
-        return q
-    per = 8 // bits
-    rem = q.shape[-1] % per
-    if rem:
-        q = F.pad(q, (0, per - rem))
-    q = q.reshape(*q.shape[:-1], -1, per)
-    packed = q[..., 0].clone()
-    for i in range(1, per):
-        packed |= q[..., i] << (i * bits)
-    return packed
-
-
-def unpack_bits(p: torch.Tensor, bits: int, count: int) -> torch.Tensor:
-    """Inverse of :func:`pack_bits`: the first ``count`` values of each
-    row."""
-    if bits == 8:
-        return p[..., :count]
-    per = 8 // bits
-    shifts = torch.arange(0, 8, bits, dtype=torch.uint8, device=p.device)
-    vals = (p.unsqueeze(-1) >> shifts) & ((1 << bits) - 1)
-    return vals.reshape(*p.shape[:-1], -1)[..., :count]
 
 
 # ---------------------------------------------------------------------------
@@ -223,10 +193,9 @@ class MaxMinQuantizer(_Bucketed):
 
     def decompress(self, payload: Dict[str, torch.Tensor], ctx: QuantContext
                    ) -> torch.Tensor:
-        q = unpack_bits(payload["q"], ctx.bits, self._padded(ctx.count))
         out = kernels.maxmin_dequantize(
-            q.reshape(-1, ctx.bucket_size), payload["min"].reshape(-1),
-            payload["unit"].reshape(-1))
+            payload["q"].reshape(1, -1), payload["min"].reshape(-1),
+            payload["unit"].reshape(-1), ctx.bits, ctx.bucket_size)
         return out.view(-1)[:ctx.count].view(ctx.shape).to(ctx.dtype)
 
     def compress_rows(self, rows: torch.Tensor, key: Key = None
@@ -244,13 +213,12 @@ class MaxMinQuantizer(_Bucketed):
                         ctx: QuantContext) -> torch.Tensor:
         """Inverse of :meth:`compress_rows`: ``[n, ctx.count]`` in
         ``ctx.dtype``."""
-        padded = self._padded(ctx.count)
-        q = unpack_bits(payload["q"], ctx.bits, padded)
-        n = q.shape[0]
+        q = payload["q"]
         out = kernels.maxmin_dequantize(
-            q.reshape(-1, ctx.bucket_size), payload["min"].reshape(-1),
-            payload["unit"].reshape(-1))
-        return out.view(n, padded)[:, :ctx.count].to(ctx.dtype)
+            q, payload["min"].reshape(-1), payload["unit"].reshape(-1),
+            ctx.bits, ctx.bucket_size)
+        padded = self._padded(ctx.count)
+        return out.view(q.shape[0], padded)[:, :ctx.count].to(ctx.dtype)
 
 
 # ---------------------------------------------------------------------------

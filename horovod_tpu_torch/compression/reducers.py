@@ -33,7 +33,7 @@ from ..ops import collectives as C
 from . import kernels
 from .error_feedback import compress_with_feedback
 from .quantize import (MaxMinQuantizer, NormalizedQuantizer, QuantContext,
-                       TopKCompressor, fold_in, unpack_bits)
+                       TopKCompressor, fold_in)
 
 _COMPRESSORS = (MaxMinQuantizer, NormalizedQuantizer, TopKCompressor)
 
@@ -56,16 +56,15 @@ def _dequant_sum_stacked(compressor, gathered: Dict[str, torch.Tensor],
     """Sum over the leading ranks dim of the decoded payloads, in fp32.
 
     Max-min payloads go through the fused dequantize-sum kernel (B3) in one
-    pass. Any other payload is decoded for all ranks at once
+    pass, which reads every rank's packed codes as they arrived. Any other
+    payload is decoded for all ranks at once
     (``decompress_rows``: one B6 launch for the normalized quantizer) and
     added rank by rank in rank order, the JAX package's decode-and-add loop
     (``reducers.py:68-72``)."""
     if isinstance(compressor, MaxMinQuantizer):
-        padded = -(-ctx.count // ctx.bucket_size) * ctx.bucket_size
-        q = unpack_bits(gathered["q"], ctx.bits, padded)
         out = kernels.maxmin_dequantize_sum(
-            q.reshape(n, -1, ctx.bucket_size), gathered["min"].reshape(n, -1),
-            gathered["unit"].reshape(n, -1))
+            gathered["q"].reshape(n, -1), gathered["min"].reshape(n, -1),
+            gathered["unit"].reshape(n, -1), ctx.bits, ctx.bucket_size)
         return out.view(-1)[:ctx.count].view(ctx.shape)
     rows = compressor.decompress_rows(gathered, ctx).to(torch.float32)
     total = torch.zeros(ctx.count, dtype=torch.float32, device=rows.device)

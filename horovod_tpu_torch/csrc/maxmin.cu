@@ -18,15 +18,17 @@
 // in B2_SLOTS).
 // The design answer is to touch each byte once: B1 reads a bucket once from
 // device memory (the second pass over it hits L1), B2's packed route reads
-// it once into registers and writes the packed payload itself, and B3
-// decodes and sums every rank's codes in one pass instead of n dequantize
-// passes plus n adds.
+// it once into registers and writes the packed payload itself, B3 and B4
+// read the packed payload as it crossed the wire (no unpacking pass), and
+// B3 decodes and sums every rank's codes in one pass instead of n
+// dequantize passes plus n adds.
 // Bytes moved, for n values in n_buckets buckets of `bucket` values:
 //   B1: 4n read + n_buckets*bucket codes + 8*n_buckets min/unit written
 //   B2: 4n read + n_buckets*bucket*bits/8 packed codes (one byte a code on
 //       its byte-code route) + 8*n_buckets min/unit written
-//   B4: n_buckets*bucket codes + 8*n_buckets read, 4*n_buckets*bucket written
-//   B3: n_ranks*(n_buckets*bucket + 8*n_buckets) read,
+//   B4: n_buckets*bucket*bits/8 packed codes + 8*n_buckets read,
+//       4*n_buckets*bucket written
+//   B3: n_ranks*(n_buckets*bucket*bits/8 + 8*n_buckets) read,
 //       4*n_buckets*bucket written
 //
 // B2's routes, chosen in hvd_maxmin_quantize_stochastic from the input and
@@ -39,6 +41,14 @@
 //   bytes   any other bucket: a strided pass for min and max and one per
 //           Philox counter for the codes (a counter may straddle two
 //           buckets), one byte per code, packed by pack_bits outside.
+// B3's and B4's routes, chosen by the bucket alone and reported the same
+// way:
+//   packed  bucket % 8 == 0: a group of 8 codes is `bits` whole bytes, read
+//           with one load (load_packed; byte by byte where the payload's
+//           address is not a multiple of `bits`), decoded and written as
+//           16-byte stores;
+//   generic any other bucket: code j's byte and shift from its bit index,
+//           one value a lane at a time; correct, not fast.
 //
 // Every rounding step is spelled out with an IEEE intrinsic (__fsub_rn,
 // __fdiv_rn, __fmul_rn, __fadd_rn, rintf) so nvcc cannot contract or
@@ -48,7 +58,8 @@
 // (bucket_groups.cuh): nvcc's IEEE division, its reciprocal refined once a
 // bucket. Do not build with --use_fast_math.
 //
-// B1's codes are packed into bytes outside (pack_bits/unpack_bits).
+// B1's codes are packed into bytes outside (pack_bits); B3 and B4 read
+// them packed.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,11 +73,18 @@ using hvd_groups::kGroup;
 using hvd_groups::kWarp;
 
 constexpr int kQuantizeWarps = 8;     // buckets per block in B1 and B2
-constexpr int kElementwiseThreads = 256;
+constexpr int kDecodeWarps = 8;       // buckets per block in B3 and B4
+// A lane's groups, and in B3 ranks, whose loads go out before any of their
+// arithmetic.
+constexpr int kDecodeGroups = 4;
+constexpr int kDecodeRanks = 4;
+// Buckets of B3 and B4 index a bucket's bits in 32 bits.
+constexpr int kMaxDecodeBucket = 1 << 27;
 
-// Routes of B2, as hvd_maxmin_last_route reports them.
+// Routes of B2, B3 and B4, as hvd_maxmin_last_route reports them.
 constexpr int kRoutePacked = 1;
 constexpr int kRouteBytes = 2;
+constexpr int kRouteGeneric = 3;
 thread_local int g_maxmin_route = 0;
 
 // min and max that pass a NaN through, as torch.amin/amax and jnp.min/max
@@ -322,45 +340,238 @@ __global__ void maxmin_quantize_stochastic_bytes_kernel(
   }
 }
 
-// B4: one thread per value, min + q * unit.
-__global__ void maxmin_dequantize_kernel(const uint8_t* __restrict__ q,
-                                         const float* __restrict__ mn,
-                                         const float* __restrict__ unit,
-                                         int64_t total, int bucket,
-                                         float* __restrict__ out) {
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int64_t b = i / bucket;
-  out[i] = __fadd_rn(mn[b], __fmul_rn(static_cast<float>(q[i]), unit[b]));
-}
-
-// B3: one thread per output value, summing the decoded value of every rank
-// in rank order — the order of the per-rank loop in reducers.py
-// _dequant_sum_stacked — so the sum equals the plain version's.
-__global__ void maxmin_dequantize_sum_kernel(const uint8_t* __restrict__ q,
-                                             const float* __restrict__ mn,
-                                             const float* __restrict__ unit,
-                                             int n_ranks, int64_t n_buckets,
-                                             int bucket,
-                                             float* __restrict__ out) {
-  const int64_t total = n_buckets * bucket;
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int64_t b = i / bucket;
-  float acc = 0.0f;
-  for (int r = 0; r < n_ranks; ++r) {
-    const int64_t m = r * n_buckets + b;
-    const float v = __fadd_rn(
-        mn[m], __fmul_rn(static_cast<float>(q[r * total + i]), unit[m]));
-    acc = __fadd_rn(acc, v);
-  }
-  out[i] = acc;
-}
-
 unsigned int blocks_for(int64_t work, int per_block) {
   return static_cast<unsigned int>((work + per_block - 1) / per_block);
+}
+
+// B4 and B3 share one layout. The payload of rank r (B3; B4 has one) is
+// rows of `row_stride` bytes at q + r * rank_stride; row k holds buckets
+// k * per_row .. (k + 1) * per_row - 1, each pack_bits of its codes, code j
+// of a row at bit j * bits. Output bucket b is min + code * unit of every
+// rank's bucket b (mn, unit [n_ranks, n_buckets]): B4 writes that value,
+// B3 the sum over ranks in rank order, acc = 0 then acc + value rank by
+// rank: the order of the plain version and of the JAX package's per-rank
+// loop, so both are bitwise equal to their plain versions. The product and
+// the sums round one by one (__fmul_rn, __fadd_rn: no FMA).
+//
+// Where the first code of the bucket lies: its row, and its byte and bit
+// in that row, computed once a bucket in 64 bits.
+struct BucketCodes {
+  const uint8_t* first;
+  int skew;  // the first code's bit in *first (0 on the packed route)
+};
+
+__device__ __forceinline__ BucketCodes bucket_codes(const uint8_t* q,
+                                                    int64_t row_stride,
+                                                    int64_t per_row,
+                                                    int64_t b, int bucket,
+                                                    int bits) {
+  const int64_t row = b / per_row;
+  const int64_t first_bit = (b - row * per_row) * bucket * bits;
+  return BucketCodes{q + row * row_stride + first_bit / 8,
+                     static_cast<int>(first_bit % 8)};
+}
+
+// Four values as one 16-byte store at p (16-byte aligned). Spelled out:
+// left to itself, nvcc split one of a loop's four float4 stores into four
+// 4-byte ones.
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  asm volatile("st.global.v4.f32 [%0], {%1, %2, %3, %4};"
+               :
+               : "l"(p), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+// The packed route: one warp per output bucket (a multiple of 8 values).
+// A group of 8 codes is kBits whole bytes; lanes 2k and 2k + 1 load the
+// same group (one sector) and decode its first and second half, so each
+// 16-byte store of the warp covers 512 consecutive bytes of output: for
+// group index i a lane writes half l % 2 of group g = l / 2 + 16 i. A
+// lane issues the loads of kDecodeGroups groups of kRanks ranks, as
+// straight-line code, before their arithmetic: an index past the bucket
+// or the last rank reads the last group or rank again (a valid address,
+// its value unused), so no branch separates two loads and each warp waits
+// for its loads once. min and unit are read once a bucket and rank (one
+// broadcast load for the warp).
+template <bool kSum, int kRanks, int kBits, bool kAligned>
+__device__ __forceinline__ void decode_packed_bucket(
+    const uint8_t* __restrict__ src, int64_t rank_stride,
+    const float* __restrict__ mn, const float* __restrict__ unit,
+    int n_ranks, int64_t n_buckets, int64_t b, int groups, int lane,
+    float* __restrict__ dst) {
+  constexpr int kHalfWarp = kWarp / 2;
+  constexpr int kHalf = kGroup / 2;
+  const int half_shift = (lane % 2) * kHalf * kBits;
+  for (int g0 = lane / 2; g0 < groups; g0 += kHalfWarp * kDecodeGroups) {
+    float acc[kDecodeGroups][kHalf];
+#pragma unroll
+    for (int i = 0; i < kDecodeGroups; ++i) {
+#pragma unroll
+      for (int t = 0; t < kHalf; ++t) acc[i][t] = 0.0f;
+    }
+    for (int r0 = 0; r0 < n_ranks; r0 += kRanks) {
+      uint32_t word[kRanks][kDecodeGroups];
+      float lo[kRanks], step[kRanks];
+#pragma unroll
+      for (int k = 0; k < kRanks; ++k) {
+        const int r = min(r0 + k, n_ranks - 1);
+        lo[k] = __ldg(mn + r * n_buckets + b);
+        step[k] = __ldg(unit + r * n_buckets + b);
+#pragma unroll
+        for (int i = 0; i < kDecodeGroups; ++i) {
+          const int g = min(g0 + i * kHalfWarp, groups - 1);
+          word[k][i] = static_cast<uint32_t>(
+              hvd_groups::load_packed<kBits, kAligned>(
+                  src + r * rank_stride + g * kBits) >> half_shift);
+        }
+      }
+      // A rank past the last one adds nothing: a select, not a branch,
+      // so the compiler cannot sink that rank's loads below the
+      // arithmetic of the ranks before it.
+#pragma unroll
+      for (int k = 0; k < kRanks; ++k) {
+        const bool live = r0 + k < n_ranks;
+#pragma unroll
+        for (int i = 0; i < kDecodeGroups; ++i) {
+#pragma unroll
+          for (int t = 0; t < kHalf; ++t) {
+            const float code = static_cast<float>(
+                hvd_groups::packed_code(word[k][i], t, kBits));
+            const float v = __fadd_rn(lo[k], __fmul_rn(code, step[k]));
+            acc[i][t] = !kSum ? v : live ? __fadd_rn(acc[i][t], v)
+                                         : acc[i][t];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kDecodeGroups; ++i) {
+      const int g = g0 + i * kHalfWarp;
+      if (g < groups) {
+        store4(dst + g * kGroup, acc[i]);
+      }
+    }
+  }
+}
+
+// B4 (kSum false, one rank) and B3 (kRanks ranks' loads at a time). The
+// load width follows the payload's address (one load of kBits bytes, or
+// byte by byte where the address or a stride is not a multiple of kBits),
+// one branch a warp; the output layout does not.
+template <bool kSum, int kRanks, int kBits>
+__global__ void __launch_bounds__(kDecodeWarps * kWarp)
+maxmin_decode_packed_kernel(const uint8_t* __restrict__ q,
+                            int64_t row_stride, int64_t rank_stride,
+                            const float* __restrict__ mn,
+                            const float* __restrict__ unit, int n_ranks,
+                            int64_t n_buckets, int64_t per_row, int bucket,
+                            float* __restrict__ out) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kDecodeWarps +
+                    threadIdx.x / kWarp;
+  if (b >= n_buckets) return;
+  const uint8_t* src =
+      bucket_codes(q, row_stride, per_row, b, bucket, kBits).first;
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(q) | row_stride | rank_stride) %
+          kBits == 0;
+  float* dst = out + b * bucket + (lane % 2) * (kGroup / 2);
+  if (aligned) {
+    decode_packed_bucket<kSum, kRanks, kBits, true>(
+        src, rank_stride, mn, unit, n_ranks, n_buckets, b, bucket / kGroup,
+        lane, dst);
+  } else {
+    decode_packed_bucket<kSum, kRanks, kBits, false>(
+        src, rank_stride, mn, unit, n_ranks, n_buckets, b, bucket / kGroup,
+        lane, dst);
+  }
+}
+
+// The generic route: one warp per output bucket of any size, lane l on
+// values l, l + 32, ...: code j's byte and shift from its bit index
+// skew + j * bits in 32 bits (bits divides 8, so a code never straddles two
+// bytes), each rank's value of it added in rank order.
+template <bool kSum>
+__global__ void __launch_bounds__(kDecodeWarps * kWarp)
+maxmin_decode_generic_kernel(const uint8_t* __restrict__ q,
+                             int64_t row_stride, int64_t rank_stride,
+                             const float* __restrict__ mn,
+                             const float* __restrict__ unit, int n_ranks,
+                             int64_t n_buckets, int64_t per_row, int bucket,
+                             int bits, float* __restrict__ out) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kDecodeWarps +
+                    threadIdx.x / kWarp;
+  if (b >= n_buckets) return;
+  const BucketCodes codes =
+      bucket_codes(q, row_stride, per_row, b, bucket, bits);
+  const uint32_t mask = (1u << bits) - 1;
+  for (int j = lane; j < bucket; j += kWarp) {
+    const int bit = codes.skew + j * bits;
+    const uint8_t* p = codes.first + bit / 8;
+    const int shift = bit % 8;
+    float acc = 0.0f;
+    for (int r = 0; r < n_ranks; ++r) {
+      const float code = static_cast<float>(
+          (static_cast<uint32_t>(__ldg(p + r * rank_stride)) >> shift) &
+          mask);
+      const float v = __fadd_rn(
+          __ldg(mn + r * n_buckets + b),
+          __fmul_rn(code, __ldg(unit + r * n_buckets + b)));
+      acc = kSum ? __fadd_rn(acc, v) : v;
+    }
+    out[b * bucket + j] = acc;
+  }
+}
+
+// Launch B3 (sum) or B4 on the route the bucket asks for, and record it.
+int decode(const uint8_t* q, int64_t row_stride, int64_t rank_stride,
+           const float* mn, const float* unit, int n_ranks,
+           int64_t n_buckets, int64_t per_row, int bucket, int bits,
+           float* out, bool sum, cudaStream_t s) {
+  const bool packed = bucket % kGroup == 0;
+  if (bucket < 1 || bucket > kMaxDecodeBucket || n_ranks < 1 ||
+      per_row < 1 || !(bits == 1 || bits == 2 || bits == 4 || bits == 8) ||
+      (packed && reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  g_maxmin_route = packed ? kRoutePacked : kRouteGeneric;
+  const unsigned int blocks = blocks_for(n_buckets, kDecodeWarps);
+  const unsigned int threads = kDecodeWarps * kWarp;
+  if (!packed) {
+    if (sum) {
+      maxmin_decode_generic_kernel<true><<<blocks, threads, 0, s>>>(
+          q, row_stride, rank_stride, mn, unit, n_ranks, n_buckets, per_row,
+          bucket, bits, out);
+    } else {
+      maxmin_decode_generic_kernel<false><<<blocks, threads, 0, s>>>(
+          q, row_stride, rank_stride, mn, unit, n_ranks, n_buckets, per_row,
+          bucket, bits, out);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  // B4 one rank; B3 one rank, or kDecodeRanks at a time.
+#define HVD_DECODE_BITS(SUM, RANKS)                                       \
+  switch (bits) {                                                         \
+    case 1: HVD_DECODE(SUM, RANKS, 1); break;                             \
+    case 2: HVD_DECODE(SUM, RANKS, 2); break;                             \
+    case 4: HVD_DECODE(SUM, RANKS, 4); break;                             \
+    default: HVD_DECODE(SUM, RANKS, 8);                                   \
+  }
+#define HVD_DECODE(SUM, RANKS, BITS)                                      \
+  maxmin_decode_packed_kernel<SUM, RANKS, BITS><<<blocks, threads, 0, s>>>( \
+      q, row_stride, rank_stride, mn, unit, n_ranks, n_buckets, per_row,  \
+      bucket, out)
+  if (!sum) {
+    HVD_DECODE_BITS(false, 1)
+  } else if (n_ranks == 1) {
+    HVD_DECODE_BITS(true, 1)
+  } else {
+    HVD_DECODE_BITS(true, kDecodeRanks)
+  }
+#undef HVD_DECODE
+#undef HVD_DECODE_BITS
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -380,8 +591,8 @@ int hvd_maxmin_quantize(const float* x, int64_t n, int64_t n_buckets,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The route of the calling thread's last hvd_maxmin_quantize_stochastic
-// launch: 1 packed, 2 bytes (see the top of this file).
+// The route of the calling thread's last launch of B2, B3 or B4: 1 packed,
+// 2 bytes (B2), 3 generic (B3, B4); see the top of this file.
 int hvd_maxmin_last_route(void) { return g_maxmin_route; }
 
 // B2. On the packed route q receives n_buckets * bucket * bits / 8 bytes,
@@ -419,27 +630,31 @@ int hvd_maxmin_quantize_stochastic(const float* x, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
-int hvd_maxmin_dequantize(const uint8_t* q, const float* mn,
-                          const float* unit, int64_t n_buckets, int bucket,
+// B4: q holds `rows` rows of row_bytes bytes, each the packed codes of
+// n_buckets / rows buckets; mn, unit [n_buckets]; out [n_buckets, bucket]
+// (16-byte aligned).
+int hvd_maxmin_dequantize(const uint8_t* q, int64_t rows, int64_t row_bytes,
+                          const float* mn, const float* unit,
+                          int64_t n_buckets, int bucket, int bits,
                           float* out, void* stream) {
-  const int64_t total = n_buckets * bucket;
-  maxmin_dequantize_kernel<<<blocks_for(total, kElementwiseThreads),
-                             kElementwiseThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      q, mn, unit, total, bucket, out);
-  return static_cast<int>(cudaGetLastError());
+  if (rows < 1 || n_buckets % rows != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return decode(q, row_bytes, 0, mn, unit, 1, n_buckets, n_buckets / rows,
+                bucket, bits, out, false, static_cast<cudaStream_t>(stream));
 }
 
-int hvd_maxmin_dequantize_sum(const uint8_t* q, const float* mn,
-                              const float* unit, int n_ranks,
-                              int64_t n_buckets, int bucket, float* out,
+// B3: q holds one row of row_bytes bytes a rank, the packed codes of its
+// n_buckets buckets; mn, unit [n_ranks, n_buckets]; out [n_buckets,
+// bucket] (16-byte aligned).
+int hvd_maxmin_dequantize_sum(const uint8_t* q, int n_ranks,
+                              int64_t row_bytes, const float* mn,
+                              const float* unit, int64_t n_buckets,
+                              int bucket, int bits, float* out,
                               void* stream) {
-  const int64_t total = n_buckets * bucket;
-  maxmin_dequantize_sum_kernel<<<blocks_for(total, kElementwiseThreads),
-                                 kElementwiseThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      q, mn, unit, n_ranks, n_buckets, bucket, out);
-  return static_cast<int>(cudaGetLastError());
+  return decode(q, row_bytes, row_bytes, mn, unit, n_ranks, n_buckets,
+                n_buckets, bucket, bits, out, true,
+                static_cast<cudaStream_t>(stream));
 }
 
 const char* hvd_cuda_error_string(int code) {

@@ -14,7 +14,8 @@ spills when it is not 0); ``-sass`` gives the count of its instructions
 ``ldmatrix`` loads (``LDSM``), asynchronous copies (``LDGSTS``), integer
 multiply-adds (``IMAD``, every form), three-input logic (``LOP3``), the
 special-function unit (``MUFU``), shared-memory loads (``LDS``) and
-conversions (``I2F``, ``F2I``, ``FRND``), and of each form of global load
+conversions (``I2F``, ``I2FP``: Hopper's integer-to-float, ``F2I``,
+``FRND``), and of each form of global load
 and store by its full name (``LDG.E.128.CONSTANT`` against ``LDG.E``,
 ``STG.E.64`` against ``STG.E.U8``: the width each moves). Counts are of the
 instructions in the code, not of those executed. One JSON line per kernel
@@ -38,7 +39,7 @@ sys.path.insert(0, str(ROOT))
 from horovod_tpu_torch.utils import cuda_build  # noqa: E402
 
 OPCODES = ("HMMA", "FFMA", "LDSM", "LDGSTS", "IMAD", "LOP3", "MUFU", "LDS",
-           "I2F", "F2I", "FRND")
+           "I2F", "I2FP", "F2I", "FRND")
 MEMORY = ("LDG", "STG")
 
 

@@ -21,8 +21,9 @@ dense ``DistributedOptimizer`` and SGD), and, after warm-up:
    followed by a synchronize: forward+backward, the gradient reduction
    (``synchronize()``) and the inner SGD step;
 2. traces 3 steps with ``torch.profiler``, prints the device time by
-   kernel and the device's busy share of the traced window, and writes the
-   Chrome trace under ``--out`` (``torch_{path}_trace.json``).
+   kernel, the device operations a step (kernels, copies and fills) and
+   the device's busy share of the traced window, and writes the Chrome
+   trace under ``--out`` (``torch_{path}_trace.json``).
 """
 
 from __future__ import annotations
@@ -134,8 +135,9 @@ def main() -> int:
         busy_us = sum(_self_device_us(e) for e in events)
         events.sort(key=_self_device_us, reverse=True)
         print(f"traced 3 steps: window {window_us / 1e3:.3f} ms, device busy "
-              f"{busy_us / 1e3:.3f} ms ({100 * busy_us / window_us:.1f}%)",
-              flush=True)
+              f"{busy_us / 1e3:.3f} ms ({100 * busy_us / window_us:.1f}%), "
+              f"{sum(e.count for e in events) / 3:.1f} device operations a "
+              f"step", flush=True)
         for e in events[:25]:
             print(f"  {_self_device_us(e) / 3e3:9.4f} ms/step  "
                   f"x{e.count // 3:<5d} {e.key[:90]}", flush=True)

@@ -130,9 +130,9 @@ def _meta_args(name):
         return (torch.empty(100, **m), levels, 64, False)
     if name == "norm_dequantize":
         return (q, levels, v)
-    if name == "maxmin_dequantize":
-        return (q, v, v)
-    return (q[None], v[None], v[None])
+    if name == "maxmin_dequantize":  # 2 rows of one bucket of byte codes
+        return (q, v, v, 8, 64)
+    return (q, v[:, None], v[:, None], 8, 64)  # 2 ranks of one bucket
 
 
 _MODULES = {**{n: kernels for n in kernels.LAUNCHES},
@@ -175,24 +175,74 @@ def test_cuda_quantize_matches_plain(bits, n, bucket):
     want = kernels.maxmin_quantize_plain(x, bits, bucket)
     for g, w in zip(got, want):
         _assert_bitwise(g, w)
-    back = kernels.maxmin_dequantize(*got)
-    _assert_bitwise(back, kernels.maxmin_dequantize_plain(*got))
+    q, mn, unit = got
+    # B4 on B1's byte codes (8 bits a code) and on its packed payload.
+    for codes, width in ((q, 8), (pack_bits(q.view(1, -1), bits), bits)):
+        back = kernels.maxmin_dequantize(codes, mn, unit, width, bucket)
+        _assert_bitwise(back, kernels.maxmin_dequantize_plain(
+            codes, mn, unit, width, bucket))
     if n > 2 * bucket:
         assert torch.isnan(back[1:3]).all() and torch.isfinite(back[0]).all()
+
+
+def _packed_ranks(n_ranks: int, n_buckets: int, bucket: int, bits: int,
+                  seed: int, dev):
+    """Each rank's packed row of random codes, with a NaN min and an
+    infinite unit in rank 0's first buckets."""
+    g = torch.Generator().manual_seed(seed)
+    codes = torch.randint(0, 1 << bits, (n_ranks, n_buckets * bucket),
+                          generator=g, dtype=torch.uint8)
+    mn = torch.randn(n_ranks, n_buckets, generator=g)
+    unit = torch.rand(n_ranks, n_buckets, generator=g) / ((1 << bits) - 1)
+    mn[0, 0], unit[0, -1] = float("nan"), float("inf")
+    return pack_bits(codes, bits).to(dev), mn.to(dev), unit.to(dev)
+
+
+def _at_byte(q: torch.Tensor, offset: int) -> torch.Tensor:
+    """``q`` in a new buffer, ``offset`` bytes into it."""
+    buf = torch.zeros(q.numel() + offset, dtype=torch.uint8, device=q.device)
+    buf[offset:] = q.reshape(-1)
+    return buf[offset:].view(q.shape)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_ranks", [1, 2, 4])
 def test_cuda_dequantize_sum_matches_plain(n_ranks):
+    """B3 bitwise against its plain version at 4 bits: both add rank by
+    rank in rank order."""
     dev = _cuda()
-    g = torch.Generator().manual_seed(n_ranks)
-    q = torch.randint(0, 16, (n_ranks, 33, 512), generator=g,
-                      dtype=torch.uint8).to(dev)
-    mn = torch.randn(n_ranks, 33, generator=g).to(dev)
-    unit = torch.rand(n_ranks, 33, generator=g).to(dev) / 15
-    torch.testing.assert_close(
-        kernels.maxmin_dequantize_sum(q, mn, unit),
-        kernels.maxmin_dequantize_sum_plain(q, mn, unit), rtol=1e-5, atol=0)
+    q, mn, unit = _packed_ranks(n_ranks, 33, 512, 4, n_ranks, dev)
+    _assert_bitwise(kernels.maxmin_dequantize_sum(q, mn, unit, 4, 512),
+                    kernels.maxmin_dequantize_sum_plain(q, mn, unit, 4, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("bucket", [64, 512, 100, 8, 2056])
+def test_cuda_decode_packed_payloads(bucket, bits, offset):
+    """B4 (3 rows of 5 buckets) and B3 (1 to 4 ranks of 7 buckets) on
+    packed payloads, at the payload's own address and one byte into a
+    buffer: bitwise against their plain versions, on the route the bucket
+    asks for."""
+    dev = _cuda()
+    route = "packed" if bucket % 8 == 0 else "generic"
+    q, mn, unit = _packed_ranks(3, 5, bucket, bits, bucket + bits, dev)
+    q = _at_byte(q, offset)
+    kernels.reset_launches()
+    got = kernels.maxmin_dequantize(q, mn.view(-1), unit.view(-1), bits,
+                                    bucket)
+    _assert_bitwise(got, kernels.maxmin_dequantize_plain(
+        q, mn.view(-1), unit.view(-1), bits, bucket))
+    assert kernels.ROUTES["maxmin_dequantize"][route] == 1
+    for n_ranks in (1, 2, 3, 4):
+        q, mn, unit = _packed_ranks(n_ranks, 7, bucket, bits, n_ranks, dev)
+        q = _at_byte(q, offset)
+        _assert_bitwise(
+            kernels.maxmin_dequantize_sum(q, mn, unit, bits, bucket),
+            kernels.maxmin_dequantize_sum_plain(q, mn, unit, bits, bucket))
+    assert kernels.ROUTES["maxmin_dequantize_sum"][route] == 4
+    torch.cuda.synchronize()
 
 
 def _special_values(n: int, bucket: int, seed: int, dev) -> torch.Tensor:

@@ -24,6 +24,12 @@ plain versions.
 * The packed layout: 8 codes in ``bits`` bytes, LSB first (:func:`_pack`,
   ``store_packed`` in ``bucket_groups.cuh``), equals ``pack_bits`` at 1, 2,
   4 and 8 bits, flat and row by row.
+* B3 and B4 read that layout back (``maxmin_decode_packed_kernel`` and
+  ``maxmin_decode_generic_kernel`` in ``maxmin.cu``): :func:`_decode_packed`
+  repeats the packed route's lane, group and half-group indexing and
+  :func:`_decode_generic` the generic route's byte and shift of each code;
+  both must give ``unpack_bits`` of every row, the packed one writing each
+  output value exactly once.
 
 The tests marked ``cuda`` run on the card (``python -m pytest --noconftest
 -m cuda tests/test_torch_port_packed.py``) and skip elsewhere: every route
@@ -258,6 +264,81 @@ def test_group_packing_is_pack_bits(bits, bucket):
             quantize._payload(rows, bits, bucket, *lead).numpy(),
             quantize._payload(q.view(6, bucket), bits, bucket,
                               *lead).numpy())
+
+
+# What maxmin.cu's decode kernels use: a warp per bucket, kDecodeGroups
+# groups a lane in flight.
+WARP, DECODE_GROUPS = 32, 4
+
+
+def _bucket_start(b, per_row, row_bytes, bucket, bits):
+    """``bucket_codes``: the byte of bucket b's first code and its bit."""
+    row = b // per_row
+    first_bit = (b - row * per_row) * bucket * bits
+    return row * row_bytes + first_bit // 8, first_bit % 8
+
+
+def _decode_generic(flat, per_row, row_bytes, n_buckets, bucket, bits):
+    """The generic route's codes: lane l on values l, l + 32, ..., code j
+    at bit ``skew + j * bits`` of the bucket's first byte."""
+    out = np.full((n_buckets, bucket), 255, np.int64)
+    for b in range(n_buckets):
+        first, skew = _bucket_start(b, per_row, row_bytes, bucket, bits)
+        for lane in range(WARP):
+            j = np.arange(lane, bucket, WARP)
+            bit = skew + j * bits
+            out[b, j] = (flat[first + bit // 8] >> (bit % 8)) & \
+                ((1 << bits) - 1)
+    return out
+
+
+def _decode_packed(flat, per_row, row_bytes, n_buckets, bucket, bits):
+    """The packed route's codes: lanes 2k and 2k + 1 load group
+    ``k + 16 i`` (``bits`` bytes, little-endian) and decode its first and
+    second half into values ``8 g + 4 (l % 2) + t``; returns the codes and
+    how often each output value was written."""
+    out = np.zeros((n_buckets, bucket), np.int64)
+    writes = np.zeros((n_buckets, bucket), np.int64)
+    groups = bucket // 8
+    for b in range(n_buckets):
+        first, _ = _bucket_start(b, per_row, row_bytes, bucket, bits)
+        for lane in range(WARP):
+            half = lane % 2
+            for g0 in range(lane // 2, groups, WARP // 2 * DECODE_GROUPS):
+                for i in range(DECODE_GROUPS):
+                    g = g0 + i * WARP // 2
+                    if g >= groups:
+                        continue
+                    at = first + g * bits
+                    word = int.from_bytes(bytes(flat[at:at + bits]),
+                                          "little") >> (half * 4 * bits)
+                    for t in range(4):
+                        v = 8 * g + 4 * half + t
+                        out[b, v] = (word >> (t * bits)) & ((1 << bits) - 1)
+                        writes[b, v] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("bucket", [1, 3, 12, 100, 125, 8, 64, 520, 2056])
+def test_decode_indexing_is_unpack_bits(bucket, bits):
+    """3 rows of 2 buckets, each row ``pack_bits`` of its codes (a row of
+    odd buckets can end inside a byte): both routes' indexing (the generic
+    one for every bucket, the packed one where the bucket is a multiple of
+    8) gives ``unpack_bits`` of each row."""
+    rng = np.random.RandomState(bucket * bits)
+    codes = rng.randint(0, 1 << bits, (3, 2 * bucket)).astype(np.uint8)
+    rows = pack_bits(torch.from_numpy(codes), bits).numpy()
+    want = unpack_bits(torch.from_numpy(rows), bits, 2 * bucket).numpy()
+    args = (rows.reshape(-1), 2, rows.shape[1], 6, bucket, bits)
+    np.testing.assert_array_equal(_decode_generic(*args),
+                                  want.reshape(6, bucket))
+    assert kernels.decode_route(bucket) == \
+        ("packed" if bucket % 8 == 0 else "generic")
+    if bucket % 8 == 0:
+        got, writes = _decode_packed(*args)
+        np.testing.assert_array_equal(got, want.reshape(6, bucket))
+        assert (writes == 1).all()
 
 
 def test_norm_quantize_checks_bits():

@@ -133,6 +133,51 @@ def _run_stochastic(rank):
     return out
 
 
+def _run_without_unpack(rank):
+    """Every reducer with the deterministic and the stochastic max-min
+    quantizer, first as it is, then with ``unpack_bits`` raising wherever
+    a module of the port holds it: B3 and B4 read the packed payload, so
+    the receive path never unpacks and the results are the same. Only
+    B4's plain version, which stands in for the kernel on the CPU (the
+    kernel reads the packed bytes itself), may still call it. Any other
+    call that reached ``unpack_bits`` is recorded as an error."""
+    from horovod_tpu_torch.compression import kernels
+
+    unpack = kernels.unpack_bits
+
+    def refuse(*args, **kwargs):
+        if sys._getframe(1).f_code is \
+                kernels.maxmin_dequantize_plain.__code__:
+            return unpack(*args, **kwargs)
+        raise RuntimeError("unpack_bits called on the max-min receive path")
+
+    holders = [m for name, m in sorted(sys.modules.items())
+               if name.startswith("horovod_tpu_torch")
+               and hasattr(m, "unpack_bits")]
+    saved = [m.unpack_bits for m in holders]
+
+    x = torch.from_numpy(_stochastic_input(rank))
+    out = {}
+    for stochastic in (False, True):
+        quant = MaxMinQuantizer(BITS, BUCKET, stochastic=stochastic)
+        for reduction in REDUCTIONS:
+            name = f"{reduction}-{'stochastic' if stochastic else 'rne'}"
+            out[name] = compressed_allreduce(x, quant, reduction=reduction,
+                                             op=thvd.Sum, key=5).numpy()
+            for m in holders:
+                m.unpack_bits = refuse
+            try:
+                out[f"{name}-packed"] = compressed_allreduce(
+                    x, quant, reduction=reduction, op=thvd.Sum,
+                    key=5).numpy()
+            except RuntimeError as exc:
+                out[f"{name}-error"] = np.array(str(exc))
+            finally:
+                for m, fn in zip(holders, saved):
+                    m.unpack_bits = fn
+    return out
+
+
 def _dense_inputs(rank):
     rng = np.random.RandomState(100 + rank)
     return {"a": rng.randn(3, 4).astype(np.float32),
@@ -180,6 +225,8 @@ def _worker(out_dir):
                  **_run_dense(rank))
         np.savez(os.path.join(out_dir, f"stochastic.{rank}.npz"),
                  **_run_stochastic(rank))
+        np.savez(os.path.join(out_dir, f"no_unpack.{rank}.npz"),
+                 **_run_without_unpack(rank))
     finally:
         thvd.shutdown()
 
@@ -309,7 +356,7 @@ def world2(tmp_path_factory):
         assert p.returncode == 0, log
     return {name: [dict(np.load(os.path.join(out_dir, f"{name}.{r}.npz")))
                    for r in range(2)]
-            for name in list(CASES) + ["dense", "stochastic"]}
+            for name in list(CASES) + ["dense", "stochastic", "no_unpack"]}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -374,6 +421,21 @@ def test_stochastic_reducers_stay_within_their_stages(reduction, world,
     assert np.abs(got - exact).max() <= bound
     for other in by_rank[1:]:
         np.testing.assert_array_equal(other[reduction], got)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("reduction", REDUCTIONS)
+def test_maxmin_receive_path_never_unpacks(reduction, stochastic, world,
+                                           world1, world2):
+    """With ``unpack_bits`` raising, every reducer with the max-min
+    quantizer still runs on every rank and gives the same result."""
+    by_rank = ([_run_without_unpack(0)] if world == 1 else
+               world2["no_unpack"])
+    name = f"{reduction}-{'stochastic' if stochastic else 'rne'}"
+    for out in by_rank:
+        assert f"{name}-error" not in out, str(out[f"{name}-error"])
+        np.testing.assert_array_equal(out[f"{name}-packed"], out[name])
 
 
 def test_jit_rewrites_the_quantizer_arithmetic():

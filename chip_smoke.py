@@ -20,13 +20,24 @@ just after:
   levels, linf norm: kernels B5, B6);
 * the same ResNet-50 path with stochastic 4-bit max-min rounding (kernel
   B2, and B3, B4 on the receive side);
+* the max-min ResNet-50 path with ``backward_passes_per_step=2``: each
+  step two half-batches of 32 images, each loss scaled by 1/2 (batch norm
+  sees 32 images, so it is not compared with the batch-64 phase);
 * GPT: the ``gpt_long_context_flash`` configuration of ``bench.py`` (6
   layers, d512, 8 heads of 64, MLP 2048, vocab 32000, 2 x 4096 tokens, bf16,
   ``remat="full"``) with flash attention (kernels B7, B8, B9, in bf16 on
   the tensor cores), through the dense ``DistributedOptimizer`` (Average,
-  one fused ``grouped_allreduce``) and SGD.
+  four buckets of at most 64 MiB) and SGD;
+* the collective API on the card: every async op bitwise against its
+  sync twin, ``reducescatter``, ``alltoall`` with splits, ``allgather``,
+  autograd through ``allreduce``, and agreement errors (a dtype mismatch
+  from a second rank's descriptor, splits that do not sum to dim 0).
 
-Each path takes 2 warm-up and 10 timed steps. The script checks that the
+``DistributedOptimizer`` reduces from gradient hooks: every timed step of
+a training phase must launch its reductions before ``loss.backward()``
+returns (the quantized group of a ResNet-50 phase, in the second pass with
+``backward_passes_per_step=2`` and none in the first; at least 3 dense
+buckets of the GPT path). Each path takes 2 warm-up and 10 timed steps. The script checks that the
 loss is finite and falls, that the steps launched each kernel of the path
 as often as the path requires (and no other kernel; every B7, B8 and B9
 launch of the GPT path on the tensor-core route, every B5 launch on the
@@ -81,6 +92,9 @@ GPT_CONFIG = dict(vocab_size=32000, num_layers=6, num_heads=8, head_dim=64,
                   remat="full")
 GPT_PARAMS = 51_649_024
 GPT_BATCH, GPT_SEQ, GPT_LR = 2, 4096, 1e-3
+# The least number of the GPT path's dense buckets (206.6 MB of fp32
+# gradients, buckets of 64 MiB) that must launch before backward returns.
+GPT_HOOK_LAUNCHES = 3
 REPLACES = {
     "maxmin_quantize":
         "horovod_tpu/compression/pallas_kernels.py:163",
@@ -769,7 +783,7 @@ def resnet_compressors():
                                                  stochastic=True)}
 
 
-def make_slice(hvd, dev, compressor=None):
+def make_slice(hvd, dev, compressor=None, backward_passes_per_step=1):
     """The main path's model, optimizer and fixed synthetic batch;
     ``compressor`` (4-bit max-min by default) sends the gradients through
     the ``scatter_allgather`` reducer with error feedback."""
@@ -785,7 +799,8 @@ def make_slice(hvd, dev, compressor=None):
         torch.optim.SGD(model.parameters(), lr=LR, momentum=0.9),
         named_parameters=model.named_parameters(),
         compression=CompressionConfig(
-            compressor, reduction="scatter_allgather", error_feedback=True))
+            compressor, reduction="scatter_allgather", error_feedback=True),
+        backward_passes_per_step=backward_passes_per_step)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     gen = torch.Generator(device=dev).manual_seed(0)
     images = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device=dev)
@@ -793,13 +808,26 @@ def make_slice(hvd, dev, compressor=None):
     return model, opt, images, labels
 
 
-def forward_backward(model, opt, images, labels):
-    opt.zero_grad(set_to_none=True)
+def forward_backward(model, opt, images, labels, scale: float = 1.0,
+                     zero: bool = True):
+    if zero:
+        opt.zero_grad(set_to_none=True)
     with torch.autocast("cuda", dtype=torch.bfloat16):
         logits = model(images)
     loss = F.cross_entropy(logits, labels)
-    loss.backward()
+    (loss * scale if scale != 1.0 else loss).backward()
     return loss.detach()
+
+
+def check_hook_launches(path: str, launched, want) -> None:
+    """``launched``: the reductions each timed step's backward passes had
+    launched by the time ``loss.backward()`` returned; ``want`` the least
+    (a list: one count a pass)."""
+    if any(got < least for step in launched
+           for got, least in zip(step, want)) or \
+            any(len(step) != len(want) for step in launched):
+        raise AssertionError(f"{path}: reductions launched in backward "
+                             f"{launched}, expected at least {want} a step")
 
 
 def check_losses(losses) -> None:
@@ -817,8 +845,11 @@ def train(hvd, dev, path: str = "resnet", check_copy: bool = True):
     model, opt, images, labels = make_slice(hvd, dev, compressor)
     n_params = sum(p.numel() for p in model.parameters())
 
+    launched = []
+
     def step():
         loss = forward_backward(model, opt, images, labels)
+        launched.append([opt.hook_launches])
         opt.step()
         return loss
 
@@ -826,6 +857,7 @@ def train(hvd, dev, path: str = "resnet", check_copy: bool = True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    del launched[:]
     t0 = time.perf_counter()
     losses += [step() for _ in range(STEPS)]
     torch.cuda.synchronize()
@@ -835,6 +867,8 @@ def train(hvd, dev, path: str = "resnet", check_copy: bool = True):
     losses = [float(v) for v in losses]
     log(f"{path}: ResNet-50, {n_params} parameters, batch {BATCH}, "
         f"{IMAGE}x{IMAGE}, lr {LR}, {compressor!r}; losses {losses}")
+    log(f"{path}: reductions launched before backward() returned, each "
+        f"timed step: {launched}")
     log(f"{path}: step {seconds / STEPS * 1e3:.3f} ms, "
         f"{BATCH * STEPS / seconds:.1f} images/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches in "
@@ -842,6 +876,7 @@ def train(hvd, dev, path: str = "resnet", check_copy: bool = True):
     if n_params != RESNET50_PARAMS:
         raise AssertionError(f"ResNet-50 has {n_params} parameters")
     check_losses(losses)
+    check_hook_launches(path, launched, [1])
     check_launches(path, launches, PATH_LAUNCHES[path])
     for name, route in PATH_ROUTES.get(path, {}).items():
         want = {r: launches[name] if r == route else 0 for r in routes[name]}
@@ -865,6 +900,152 @@ def train(hvd, dev, path: str = "resnet", check_copy: bool = True):
                                atol=1e-3 * float(ref.abs().max()))
     log(f"{path}: trained model agrees with its CPU copy (fp32, rtol 1e-3)")
     return launches
+
+
+def train_accumulated(hvd, dev):
+    """The max-min ResNet-50 path with ``backward_passes_per_step=2``: 2
+    warm-up and 10 timed steps of two half-batches of ``BATCH // 2``
+    images, each loss scaled by 1/2. The launch counts and routes a step
+    are the batch-64 phase's; no reduction is launched by the first
+    backward pass of a step, and the quantized group by the second."""
+    path, half = "resnet_accumulated", BATCH // 2
+    model, opt, images, labels = make_slice(hvd, dev,
+                                            backward_passes_per_step=2)
+    launched = []
+
+    def step():
+        losses, passes = [], []
+        for i in range(2):
+            part = slice(i * half, (i + 1) * half)
+            losses.append(forward_backward(model, opt, images[part],
+                                           labels[part], scale=0.5,
+                                           zero=i == 0))
+            passes.append(opt.hook_launches)
+        launched.append(passes)
+        opt.step()
+        return (losses[0] + losses[1]) / 2
+
+    losses = [step() for _ in range(WARMUP)]
+    torch.cuda.synchronize()
+    reset_launches()
+    del launched[:]
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, routes = read_launches(), read_routes()
+    losses = [float(v) for v in losses]
+    log(f"{path}: ResNet-50, backward_passes_per_step=2 of {half} images; "
+        f"losses {losses}")
+    log(f"{path}: step {seconds / STEPS * 1e3:.3f} ms, launches in {STEPS} "
+        f"steps {launches}; reductions launched by each backward pass "
+        f"{launched}")
+    check_losses(losses)
+    if any(passes != [0, 1] for passes in launched):
+        raise AssertionError(f"{path}: reductions launched by the two "
+                             f"passes {launched}, expected [0, 1] a step")
+    check_launches(path, launches, PATH_LAUNCHES["resnet"])
+    for name, route in PATH_ROUTES["resnet"].items():
+        want = {r: launches[name] if r == route else 0 for r in routes[name]}
+        if routes[name] != want:
+            raise AssertionError(f"{path}: {name} routes {routes[name]}, "
+                                 f"expected {want}")
+    return launches
+
+
+def same_bits(got, want) -> bool:
+    """The same dtype, shape and bytes (a list: each of its tensors)."""
+    if isinstance(got, (list, tuple)):
+        return len(got) == len(want) and all(
+            same_bits(g, w) for g, w in zip(got, want))
+    return got.dtype == want.dtype and got.shape == want.shape and \
+        torch.equal(got.contiguous().view(torch.uint8),
+                    want.contiguous().view(torch.uint8))
+
+
+def check_api(hvd, dev):
+    """The collective API on the card at a world of one: every async op
+    bitwise against its synchronous twin; ``reducescatter``, ``alltoall``
+    with splits and ``allgather`` (each the identity at one rank); the
+    gradient through ``allreduce``; and two agreement errors: a dtype
+    mismatch from a second rank's descriptor (this rank's gathered on the
+    card, the other's a copy naming float64) and splits that do not sum to
+    dim 0."""
+    from horovod_tpu_torch.exceptions import HvdTpuInternalError
+    from horovod_tpu_torch.ops import collectives as C
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(4096, 1024, generator=gen, device=dev)
+    xb = x.to(torch.bfloat16)
+    rows = torch.randn(3, 1024, generator=gen, device=dev)
+    scaled = dict(op=hvd.Average, prescale_factor=1 / 3,
+                  postscale_factor=0.1)
+    fp16 = dict(compression=hvd.Compression.fp16)
+    pairs = {
+        "allreduce fp32": (lambda: hvd.allreduce(x, **scaled),
+                           lambda: hvd.allreduce_async(x, **scaled)),
+        "allreduce bf16": (lambda: hvd.allreduce(xb, **scaled),
+                           lambda: hvd.allreduce_async(xb, **scaled)),
+        "allreduce bf16 product": (
+            lambda: hvd.allreduce(xb, op=hvd.Product),
+            lambda: hvd.allreduce_async(xb, op=hvd.Product)),
+        "allreduce fp16 wire": (lambda: hvd.allreduce(x, **fp16),
+                                lambda: hvd.allreduce_async(x, **fp16)),
+        "grouped_allreduce": (
+            lambda: hvd.grouped_allreduce([x, xb, rows], **scaled),
+            lambda: hvd.grouped_allreduce_async([x, xb, rows], **scaled)),
+        "allgather": (lambda: hvd.allgather(rows),
+                      lambda: hvd.allgather_async(rows)),
+        "broadcast": (lambda: hvd.broadcast(x, root_rank=0),
+                      lambda: hvd.broadcast_async(x, root_rank=0)),
+        "alltoall": (lambda: hvd.alltoall(x), lambda: hvd.alltoall_async(x)),
+        "alltoall splits": (lambda: hvd.alltoall(rows, splits=[3])[0],
+                            lambda: hvd.alltoall_async(rows, splits=[3])),
+    }
+    for name, (sync, start) in pairs.items():
+        handle = start()
+        if not isinstance(hvd.poll(handle), bool):
+            raise AssertionError(f"api: poll of {name} is not a bool")
+        got, want = hvd.synchronize(handle), sync()
+        if not same_bits(got, want):
+            raise AssertionError(f"api: async {name} differs from its sync "
+                                 "twin")
+    out, received = hvd.alltoall(rows, splits=[3])
+    checks = {"reducescatter": hvd.reducescatter(x),
+              "reducescatter average": hvd.reducescatter(x, op=hvd.Average),
+              "allgather": hvd.allgather(x), "alltoall splits": out}
+    for name, got in checks.items():
+        want = rows if name == "alltoall splits" else x
+        if not same_bits(got, want):
+            raise AssertionError(f"api: {name} at one rank is not its input")
+    if received.tolist() != [3]:
+        raise AssertionError(f"api: received splits {received.tolist()}")
+    w = torch.randn(x.shape, generator=gen, device=dev)
+    xr = x.clone().requires_grad_(True)
+    (hvd.allreduce(xr, op=hvd.Sum) * w).sum().backward()
+    if not same_bits(xr.grad, w):
+        raise AssertionError("api: the gradient through allreduce is not "
+                             "the upstream gradient")
+    mine = C._exchange(C._describe("allreduce", x.shape, x.dtype,
+                                   op=hvd.Sum))
+    other = list(mine[0])
+    other[C._DTYPE] = C._dtype_code(torch.float64)
+    errors = []
+    for name, call in (("dtype", lambda: C._check(mine + [other])),
+                       ("splits", lambda: hvd.alltoall(rows, splits=[4]))):
+        try:
+            call()
+        except HvdTpuInternalError as e:
+            errors.append(str(e))
+            continue
+        raise AssertionError(f"api: the {name} mismatch did not raise")
+    if not (errors[0].startswith("Mismatched data types") and
+            errors[1].startswith("alltoall splits sum")):
+        raise AssertionError(f"api: wrong errors {errors}")
+    log(f"api: {len(pairs)} async ops bitwise against their sync twins "
+        f"({', '.join(pairs)}); reducescatter, alltoall with splits and "
+        f"allgather exact; allreduce's gradient exact; errors raised: "
+        f"{errors}")
 
 
 def make_gpt_slice(hvd, dev):
@@ -906,15 +1087,20 @@ def train_gpt(hvd, dev):
     if n_params != GPT_PARAMS:
         raise AssertionError(f"GPT has {n_params} parameters")
 
+    launched = []
+
     def step():
         loss = gpt_forward_backward(model, opt, tokens, targets)
+        launched.append([opt.hook_launches])
         opt.step()
         return loss
 
+    units = len(opt._units)
     losses = [step() for _ in range(WARMUP)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    del launched[:]
     t0 = time.perf_counter()
     losses += [step() for _ in range(STEPS)]
     torch.cuda.synchronize()
@@ -929,7 +1115,10 @@ def train_gpt(hvd, dev):
         f"{GPT_BATCH * GPT_SEQ * STEPS / seconds:.1f} tokens/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches in "
         f"{STEPS} steps {launches}")
+    log(f"gpt: {units} gradient buckets; launched before backward() "
+        f"returned, each timed step: {launched}")
     check_losses(losses)
+    check_hook_launches("gpt", launched, [GPT_HOOK_LAUNCHES])
     # B7 runs twice a layer (forward, and the recompute of remat="full"),
     # B8 and B9 once in the backward.
     layers = cfg.num_layers
@@ -1444,7 +1633,9 @@ def main() -> int:
                   "resnet_uni": train(hvd, dev, "resnet_uni", False),
                   "resnet_stochastic": train(hvd, dev, "resnet_stochastic",
                                              False)}
+        train_accumulated(hvd, dev)
         flash_launches = train_gpt(hvd, dev)
+        check_api(hvd, dev)
         launches = {name: phases[path][name]
                     for path in ("resnet_stochastic", "resnet_uni",
                                  "resnet")

@@ -12,7 +12,9 @@ Reference: ``horovod/common/ops/compressed/reducers/`` (``mpi_allgather.cc``,
 Each rank is one process, so a reducer is the JAX package's in-step program
 with ``all_gather`` as ``all_gather_into_tensor``, ``all_to_all`` as
 ``all_to_all_single``, ``ppermute`` as ``batch_isend_irecv``
-(:func:`collectives.send_recv`) and ``broadcast_p`` as ``broadcast``. The
+(:func:`collectives.send_recv`) and ``broadcast_p`` as ``broadcast``, each
+through the collectives' unchecked launches: every rank passes the same
+shapes, so no descriptor is exchanged. The
 named reducer runs at every world size, one included: then the exchanges
 move the payload to this rank itself and the quantize and decode kernels
 still run. The reducers take a :class:`MaxMinQuantizer`, a
@@ -48,7 +50,7 @@ def _check_compressor(compressor) -> None:
 def _allgather_stacked(payload: Dict[str, torch.Tensor]
                        ) -> Dict[str, torch.Tensor]:
     """Allgather every payload tensor, stacking a leading ranks dim."""
-    return {k: C.allgather(v.unsqueeze(0)) for k, v in payload.items()}
+    return {k: C._allgather_even(v.unsqueeze(0)) for k, v in payload.items()}
 
 
 def _dequant_sum_stacked(compressor, gathered: Dict[str, torch.Tensor],
@@ -128,7 +130,7 @@ def scatter_allgather_reducer(x, compressor, residual=None, key=None):
 
     # Row j goes to rank j; this rank receives every rank's row for its
     # chunk index.
-    exchanged = {k: C.alltoall(v) for k, v in row_payload.items()}
+    exchanged = {k: C._alltoall_even(v) for k, v in row_payload.items()}
     my_chunk_sum = _dequant_sum_stacked(compressor, exchanged, row_ctx, n)
 
     # Compress the reduced chunk and allgather it.
@@ -163,7 +165,7 @@ def ring_reducer(x, compressor, residual=None, key=None):
     for s in range(n - 1):
         current = C.send_recv(current, nxt, current, prev)
         work[(idx - s) % n] = compressor.decompress(current, ctx)
-    out = C.broadcast(work.view(-1)[:x.numel()], root_rank=0)
+    out = C._broadcast(work.view(-1)[:x.numel()], root_rank=0)
     if residual is not None:
         # What the first compression of the local chunks lost.
         payload, row_ctx = compressor.compress_rows(chunks)
@@ -220,7 +222,7 @@ def tree_reducer(x, compressor, residual=None, key=None):
         final, _ = compressor.compress(acc)
     else:
         final = {k: torch.empty_like(v) for k, v in first.items()}
-    final = {k: C.broadcast(v, root_rank=0) for k, v in final.items()}
+    final = {k: C._broadcast(v, root_rank=0) for k, v in final.items()}
     out = compressor.decompress(final, ctx)
     return out.view(x.shape).to(x.dtype), residual
 

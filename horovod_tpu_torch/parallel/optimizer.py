@@ -3,22 +3,44 @@
 Counterpart of ``horovod_tpu/parallel/optimizer.py`` (``DistributedOptimizer``
 :171, its quantized route ``_compressed_reduce`` :290-362,
 ``broadcast_parameters`` :422, ``broadcast_optimizer_state`` :429), in the
-torch-side shape of ``horovod_tpu/torch/optimizer.py``: the wrapper is a
-dynamic subclass of the wrapped optimizer's class (reference:
+torch-side shape of ``horovod_tpu/torch/optimizer.py`` (hooks,
+``backward_passes_per_step``, ``synchronize``, ``skip_synchronize``): the
+wrapper is a dynamic subclass of the wrapped optimizer's class (reference:
 ``horovod/torch/optimizer.py:383``), so ``isinstance`` and LR schedulers keep
 working.
 
-``step()`` calls ``synchronize()``, which reduces all gradients at once: one
-fused ``compressed_grouped_allreduce`` per quantizer, and one fused
-``grouped_allreduce`` for the gradients left dense. Each rank is one process,
-so every gradient is this rank's own and compression always applies.
-Error-feedback residuals live in the optimizer's ``state`` and so travel in
-its ``state_dict``.
+Each parameter that requires grad carries a ``post_accumulate_grad_hook``
+that counts down ``backward_passes_per_step`` backward passes. The
+gradients are reduced in units, each launched from the hook of its last
+member to become ready, so the exchange overlaps the rest of the backward
+pass:
+
+* dense gradients (no compression, or a wire cast) in buckets of one dtype,
+  filled in reverse registration order (the order backward produces them)
+  up to ``HVDTPU_FUSION_THRESHOLD`` bytes (64 MiB by default); a bucket
+  copies its gradients into one flat buffer, allocated once and reused, and
+  starts an async allreduce on it;
+* quantized gradients in one fused ``compressed_grouped_allreduce`` per
+  quantizer, over its members in registration order (the JAX package's
+  leaf order), with the error-feedback residuals in the optimizer's
+  ``state`` (so they travel in its ``state_dict``).
+
+``synchronize()`` (which ``step()`` calls) launches what the hooks did not
+(a parameter without a gradient contributes zeros, so every rank joins
+every exchange), waits, and writes the reduced gradients into ``p.grad``.
+The first ``synchronize()`` checks once that every rank built the same
+units, before any gradient moves: its hooks only count, and it launches
+the units itself. No later launch exchanges a descriptor, since a host
+round trip inside a backward hook would stall the card. An exchange's
+buffer stays referenced by its pending handle until ``synchronize()``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+import contextlib
+import warnings
+import zlib
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import torch
 
@@ -27,14 +49,30 @@ from ..compression import (CompressionConfig, Compressor, MaxMinQuantizer,
                            NormalizedQuantizer, TopKCompressor,
                            init_error_feedback)
 from ..compression.reducers import compressed_grouped_allreduce
+from ..functions import broadcast_object
 from ..ops import collectives as C
+from ..utils import envvars as ev
 
 _RESIDUAL = "hvd_residual"
 
 
+class _Unit:
+    """Gradients reduced in one call: a bucket of dense gradients (its
+    ``compressor`` None or a wire compressor) or a quantizer's group."""
+
+    def __init__(self, params, compressor, quantized: bool):
+        self.params = params
+        self.compressor = compressor
+        self.quantized = quantized
+        self.ready = 0        # members whose countdown reached zero
+        self.pending = None   # the launched reduction
+        self.buffer = None    # a dense bucket's flat buffer
+
+
 class _DistributedOptimizer(torch.optim.Optimizer):
     def __init__(self, params, named_parameters, compression, op,
-                 prescale_factor: float, postscale_factor: float):
+                 prescale_factor: float, postscale_factor: float,
+                 backward_passes_per_step: int):
         super(self.__class__, self).__init__(params)
         self._op = op
         self._prescale = prescale_factor
@@ -77,95 +115,257 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             for name, p in named_parameters:
                 self._names[id(p)] = name
 
+        self.backward_passes_per_step = backward_passes_per_step
+        self._units = self._plan()
+        self._unit_of = {p: u for u in self._units for p in u.params}
+        self._delay = {p: backward_passes_per_step for p in self._unit_of}
+        self._fired = set()  # parameters whose hook fired in this window
+        self._checked = False
+        self._synchronized = False
+        self._should_synchronize = True
+        # Reductions the hooks launched since the last synchronize().
+        self.hook_launches = 0
+        for p in self._unit_of:
+            p.register_post_accumulate_grad_hook(self._hook)
+
     def _params(self) -> List[torch.nn.Parameter]:
         return [p for g in self.param_groups for p in g["params"]
                 if p.requires_grad]
 
-    def synchronize(self) -> None:
-        """Reduce every gradient across ranks and write the result into
-        ``p.grad``. A parameter without a gradient contributes zeros, so
-        every rank joins every collective."""
-        params = self._params()
-        for p in params:
+    def _compressor(self, p):
+        """(compressor, quantized) of a parameter's gradient."""
+        if self._config is None:
+            return self._wire, False
+        comp = self._config.for_name(self._names[id(p)])
+        if comp is None or (isinstance(comp, type) and
+                            issubclass(comp, Compressor)):
+            return comp, False
+        return comp, True
+
+    def _plan(self) -> List[_Unit]:
+        """Dense buckets, then one group per quantizer."""
+        cap = ev.get_int(ev.HVDTPU_FUSION_THRESHOLD,
+                         ev.DEFAULT_FUSION_THRESHOLD)
+        buckets: List[_Unit] = []
+        open_bucket: Dict[tuple, _Unit] = {}
+        filled: Dict[tuple, int] = {}
+        quantized: Dict[object, List[torch.nn.Parameter]] = {}
+        routed = [(p, *self._compressor(p)) for p in self._params()]
+        for p, comp, is_quantized in routed:
+            if is_quantized:
+                quantized.setdefault(comp, []).append(p)
+        for p, comp, is_quantized in reversed(routed):
+            if is_quantized:
+                continue
+            key = (comp, p.dtype, p.device)
+            nbytes = p.numel() * p.element_size()
+            unit = open_bucket.get(key)
+            if unit is None or filled[key] + nbytes > cap:
+                unit = open_bucket[key] = _Unit([], comp, False)
+                filled[key] = 0
+                buckets.append(unit)
+            unit.params.append(p)
+            filled[key] += nbytes
+        return buckets + [_Unit(ps, comp, True)
+                          for comp, ps in quantized.items()]
+
+    # -- hooks ---------------------------------------------------------------
+
+    def _hook(self, p: torch.nn.Parameter) -> None:
+        if self._delay[p] == 0:
+            raise AssertionError(
+                "gradient for this parameter was already reduced; call "
+                "optimizer.step() or synchronize() between backward "
+                "passes, or raise backward_passes_per_step")
+        self._fired.add(p)
+        self._delay[p] -= 1
+        if self._delay[p]:
+            return
+        unit = self._unit_of[p]
+        unit.ready += 1
+        if unit.ready == len(unit.params) and self._checked:
+            self._launch(unit)
+            self.hook_launches += 1
+
+    def _launch(self, unit: _Unit) -> None:
+        for p in unit.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if self._config is None:
-            self._reduce_dense(params, self._wire)
+        grads = [p.grad for p in unit.params]
+        if unit.quantized:
+            unit.pending = self._reduce_compressed(unit.params, grads,
+                                                   unit.compressor)
             return
-        # Dense gradients group by wire compressor, quantized ones by
-        # quantizer config: one fused reduction per group.
-        dense: Dict[object, List[torch.nn.Parameter]] = {}
-        quantized: Dict[object, List[torch.nn.Parameter]] = {}
-        for p in params:
-            comp = self._config.for_name(self._names[id(p)])
-            if comp is None or (isinstance(comp, type) and
-                                issubclass(comp, Compressor)):
-                dense.setdefault(comp, []).append(p)
-            else:
-                quantized.setdefault(comp, []).append(p)
-        for comp, ps in dense.items():
-            self._reduce_dense(ps, comp)
-        for comp, ps in quantized.items():
-            self._reduce_compressed(ps, comp)
+        wire = unit.compressor
+        flat = [(g if wire is None else wire.compress(g)[0]).reshape(-1)
+                for g in grads]
+        if unit.buffer is None:
+            unit.buffer = torch.empty(sum(f.numel() for f in flat),
+                                      dtype=flat[0].dtype,
+                                      device=flat[0].device)
+        torch.cat(flat, out=unit.buffer)
+        unit.pending = C._launch_reduce(unit.buffer, self._op,
+                                        self._prescale, self._postscale,
+                                        inplace=True)
 
-    def _reduce_dense(self, params, wire) -> None:
-        reduced = C.grouped_allreduce([p.grad for p in params], op=self._op,
-                                      prescale_factor=self._prescale,
-                                      postscale_factor=self._postscale,
-                                      compression=wire)
-        for p, g in zip(params, reduced):
-            p.grad.copy_(g)
-
-    def _reduce_compressed(self, params, comp) -> None:
-        grads = [p.grad for p in params]
+    def _reduce_compressed(self, params, grads, comp) -> List[torch.Tensor]:
         kwargs = dict(reduction=self._config.reduction, op=self._op,
                       prescale_factor=self._prescale,
                       postscale_factor=self._postscale)
         if not self._config.error_feedback:
-            reduced = compressed_grouped_allreduce(grads, comp, **kwargs)
+            return compressed_grouped_allreduce(grads, comp, **kwargs)
+        missing = [p for p in params if _RESIDUAL not in self.state[p]]
+        for p, r in zip(missing, init_error_feedback(missing)):
+            self.state[p][_RESIDUAL] = r
+        residuals = [self.state[p][_RESIDUAL] for p in params]
+        reduced, new_res = compressed_grouped_allreduce(
+            grads, comp, residuals=residuals, **kwargs)
+        for p, r in zip(params, new_res):
+            self.state[p][_RESIDUAL] = r
+        return reduced
+
+    def _finish(self, unit: _Unit) -> None:
+        """Wait for a unit's reduction and write it into ``p.grad``."""
+        if unit.quantized:
+            reduced = unit.pending
         else:
-            missing = [p for p in params if _RESIDUAL not in self.state[p]]
-            for p, r in zip(missing, init_error_feedback(missing)):
-                self.state[p][_RESIDUAL] = r
-            residuals = [self.state[p][_RESIDUAL] for p in params]
-            reduced, new_res = compressed_grouped_allreduce(
-                grads, comp, residuals=residuals, **kwargs)
-            for p, r in zip(params, new_res):
-                self.state[p][_RESIDUAL] = r
-        for p, g in zip(params, reduced):
+            flat = unit.pending.wait()
+            reduced = [part.view(p.shape) for p, part in zip(
+                unit.params, flat.split([p.numel() for p in unit.params]))]
+            if unit.compressor is not None:
+                reduced = [unit.compressor.decompress(r, p.grad.dtype)
+                           for r, p in zip(reduced, unit.params)]
+        for p, g in zip(unit.params, reduced):
             p.grad.copy_(g)
+        unit.pending = None
+        unit.ready = 0
+
+    def _check_layout(self) -> None:
+        """Every rank must have built the same units (names, sizes and
+        dtypes, in order): one descriptor exchange, before any gradient
+        moves."""
+        layout = [(u.quantized, repr(u.compressor),
+                   [(self._names[id(p)], p.numel(), str(p.dtype))
+                    for p in u.params]) for u in self._units]
+        params = list(self._unit_of)
+        C._agree("DistributedOptimizer",
+                 (len(self._units), sum(p.numel() for p in params)),
+                 params[0].dtype if params else torch.float32,
+                 op=self._op, sig=zlib.crc32(repr(layout).encode()))
+
+    # -- synchronization -------------------------------------------------------
+
+    def synchronize(self) -> None:
+        """Launch every reduction the hooks did not (zeros for a missing
+        gradient, a parameter's partial sum where it is still
+        accumulating), wait for them all, and write the reduced gradients
+        into ``p.grad`` (reference: ``horovod/torch/optimizer.py:198-221``)."""
+        if not self._checked:
+            self._check_layout()
+            self._checked = True
+        for unit in self._units:
+            if unit.pending is None:
+                self._launch(unit)
+        for unit in self._units:
+            self._finish(unit)
+        self._new_window()
+        self._synchronized = True
+
+    def _new_window(self) -> None:
+        """Start every countdown again."""
+        for p in self._delay:
+            self._delay[p] = self.backward_passes_per_step
+        self._fired.clear()
+        self.hook_launches = 0
+
+    def set_backward_passes_per_step(self, passes: int) -> None:
+        """Change the accumulation window; every countdown starts again
+        (reference: ``horovod/torch/optimizer.py:99-102``)."""
+        self.backward_passes_per_step = passes
+        for p in self._delay:
+            self._delay[p] = passes
+
+    def load_state_dict(self, *args, **kwargs):
+        """Load a checkpoint and reset the countdowns and pending
+        reductions (reference: ``optimizer.py:81-89``): counters left from
+        before the reload would put the ranks out of step."""
+        for unit in self._units:
+            if unit.pending is not None and not unit.quantized:
+                unit.pending.wait()
+            unit.pending = None
+            unit.ready = 0
+        self._new_window()
+        self._synchronized = False
+        self._should_synchronize = True
+        super(self.__class__, self).load_state_dict(*args, **kwargs)
+
+    @contextlib.contextmanager
+    def skip_synchronize(self) -> Iterator[None]:
+        """Let ``step()`` skip ``synchronize()``, after a manual call
+        (reference: ``optimizer.skip_synchronize()``)."""
+        self._should_synchronize = False
+        try:
+            yield
+        finally:
+            self._should_synchronize = True
 
     def step(self, closure=None):
-        self.synchronize()
+        if self._should_synchronize:
+            if self._synchronized:
+                warnings.warn(
+                    "optimizer.step() called without a new backward pass "
+                    "after synchronize(); use skip_synchronize() to avoid a "
+                    "redundant synchronization")
+            self.synchronize()
+        self._synchronized = False
         return super(self.__class__, self).step(closure)
+
+    def zero_grad(self, *args, **kwargs):
+        if self._fired or any(u.pending is not None for u in self._units):
+            raise AssertionError(
+                "optimizer.zero_grad() was called after loss.backward() but "
+                "before optimizer.step() or optimizer.synchronize(); the "
+                "pending gradients would be lost")
+        return super(self.__class__, self).zero_grad(*args, **kwargs)
 
 
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters: Optional[
                              Iterable[Tuple[str, torch.nn.Parameter]]] = None,
                          compression=None,
+                         backward_passes_per_step: int = 1,
                          op: C.ReduceOp = C.ReduceOp.AVERAGE,
                          gradient_predivide_factor: float = 1.0,
                          prescale_factor: Optional[float] = None,
                          postscale_factor: Optional[float] = None
                          ) -> torch.optim.Optimizer:
     """Wrap a torch optimizer so ``step()`` uses gradients reduced across
-    ranks (reference: ``hvd.DistributedOptimizer``,
-    ``horovod/torch/optimizer.py:383``).
+    ranks, reduced while ``backward()`` runs (reference:
+    ``hvd.DistributedOptimizer``, ``horovod/torch/optimizer.py:383``).
 
     * ``compression``: ``None``/``Compression.fp16``/``bf16`` (dense, cast on
       the wire), a :class:`MaxMinQuantizer`, :class:`NormalizedQuantizer`
       or :class:`TopKCompressor`, or a :class:`CompressionConfig` (per-name
-      compressors, the reducer, and error feedback). No ``key`` reaches the
-      reducers, as in the JAX package: stochastic rounding draws seed 0
-      every step.
+      compressors, the reducer, and error feedback, applied once a
+      reduction). No ``key`` reaches the reducers, as in the JAX package:
+      stochastic rounding draws seed 0 every step.
+    * ``backward_passes_per_step`` k: the gradients of k backward passes
+      accumulate in ``p.grad`` (summed, as PyTorch and the reference torch
+      binding sum them) and are reduced once, in the k-th pass. The JAX
+      package's ``optax.MultiSteps`` averages the k gradients instead: scale
+      each micro-batch's loss by 1/k for its result.
     * ``op``: ``Average`` (default) or ``Sum``; dense gradients also take
       ``Min``/``Max``/``Product``.
     * ``gradient_predivide_factor`` f splits the averaging: gradients are
       scaled by f/size before the sum and by 1/f after (op must be
       Average); otherwise ``prescale_factor``/``postscale_factor`` scale
       before and after.
+
+    ``opt.hook_launches`` counts the reductions the hooks launched since
+    the last ``synchronize()``.
     """
+    if backward_passes_per_step < 1:
+        raise ValueError("backward_passes_per_step must be at least 1")
     if gradient_predivide_factor != 1.0:
         if op != C.ReduceOp.AVERAGE:
             raise ValueError("gradient_predivide_factor not supported with "
@@ -179,7 +379,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression, op,
-               pre, post)
+               pre, post, backward_passes_per_step)
 
 
 def _tensors(params) -> List[torch.Tensor]:
@@ -206,9 +406,8 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
     """Broadcast an optimizer's state tensors and hyperparameters from
     ``root_rank`` in place (reference: ``horovod/torch/functions.py:62``).
     Every rank must hold state for the same parameters."""
-    hyper = [{k: v for k, v in g.items() if k != "params"}
-             for g in optimizer.param_groups]
-    torch.distributed.broadcast_object_list(hyper, src=root_rank)
+    hyper = broadcast_object([{k: v for k, v in g.items() if k != "params"}
+                              for g in optimizer.param_groups], root_rank)
     for group, values in zip(optimizer.param_groups, hyper):
         group.update(values)
     dev = runtime.device()

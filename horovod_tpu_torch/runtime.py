@@ -1,7 +1,9 @@
 """Topology runtime: ``init`` / ``rank`` / ``size`` / ``device``.
 
 Counterpart of ``horovod_tpu/runtime.py`` (``init`` :308, ``shutdown`` :516,
-topology getters :553-606); reference surface ``horovod/common/basics.py:22``.
+topology getters :553-606, ``is_homogeneous`` :579) and of the build flags
+of ``horovod_tpu/__init__.py:94-130``, answered for this package; reference
+surface ``horovod/common/basics.py:22``.
 
 One process drives one GPU, as in the reference Horovod and the JAX
 package's process mode. Rank and size come from the ``HVDTPU_*`` variables
@@ -35,6 +37,7 @@ class _RuntimeState:
     local_size: int = 1
     cross_rank: int = 0
     cross_size: int = 1
+    homogeneous: bool = True
     device: Optional[torch.device] = None
 
 
@@ -111,6 +114,12 @@ def init(device: Union[str, torch.device, None] = None) -> None:
         store = _rendezvous(st.rank, st.size)
         dist.init_process_group(backend, store=store, rank=st.rank,
                                 world_size=st.size)
+        # Every node runs as many ranks when every rank's local_size agrees.
+        local = torch.tensor([st.local_size], dtype=torch.int64,
+                             device=st.device)
+        sizes = torch.empty(st.size, dtype=torch.int64, device=st.device)
+        dist.all_gather_into_tensor(sizes, local)
+        st.homogeneous = bool((sizes == st.local_size).all())
         log.debug("init: rank %d/%d on %s (%s)", st.rank, st.size,
                   st.device, backend)
         st.initialized = True
@@ -162,6 +171,57 @@ def cross_size() -> int:
     return _require_init().cross_size
 
 
+def is_homogeneous() -> bool:
+    """True when every node runs the same number of ranks (reference:
+    ``horovod_is_homogeneous``); exchanged once, at ``init``."""
+    return _require_init().homogeneous
+
+
 def device() -> torch.device:
     """The device ``init`` chose for this rank."""
     return _require_init().device
+
+
+# Build flags (reference: ``horovod/common/basics.py``), for this package:
+# torch.distributed's NCCL and gloo, no MPI, DDL, oneCCL or ROCm.
+
+def cuda_built() -> bool:
+    """CUDA is compiled into this torch."""
+    return torch.backends.cuda.is_built()
+
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def gloo_enabled() -> bool:
+    """The process group runs on gloo (``init(device="cpu")``)."""
+    return _state.initialized and dist.get_backend() == "gloo"
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def rocm_built() -> bool:
+    return False

@@ -18,8 +18,9 @@ dense ``DistributedOptimizer`` and SGD), and, after warm-up:
 1. times ``--steps`` steps after ``chip_smoke.py``'s warm-up on the host
    clock as ``chip_smoke.py`` does (and each on the device), then the
    phases of a step with CUDA events over as many steps, each
-   followed by a synchronize: forward+backward, the gradient reduction
-   (``synchronize()``) and the inner SGD step;
+   followed by a synchronize: forward+backward (in which the gradient
+   hooks launch the reductions; their count a step is printed), the wait
+   for the reductions (``synchronize()``) and the inner SGD step;
 2. traces 3 steps with ``torch.profiler``, prints the device time by
    kernel, the device operations a step (kernels, copies and fills) and
    the device's busy share of the traced window, and writes the Chrome
@@ -79,11 +80,14 @@ def main() -> int:
             model, opt, inputs, targets = chip_smoke.make_slice(
                 hvd, dev, chip_smoke.resnet_compressors()[args.path])
         inner_step = type(opt).__mro__[1].step
+        launched = []
 
         def step(marks=None):
             if marks:
                 marks[0].record()
             forward_backward(model, opt, inputs, targets)
+            # None where the optimizer has no hooks (a tree before them).
+            launched.append(getattr(opt, "hook_launches", None))
             if marks:
                 marks[1].record()
             with torch.profiler.record_function("hvd.synchronize"):
@@ -97,6 +101,7 @@ def main() -> int:
         for _ in range(chip_smoke.WARMUP):
             step()
         torch.cuda.synchronize()
+        del launched[:]
         ends = [torch.cuda.Event(enable_timing=True)
                 for _ in range(args.steps + 1)]
         t0 = time.perf_counter()
@@ -120,7 +125,9 @@ def main() -> int:
         print(json.dumps({"step_ms_free_running": free_running,
                           "free_running_device_ms_each_step": per_step,
                           "step_ms_synced_each_step": wall,
-                          "phase_ms_device": phases}), flush=True)
+                          "phase_ms_device": phases,
+                          "reductions_launched_in_backward": launched}),
+              flush=True)
 
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -130,8 +137,11 @@ def main() -> int:
                 step()
             torch.cuda.synchronize()
             window_us = (time.perf_counter() - t0) * 1e6
+        # The "hvd.synchronize" range shows on the device timeline too; it
+        # spans the device's work, it is none of it.
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA and
+                  e.key != "hvd.synchronize"]
         busy_us = sum(_self_device_us(e) for e in events)
         events.sort(key=_self_device_us, reverse=True)
         print(f"traced 3 steps: window {window_us / 1e3:.3f} ms, device busy "
@@ -142,7 +152,8 @@ def main() -> int:
             print(f"  {_self_device_us(e) / 3e3:9.4f} ms/step  "
                   f"x{e.count // 3:<5d} {e.key[:90]}", flush=True)
         for e in prof.key_averages():
-            if e.key == "hvd.synchronize":
+            if e.key == "hvd.synchronize" and \
+                    e.device_type == torch.autograd.DeviceType.CPU:
                 print(f"hvd.synchronize: host {e.cpu_time_total / 3e3:.3f} "
                       "ms/step", flush=True)
         os.makedirs(args.out, exist_ok=True)

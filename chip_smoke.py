@@ -31,7 +31,21 @@ just after:
 * the collective API on the card: every async op bitwise against its
   sync twin, ``reducescatter``, ``alltoall`` with splits, ``allgather``,
   autograd through ``allreduce``, and agreement errors (a dtype mismatch
-  from a second rank's descriptor, splits that do not sum to dim 0).
+  from a second rank's descriptor, splits that do not sum to dim 0);
+* three phases on a device mesh, each with the runtime initialized anew
+  (2 warm-up and 5 timed steps): ResNet-50 with ``SyncBatchNorm`` in
+  place of its 53 batch norms, through
+  ``DistributedOptimizer(op=Adasum, hierarchical=("ici", "dcn"))`` on a
+  ``{"dcn": 1, "ici": 1}`` mesh; ResNet-50 with its fused gradients reduced
+  by ``hierarchical_compressed_allreduce`` (4-bit max-min, buckets of 512,
+  ``scatter_allgather``, error feedback carried across steps: kernels B1,
+  B3, B4) on the same mesh; and the GPT path under ZeRO-1
+  (``ShardedDistributedOptimizer(torch.optim.Adam)``) on a ``{"dp": 1}``
+  mesh (B7, B8, B9), whose Adam state must be the computed bytes. Before
+  them, the fused per-tensor Adasum combine (each tensor's partials and
+  coefficients) folds 4 synthetic rank vectors in ResNet-50's 161-tensor
+  layout on the card and is held against the float64
+  ``adasum_reference`` of each tensor.
 
 ``DistributedOptimizer`` reduces from gradient hooks: every timed step of
 a training phase must launch its reductions before ``loss.backward()``
@@ -144,6 +158,20 @@ PATH_ROUTES = {"resnet": DECODE_ROUTES,
                "resnet_uni": {"norm_quantize": "packed_search"},
                "resnet_stochastic": {"maxmin_quantize_stochastic": "packed",
                                      **DECODE_ROUTES}}
+# The mesh phases: 2 warm-up and 5 timed steps each.
+MESH_WARMUP, MESH_STEPS = 2, 5
+SYNC_BN_LAYERS = 53  # ResNet-50's batch norms
+ZERO_LR = 1e-3
+# Adam keeps two fp32 state tensors of the shard's length: at a world of
+# one the shard is every parameter, 2 x 51,649,024 x 4 bytes.
+ZERO_STATE_BYTES = 2 * GPT_PARAMS * 4
+# The fused Adasum combine on the card against the float64 reference: each
+# tensor's result within 1e-5 of its largest magnitude. The partials are
+# float64 prefix sums rounded once to fp32; the combine rounds a·coeff and
+# b·coeff and their sum in fp32 (a few 2^-24 of the magnitude), and the
+# reference's first pairs are rounded to fp32 by nothing.
+ADASUM_TOL = 1e-5
+ADASUM_RANKS = 4
 # B3 at a world of 4: the scatter_allgather chunk of the ResNet path's
 # gradient buffer (12,480 buckets of 512) from each of 4 ranks.
 B3_RANKS, B3_RANK_BUCKETS = 4, 12_480
@@ -1048,6 +1076,268 @@ def check_api(hvd, dev):
         f"{errors}")
 
 
+def reinit(hvd, mesh_shape):
+    """The runtime initialized anew on ``mesh_shape``; its device."""
+    hvd.shutdown()
+    hvd.init(mesh_shape=mesh_shape)
+    return hvd.device()
+
+
+def timed_steps(path: str, step, warmup: int = MESH_WARMUP,
+                steps: int = MESH_STEPS):
+    """``warmup`` steps, then the launch counts set to 0 and ``steps``
+    timed steps; their losses (as floats, warm-up ones first), the step
+    time in ms, the launches and the routes."""
+    losses = [step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches, routes = read_launches(), read_routes()
+    losses = [float(v) for v in losses]
+    log(f"{path}: step {ms:.3f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches in "
+        f"{steps} steps {launches}; losses {losses}")
+    check_losses(losses)
+    return ms, launches, routes
+
+
+def check_mesh_launches(path: str, launches, per_step) -> None:
+    want = {name: per_step.get(name, 0) * MESH_STEPS for name in launches}
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, expected {want}")
+
+
+def check_adasum(dev):
+    """The fused per-tensor Adasum combine on the card: 4 synthetic rank
+    vectors in ResNet-50's layout (161 tensors, one segment each), folded
+    as the reference folds 4 ranks, ``((r0, r1), (r2, r3))``, each pair by
+    ``partials`` (every tensor's a·b, a·a, b·b from one float64 prefix
+    sum) and
+    ``combine`` (each tensor's coefficients); every tensor's result against
+    the float64 ``adasum_reference`` of its 4 pieces."""
+    import numpy as np
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.parallel.adasum import (adasum_reference,
+                                                   bounds, combine,
+                                                   partials, segments)
+    sizes = [p.numel() for p in ResNet50(num_classes=1000).parameters()]
+    total = sum(sizes)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # Correlated ranks (a shared part and each rank's own), so the
+    # coefficients sit well inside (0, 1).
+    common = torch.randn(total, generator=gen, device=dev)
+    ranks = [common + (0.5 + r) * torch.randn(total, generator=gen,
+                                                device=dev)
+             for r in range(ADASUM_RANKS)]
+    ids, ends = segments(sizes, total, dev)
+    cuts = bounds(ends, 0, total, dev)
+
+    def pair(a, b):
+        return combine(a, b, partials(a, b, cuts), ids)
+
+    def fold():
+        return pair(pair(ranks[0], ranks[1]), pair(ranks[2], ranks[3]))
+
+    got = fold()
+    ms = time_ms(fold, iters=5) / 3  # three pairwise combines a fold
+    got = got.cpu().numpy()
+    host = [r.cpu().numpy() for r in ranks]
+    worst, off = 0.0, 0
+    for size in sizes:
+        ref = adasum_reference([h[off:off + size] for h in host])
+        err = float(np.abs(got[off:off + size] - ref).max() /
+                    max(np.abs(ref).max(), 1e-30))
+        worst = max(worst, err)
+        off += size
+    if not worst <= ADASUM_TOL:
+        raise AssertionError(f"adasum: fused combine off by {worst:.3g} of "
+                             f"a tensor's largest value, above "
+                             f"{ADASUM_TOL}")
+    log(f"adasum: fused per-tensor combine of {ADASUM_RANKS} ranks in "
+        f"ResNet-50's layout ({len(sizes)} tensors, {total} values) within "
+        f"{worst:.3g} of each tensor's largest value of the float64 "
+        f"reference (tolerance {ADASUM_TOL}); one pairwise combine "
+        f"{ms:.4f} ms")
+    return ms
+
+
+def resnet_mesh_slice(hvd, dev):
+    """A fresh ResNet-50 (seed 0, channels_last) and the fixed batch."""
+    from horovod_tpu_torch.models import ResNet50
+    torch.manual_seed(0)
+    model = ResNet50(num_classes=1000)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    images = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    return model, images, labels
+
+
+def make_sync_adasum_slice(hvd, dev, sync: bool = True):
+    """The ResNet-50 slice of the SyncBatchNorm + hierarchical Adasum
+    phase (on a ``{"dcn", "ici"}`` mesh); with ``sync`` False, the same
+    model with its batch norms and the dense Average optimizer, which
+    ``scripts/profile_torch_slice.py --path resnet_dense`` sets beside
+    it."""
+    model, images, labels = resnet_mesh_slice(hvd, dev)
+    kw = {}
+    if sync:
+        hvd.SyncBatchNorm.convert_sync_batchnorm(model, axis=("dcn", "ici"))
+        kw = dict(op=hvd.Adasum, hierarchical=("ici", "dcn"))
+    model = model.to(dev, memory_format=torch.channels_last)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=LR, momentum=0.9),
+        named_parameters=model.named_parameters(), **kw)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    return model, opt, images, labels
+
+
+def train_sync_adasum(hvd):
+    """ResNet-50 with SyncBatchNorm over both mesh axes in place of every
+    batch norm, its gradients reduced by hierarchical Adasum from the
+    hooks; then the trained model against a CPU copy of itself."""
+    path = "resnet_syncbn_adasum"
+    dev = reinit(hvd, {"dcn": 1, "ici": 1})
+    model, opt, images, labels = make_sync_adasum_slice(hvd, dev)
+    n_sync = sum(isinstance(m, hvd.SyncBatchNorm) for m in model.modules())
+    if n_sync != SYNC_BN_LAYERS:
+        raise AssertionError(f"{path}: {n_sync} SyncBatchNorm layers")
+    launched = []
+
+    def step():
+        loss = forward_backward(model, opt, images, labels)
+        launched.append([opt.hook_launches])
+        opt.step()
+        return loss
+
+    ms, launches, _ = timed_steps(path, step)
+    units = len(opt._units)
+    timed = launched[MESH_WARMUP:]
+    log(f"{path}: {n_sync} SyncBatchNorm layers, op=Adasum, hierarchical="
+        f"(ici, dcn), {units} dense buckets; launched before backward() "
+        f"returned, each timed step: {timed}")
+    check_hook_launches(path, timed, [units])
+    check_mesh_launches(path, launches, {})
+    model.eval()
+    small = images[:2, :64, :64].contiguous()
+    with torch.no_grad():
+        got = model(small).cpu()
+        ref = copy.deepcopy(model).cpu().float()(small.cpu())
+    if got.shape != (2, 1000) or not torch.isfinite(got).all():
+        raise AssertionError(f"{path}: bad logits")
+    torch.testing.assert_close(got, ref, rtol=1e-3,
+                               atol=1e-3 * float(ref.abs().max()))
+    log(f"{path}: trained model agrees with its CPU copy (fp32, rtol 1e-3)")
+    return ms
+
+
+def train_hierarchical_compressed(hvd):
+    """ResNet-50, its fused gradients reduced each step by
+    ``hierarchical_compressed_allreduce`` with the residual carried, then
+    SGD: B1 twice, B3 once and B4 twice a step, B3 and B4 on the packed
+    route."""
+    from horovod_tpu_torch.compression import (
+        MaxMinQuantizer, hierarchical_compressed_allreduce)
+    path = "resnet_hier_compressed"
+    dev = reinit(hvd, {"dcn": 1, "ici": 1})
+    model, images, labels = resnet_mesh_slice(hvd, dev)
+    model = model.to(dev, memory_format=torch.channels_last)
+    params = list(model.parameters())
+    sizes = [p.numel() for p in params]
+    opt = torch.optim.SGD(params, lr=LR, momentum=0.9)
+    quant = MaxMinQuantizer(bits=BITS, bucket_size=BUCKET)
+    state = {"residual": "init"}
+    norms = []
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            logits = model(images)
+        loss = F.cross_entropy(logits, labels)
+        loss.backward()
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        out, state["residual"] = hierarchical_compressed_allreduce(
+            flat, quant, "ici", "dcn", reduction="scatter_allgather",
+            op=hvd.Average, residual=state["residual"])
+        for p, part in zip(params, out.split(sizes)):
+            p.grad.copy_(part.view_as(p))
+        norms.append(state["residual"].norm())
+        opt.step()
+        return loss.detach()
+
+    ms, launches, routes = timed_steps(path, step)
+    residual = state["residual"]
+    norms = [float(v) for v in norms]
+    log(f"{path}: residual {tuple(residual.shape)} carried, its norm after "
+        f"each step {norms}")
+    if tuple(residual.shape) != (RESNET50_PARAMS,):
+        raise AssertionError(f"{path}: residual {tuple(residual.shape)}")
+    if not all(math.isfinite(v) and v > 0 for v in norms) or \
+            len(set(norms)) != len(norms):
+        raise AssertionError(f"{path}: residual not carried: {norms}")
+    check_mesh_launches(path, launches, PATH_LAUNCHES["resnet"])
+    for name, route in DECODE_ROUTES.items():
+        want = {r: launches[name] if r == route else 0 for r in routes[name]}
+        if routes[name] != want:
+            raise AssertionError(f"{path}: {name} routes {routes[name]}, "
+                                 f"expected {want}")
+    log(f"{path}: every B3 and B4 launch on the packed route "
+        f"{ {n: routes[n] for n in DECODE_ROUTES} }")
+    return ms, launches
+
+
+def train_gpt_zero(hvd):
+    """The GPT path under ZeRO-1 Adam on a one-axis mesh: B7 twice a layer
+    and B8, B9 once, all on the tensor cores; Adam's state the computed
+    bytes."""
+    from horovod_tpu_torch.models import GPT, GPTConfig
+    from horovod_tpu_torch.ops.flash_attention import ROUTES
+    path = "gpt_zero1"
+    dev = reinit(hvd, {"dp": 1})
+    cfg = GPTConfig(**GPT_CONFIG)
+    model = GPT(cfg, seed=0).to(dev)
+    opt = hvd.ShardedDistributedOptimizer(torch.optim.Adam,
+                                          model.parameters(), lr=ZERO_LR)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ),
+                           generator=gen, device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    targets[:, -1] = -1
+
+    def step():
+        loss = gpt_forward_backward(model, opt, tokens, targets)
+        opt.step()
+        return loss
+
+    ms, launches, _ = timed_steps(path, step)
+    layers = cfg.num_layers
+    check_mesh_launches(path, launches, {"flash_fwd": 2 * layers,
+                                         "flash_dkdv": layers,
+                                         "flash_dq": layers})
+    routes = {name: dict(counts) for name, counts in ROUTES.items()}
+    want = {name: {"mma_bf16": launches[name], "fp32": 0} for name in routes}
+    if routes != want:
+        raise AssertionError(f"{path}: routes {routes}, expected {want}")
+    vectors = sum(t.numel() * t.element_size()
+                  for st in opt.optimizer.state.values()
+                  for t in st.values()
+                  if torch.is_tensor(t) and t.numel() == opt.shard_len)
+    total = opt.state_bytes()
+    log(f"{path}: Adam state {total} bytes on this rank ({vectors} in the "
+        f"shard's two moments of {opt.shard_len} values, {total - vectors} "
+        f"in its step count); every B7, B8 and B9 launch on the tensor "
+        f"cores {routes}")
+    if opt.shard_len != GPT_PARAMS or vectors != ZERO_STATE_BYTES or \
+            not 0 <= total - vectors <= 8:
+        raise AssertionError(f"{path}: Adam state {total} bytes, "
+                             f"{vectors} in the moments, expected "
+                             f"{ZERO_STATE_BYTES}")
+    return ms, launches
+
+
 def make_gpt_slice(hvd, dev):
     """The GPT path's model, optimizer and fixed batch of tokens."""
     from horovod_tpu_torch.models import GPT, GPTConfig
@@ -1636,6 +1926,11 @@ def main() -> int:
         train_accumulated(hvd, dev)
         flash_launches = train_gpt(hvd, dev)
         check_api(hvd, dev)
+        check_adasum(dev)
+        train_sync_adasum(hvd)
+        train_hierarchical_compressed(hvd)
+        train_gpt_zero(hvd)
+        dev = reinit(hvd, None)
         launches = {name: phases[path][name]
                     for path in ("resnet_stochastic", "resnet_uni",
                                  "resnet")

@@ -77,6 +77,8 @@ from .quantize import (DEFAULT_BUCKET_SIZE, MaxMinQuantizer,  # noqa: E402
 from .error_feedback import (compress_with_feedback,  # noqa: E402
                              init_error_feedback)
 from .reducers import (compressed_allreduce,  # noqa: E402
-                       compressed_grouped_allreduce)
+                       compressed_grouped_allreduce,
+                       hierarchical_compressed_allreduce,
+                       hierarchical_compressed_residual_zeros)
 from .config import (CompressionConfig, LayerRule, from_env,  # noqa: E402
                      make_compressor)

@@ -1,6 +1,7 @@
 """Distributed optimizer: data-parallel gradient reduction for torch.optim.
 
-Counterpart of ``horovod_tpu/parallel/optimizer.py`` (``DistributedOptimizer``
+Counterpart of ``horovod_tpu/parallel/optimizer.py`` (``allreduce_gradients``
+:30-93, the fused two-axis reduction :95-157, ``DistributedOptimizer``
 :171, its quantized route ``_compressed_reduce`` :290-362,
 ``broadcast_parameters`` :422, ``broadcast_optimizer_state`` :429), in the
 torch-side shape of ``horovod_tpu/torch/optimizer.py`` (hooks,
@@ -19,7 +20,11 @@ pass:
   filled in reverse registration order (the order backward produces them)
   up to ``HVDTPU_FUSION_THRESHOLD`` bytes (64 MiB by default); a bucket
   copies its gradients into one flat buffer, allocated once and reused, and
-  starts an async allreduce on it;
+  starts an async allreduce on it (over every rank, a mesh axis
+  ``axis``, or, with ``hierarchical=(inner, outer)``, the two-level
+  reduction of :func:`~horovod_tpu_torch.ops.collectives.
+  hierarchical_allreduce`; Adasum combines each gradient of a bucket with
+  its own coefficients);
 * quantized gradients in one fused ``compressed_grouped_allreduce`` per
   quantizer, over its members in registration order (the JAX package's
   leaf order), with the error-feedback residuals in the optimizer's
@@ -52,8 +57,89 @@ from ..compression.reducers import compressed_grouped_allreduce
 from ..functions import broadcast_object
 from ..ops import collectives as C
 from ..utils import envvars as ev
+from .strategy import choose_hierarchical
 
 _RESIDUAL = "hvd_residual"
+
+
+def _resolve(axis, hierarchical, op, nbytes: int):
+    """Where the gradients are reduced: ``(group, None)``, one reduction
+    over the group of ``axis``, or ``(group, (inner, outer))``, the
+    hierarchical one (``group`` then spans both axes). ``("auto", inner,
+    outer)`` asks the calibration table at ``nbytes`` and reduces flat
+    over both axes when it says so (JAX ``optimizer.py:69-86``); Adasum
+    ignores a flat choice, since its two-axis form is the hierarchical one
+    (JAX ``optimizer.py:111-122``)."""
+    if hierarchical is None:
+        return runtime.group(axis), None
+    if len(hierarchical) == 3 and hierarchical[0] == "auto":
+        hier = tuple(hierarchical[1:])
+        if op != C.ReduceOp.ADASUM and not choose_hierarchical(*hier,
+                                                                nbytes):
+            return runtime.group(hier), None
+    elif len(hierarchical) == 2:
+        hier = tuple(hierarchical)
+    else:
+        raise ValueError("hierarchical takes (inner_axis, outer_axis) or "
+                         "(\"auto\", inner_axis, outer_axis)")
+    return runtime.group(hier), hier
+
+
+def _launch_dense(buf: torch.Tensor, op, prescale: float, postscale: float,
+                  group, hier, sizes) -> "C._Pending":
+    """Reduce a fused buffer of gradients whose lengths are ``sizes`` over
+    ``group``, or hierarchically over the axes ``hier``. Adasum gets
+    ``sizes``: a coefficient per gradient."""
+    sizes = sizes if op == C.ReduceOp.ADASUM else None
+    if hier is None:
+        return C._launch_reduce(buf, op, prescale, postscale, inplace=True,
+                                group=group, sizes=sizes)
+    return C._launch_hierarchical(buf, op, *hier, prescale, postscale,
+                                  sizes=sizes)
+
+
+def allreduce_gradients(grads, op: C.ReduceOp = C.ReduceOp.AVERAGE,
+                        compression=None, prescale_factor: float = 1.0,
+                        postscale_factor: float = 1.0, axis=None,
+                        hierarchical=None):
+    """Allreduce a list (or a dict) of gradients, returned in the same
+    form: the functional form of :func:`DistributedOptimizer`'s reduction
+    (JAX ``allreduce_gradients``, ``optimizer.py:30-93``; reference
+    ``DistributedGradientTape``).
+
+    ``hierarchical=(inner_axis, outer_axis)`` reduces each dtype's fused
+    buffer by :func:`~horovod_tpu_torch.ops.collectives.
+    hierarchical_allreduce`; ``("auto", inner, outer)`` asks the
+    calibration table (:func:`~horovod_tpu_torch.parallel.strategy.
+    autotune_hierarchical`) at the gradients' total bytes and reduces flat,
+    one allreduce over both axes, when it says so or has no entry. Neither
+    takes a compressor."""
+    if hierarchical is not None and compression is not None:
+        raise ValueError(
+            "hierarchical allreduce does not take a compressor; use "
+            "hierarchical_compressed_allreduce over the slow axis instead")
+    keys = list(grads) if isinstance(grads, dict) else None
+    leaves = list(grads.values()) if keys is not None else list(grads)
+    if hierarchical is None:
+        out = C.grouped_allreduce(leaves, op=op, compression=compression,
+                                  prescale_factor=prescale_factor,
+                                  postscale_factor=postscale_factor,
+                                  name="grads", axis=axis)
+    else:
+        group, hier = _resolve(axis, hierarchical, op, sum(
+            g.numel() * g.element_size() for g in leaves))
+        C._plan_grouped(leaves, op, None, "grads", group)
+        _, _, groups = C._grouped_inputs(leaves, None)
+        out = [None] * len(leaves)
+        for idxs in groups:
+            buf = torch.cat([leaves[i].reshape(-1) for i in idxs])
+            red = _launch_dense(buf, op, prescale_factor, postscale_factor,
+                                group, hier,
+                                [leaves[i].numel() for i in idxs]).wait()
+            for i, part in zip(idxs, red.split([leaves[i].numel()
+                                                for i in idxs])):
+                out[i] = part.view(leaves[i].shape)
+    return dict(zip(keys, out)) if keys is not None else out
 
 
 class _Unit:
@@ -72,11 +158,14 @@ class _Unit:
 class _DistributedOptimizer(torch.optim.Optimizer):
     def __init__(self, params, named_parameters, compression, op,
                  prescale_factor: float, postscale_factor: float,
-                 backward_passes_per_step: int):
+                 backward_passes_per_step: int, axis, group, hier):
         super(self.__class__, self).__init__(params)
         self._op = op
         self._prescale = prescale_factor
         self._postscale = postscale_factor
+        self._axis = axis
+        self._group = group
+        self._hier = hier
         # None or a wire compressor (Compression.fp16/bf16) keeps every
         # gradient dense; a quantizer or a config sends them through the
         # compressed reducers.
@@ -204,14 +293,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                                       dtype=flat[0].dtype,
                                       device=flat[0].device)
         torch.cat(flat, out=unit.buffer)
-        unit.pending = C._launch_reduce(unit.buffer, self._op,
-                                        self._prescale, self._postscale,
-                                        inplace=True)
+        unit.pending = _launch_dense(unit.buffer, self._op, self._prescale,
+                                     self._postscale, self._group,
+                                     self._hier, [f.numel() for f in flat])
 
     def _reduce_compressed(self, params, grads, comp) -> List[torch.Tensor]:
         kwargs = dict(reduction=self._config.reduction, op=self._op,
                       prescale_factor=self._prescale,
-                      postscale_factor=self._postscale)
+                      postscale_factor=self._postscale, axis=self._axis)
         if not self._config.error_feedback:
             return compressed_grouped_allreduce(grads, comp, **kwargs)
         missing = [p for p in params if _RESIDUAL not in self.state[p]]
@@ -244,9 +333,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         """Every rank must have built the same units (names, sizes and
         dtypes, in order): one descriptor exchange, before any gradient
         moves."""
-        layout = [(u.quantized, repr(u.compressor),
-                   [(self._names[id(p)], p.numel(), str(p.dtype))
-                    for p in u.params]) for u in self._units]
+        layout = [self._axis, self._hier, C._size(self._group)] + [
+            (u.quantized, repr(u.compressor),
+             [(self._names[id(p)], p.numel(), str(p.dtype))
+              for p in u.params]) for u in self._units]
         params = list(self._unit_of)
         C._agree("DistributedOptimizer",
                  (len(self._units), sum(p.numel() for p in params)),
@@ -337,7 +427,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          op: C.ReduceOp = C.ReduceOp.AVERAGE,
                          gradient_predivide_factor: float = 1.0,
                          prescale_factor: Optional[float] = None,
-                         postscale_factor: Optional[float] = None
+                         postscale_factor: Optional[float] = None,
+                         axis=None, hierarchical=None
                          ) -> torch.optim.Optimizer:
     """Wrap a torch optimizer so ``step()`` uses gradients reduced across
     ranks, reduced while ``backward()`` runs (reference:
@@ -354,23 +445,42 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
       binding sum them) and are reduced once, in the k-th pass. The JAX
       package's ``optax.MultiSteps`` averages the k gradients instead: scale
       each micro-batch's loss by 1/k for its result.
-    * ``op``: ``Average`` (default) or ``Sum``; dense gradients also take
-      ``Min``/``Max``/``Product``.
+    * ``op``: ``Average`` (default), ``Sum`` or ``Adasum`` (each gradient
+      combined with its own coefficients; not with quantized
+      compression); dense gradients also take ``Min``/``Max``/``Product``.
     * ``gradient_predivide_factor`` f splits the averaging: gradients are
       scaled by f/size before the sum and by 1/f after (op must be
-      Average); otherwise ``prescale_factor``/``postscale_factor`` scale
-      before and after.
+      Average; size is the ranks the reduction spans); otherwise
+      ``prescale_factor``/``postscale_factor`` scale before and after.
+    * ``axis``: reduce over the ranks of this mesh axis (every rank by
+      default).
+    * ``hierarchical``: ``(inner_axis, outer_axis)`` reduces each dense
+      bucket by :func:`~horovod_tpu_torch.ops.collectives.
+      hierarchical_allreduce` (Adasum: sum within the inner axis, Adasum
+      across the outer one); ``("auto", inner, outer)`` asks the
+      calibration table at the gradients' total bytes when the optimizer
+      is built, and reduces flat over both axes when it says so or has no
+      entry (Adasum stays hierarchical). Not with a compressor.
 
     ``opt.hook_launches`` counts the reductions the hooks launched since
     the last ``synchronize()``.
     """
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be at least 1")
+    if hierarchical is not None and compression is not None:
+        raise ValueError(
+            "hierarchical gradient reduction does not take a compressor; "
+            "use hierarchical_compressed_allreduce over the slow axis "
+            "instead")
+    params = [p for g in optimizer.param_groups for p in g["params"]
+              if p.requires_grad]
+    group, hier = _resolve(axis, hierarchical, op, sum(
+        p.numel() * p.element_size() for p in params))
     if gradient_predivide_factor != 1.0:
         if op != C.ReduceOp.AVERAGE:
             raise ValueError("gradient_predivide_factor not supported with "
                              "op != Average")
-        pre = gradient_predivide_factor / runtime.size()
+        pre = gradient_predivide_factor / C._size(group)
         post = 1.0 / gradient_predivide_factor
         op = C.ReduceOp.SUM
     else:
@@ -379,7 +489,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression, op,
-               pre, post, backward_passes_per_step)
+               pre, post, backward_passes_per_step, axis, group, hier)
 
 
 def _tensors(params) -> List[torch.Tensor]:

@@ -5,7 +5,10 @@ topology the ``hvdrun`` launcher exports (reference: ``HOROVOD_RANK``/...
 from ``horovod/runner/gloo_run.py:70-95``), the rendezvous address, the
 compression factory's knobs (reference: ``mpi_compressed_operations.cc:12-75``),
 the gradient buckets' size (reference: ``HOROVOD_FUSION_THRESHOLD``,
-``horovod_tpu/basics.py:292``) and the log level.
+``horovod_tpu/basics.py:292``), the device mesh (``HVDTPU_MESH_SHAPE``,
+``horovod_tpu/utils/envvars.py:350``), the flat-or-hierarchical
+calibration's log (``HVDTPU_AUTOTUNE_LOG``, ``:242``; reference:
+``HOROVOD_AUTOTUNE_LOG``) and the log level.
 """
 
 from __future__ import annotations
@@ -35,6 +38,13 @@ HVDTPU_LOG_LEVEL = "HVDTPU_LOG_LEVEL"
 # Bytes of one DistributedOptimizer bucket of dense gradients.
 HVDTPU_FUSION_THRESHOLD = "HVDTPU_FUSION_THRESHOLD"
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
+
+# The device mesh when init() is given none, as "dcn=2,ici=4": one entry an
+# axis, in row-major order, their product the world size.
+HVDTPU_MESH_SHAPE = "HVDTPU_MESH_SHAPE"
+# Where autotune_hierarchical saves its table and choose_hierarchical
+# loads it from on its first uncalibrated query.
+HVDTPU_AUTOTUNE_LOG = "HVDTPU_AUTOTUNE_LOG"
 
 HVDTPU_COMPRESSION = "HVDTPU_COMPRESSION"
 HVDTPU_REDUCTION = "HVDTPU_REDUCTION"

@@ -49,3 +49,7 @@ def debug(msg: str, *args) -> None:
 
 def warning(msg: str, *args) -> None:
     logger.warning(_prefix(msg), *args)
+
+
+def info(msg: str, *args) -> None:
+    logger.info(_prefix(msg), *args)

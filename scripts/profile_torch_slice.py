@@ -11,7 +11,11 @@ one: ``resnet`` (ResNet-50, batch 64, 224x224, bf16 autocast,
 ``DistributedOptimizer`` with the 4-bit max-min ``scatter_allgather``
 reducer and error feedback), the same with the normalized quantizer
 (``resnet_uni``) or stochastic max-min rounding (``resnet_stochastic``),
-or ``gpt`` (the ``gpt_long_context_flash``
+``resnet_syncbn_adasum`` (the 53 batch norms as ``SyncBatchNorm``, the
+dense gradients through ``DistributedOptimizer(op=Adasum,
+hierarchical=("ici", "dcn"))`` on a ``{"dcn": 1, "ici": 1}`` mesh) beside
+``resnet_dense`` (the same model with its batch norms and the dense
+Average optimizer, on the same mesh), or ``gpt`` (the ``gpt_long_context_flash``
 configuration with flash attention, 2 x 4096 tokens, remat ``full``, the
 dense ``DistributedOptimizer`` and SGD), and, after warm-up:
 
@@ -54,7 +58,9 @@ def _self_device_us(evt) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=(*chip_smoke.PATH_LAUNCHES,
-                                           "gpt"), default="resnet")
+                                           "gpt", "resnet_dense",
+                                           "resnet_syncbn_adasum"),
+                        default="resnet")
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     args = parser.parse_args()
@@ -69,12 +75,17 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    hvd.init()
+    mesh = args.path in ("resnet_dense", "resnet_syncbn_adasum")
+    hvd.init(**({"mesh_shape": {"dcn": 1, "ici": 1}} if mesh else {}))
     try:
         dev = hvd.device()
         if args.path == "gpt":
             forward_backward = chip_smoke.gpt_forward_backward
             model, opt, inputs, targets = chip_smoke.make_gpt_slice(hvd, dev)
+        elif mesh:
+            forward_backward = chip_smoke.forward_backward
+            model, opt, inputs, targets = chip_smoke.make_sync_adasum_slice(
+                hvd, dev, sync=args.path == "resnet_syncbn_adasum")
         else:
             forward_backward = chip_smoke.forward_backward
             model, opt, inputs, targets = chip_smoke.make_slice(

@@ -51,6 +51,11 @@ def test_import_pulls_in_no_jax():
             "import horovod_tpu_torch.compression.config\n"
             "import horovod_tpu_torch.models.gpt\n"
             "import horovod_tpu_torch.ops.flash_attention\n"
+            "import horovod_tpu_torch.parallel.adasum\n"
+            "import horovod_tpu_torch.parallel.axes\n"
+            "import horovod_tpu_torch.parallel.sharded_optimizer\n"
+            "import horovod_tpu_torch.parallel.strategy\n"
+            "import horovod_tpu_torch.parallel.sync_batch_norm\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -72,7 +77,10 @@ def test_sources_import_no_jax(path):
                 "ops/flash_attention.py", "utils/cuda_build.py",
                 "compression/kernels.py", "compression/norm_kernels.py",
                 "compression/quantize.py", "compression/config.py",
-                "compression/reducers.py"} <= names, names
+                "compression/reducers.py", "parallel/adasum.py",
+                "parallel/axes.py", "parallel/sharded_optimizer.py",
+                "parallel/strategy.py", "parallel/sync_batch_norm.py"
+                } <= names, names
     for f in files:
         with open(f) as fh:
             tree = ast.parse(fh.read())

@@ -46,6 +46,21 @@ just after:
   coefficients) folds 4 synthetic rank vectors in ResNet-50's 161-tensor
   layout on the card and is held against the float64
   ``adasum_reference`` of each tensor.
+* six model-parallel phases at full width, each on a runtime initialized
+  anew (2 warm-up and 5 timed steps), every mesh axis of size 1: (a) the
+  GPT path with ``attention="ulysses_flash"`` on ``{"dp": 1, "tp": 1,
+  "sp": 1}`` (B7, B8, B9 behind the all-to-alls, with the tensor-parallel
+  sums), (b) the same with ring attention (no kernel), (c) the switch-MoE
+  GPT on ``{"dp": 1, "ep": 1}`` (8 experts, capacity factor 1.25, every
+  second block; the dropped fraction and load-balance loss reported),
+  (d) ``remat`` none, full and dots: the same loss and gradients, bitwise,
+  on the same inputs, full's step peak memory lowest and none's highest, then
+  each trained, (e) GPipe over the GPT blocks on ``{"dp": 1, "pp": 1}``
+  (2 micro-batches of one 4096-token sequence), (f) the encoder (the JAX
+  ``Encoder``'s defaults, the non-causal kernels, ``masked_lm_loss`` at
+  15% of 2 x 4096 positions from ``--seed``, Adam). Each checks its exact
+  B7, B8 and B9 launches a step (``MP_LAUNCHES``), all on the tensor
+  cores, and its trained model against a CPU copy.
 
 ``DistributedOptimizer`` reduces from gradient hooks: every timed step of
 a training phase must launch its reductions before ``loss.backward()``
@@ -66,7 +81,11 @@ and B4 in alternating rounds with their packed route on an input that is
 not aligned, with the card's clocks read before and after).
 ``--parent DIR``, a checkout of the parent commit, adds the parent's B3
 and B4 after ``unpack_bits`` (the design this tree's B3 and B4 replace)
-to those rounds.
+to those rounds. B7, B8 and B9 are held against their plain versions at
+each shape the paths give them (the GPT path's, the encoder's non-causal
+one and the pipeline's micro-batch), and also timed non-causal at the
+encoder's shape (the GPT path's), beside ``scaled_dot_product_attention
+(is_causal=False)``: the ``noncausal_*`` fields of their rows.
 
 Output: the card's name and power limit as ``nvidia-smi`` reports them, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -81,6 +100,7 @@ import argparse
 import collections
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -160,6 +180,48 @@ PATH_ROUTES = {"resnet": DECODE_ROUTES,
                                      **DECODE_ROUTES}}
 # The mesh phases: 2 warm-up and 5 timed steps each.
 MESH_WARMUP, MESH_STEPS = 2, 5
+# The model-parallel phases' B7, B8 and B9 launches a step (every other
+# kernel's 0, every launch on the tensor cores): B7 once a layer in the
+# forward and once more in the recompute of remat "full" or "dots" (the
+# kernel's outputs are never kept), B8 and B9 once a layer in backward. The
+# Ulysses phase runs them behind its all-to-alls and the MoE phase beside
+# its switch blocks; ring attention is plain PyTorch and launches none; the
+# pipeline recomputes its 6 layers at each of 2 micro-batches
+# (``remat=True``, blocks without remat of their own); the encoder's 4
+# layers run without recompute, non-causal.
+GPT_LAYERS = GPT_CONFIG["num_layers"]
+MP_LAUNCHES = {
+    "gpt_ulysses_flash": {"flash_fwd": 2 * GPT_LAYERS,
+                          "flash_dkdv": GPT_LAYERS, "flash_dq": GPT_LAYERS},
+    "gpt_ring": {},
+    "gpt_moe": {"flash_fwd": 2 * GPT_LAYERS, "flash_dkdv": GPT_LAYERS,
+                "flash_dq": GPT_LAYERS},
+    "gpt_remat_none": {"flash_fwd": GPT_LAYERS, "flash_dkdv": GPT_LAYERS,
+                       "flash_dq": GPT_LAYERS},
+    "gpt_remat_full": {"flash_fwd": 2 * GPT_LAYERS,
+                       "flash_dkdv": GPT_LAYERS, "flash_dq": GPT_LAYERS},
+    "gpt_remat_dots": {"flash_fwd": 2 * GPT_LAYERS,
+                       "flash_dkdv": GPT_LAYERS, "flash_dq": GPT_LAYERS},
+    "gpt_pipeline": {"flash_fwd": 2 * 2 * GPT_LAYERS,
+                     "flash_dkdv": 2 * GPT_LAYERS, "flash_dq": 2 * GPT_LAYERS},
+    "encoder": {"flash_fwd": 4, "flash_dkdv": 4, "flash_dq": 4},
+}
+# The switch phase (JAX defaults): 8 experts, capacity factor 1.25, every
+# second block; 8,192 tokens give each expert ceil(8192 * 1.25 / 8) slots.
+MOE = dict(moe_every=2, num_experts=8, capacity_factor=1.25)
+MOE_CAPACITY = 1280
+# The mesh and GPTConfig fields of the model-parallel GPT phases (a)-(c).
+MP_PATHS = {
+    "gpt_ulysses_flash": ({"dp": 1, "tp": 1, "sp": 1},
+                          dict(attention="ulysses_flash")),
+    "gpt_ring": ({"dp": 1, "tp": 1, "sp": 1}, dict(attention="ring")),
+    "gpt_moe": ({"dp": 1, "ep": 1}, dict(ep_axis="ep", **MOE)),
+}
+PIPE_MICRO = 2  # micro-batches of one 4096-token sequence
+# The JAX Encoder's defaults, trained on 2 x 4096 tokens with 15% masked.
+ENCODER_CONFIG = dict(vocab_size=32000, num_layers=4, num_heads=8,
+                      head_dim=64, embed_dim=512, mlp_dim=2048)
+ENCODER_LR, MASK_SHARE, MASK_ID = 1e-3, 0.15, 0
 SYNC_BN_LAYERS = 53  # ResNet-50's batch norms
 ZERO_LR = 1e-3
 # Adam keeps two fp32 state tensors of the shard's length: at a world of
@@ -741,34 +803,46 @@ def flash_errors(flash, q, k, v, do, causal: bool, plant: bool = False):
 
 
 def check_flash(flash, dev):
-    """The attention kernels against their plain versions: at the GPT
-    path's shape (B 2 x H 8, S 4096, D 64, bf16, causal), then S in
-    {1, 127, 200, 4096} x D in {16, 64, 128} x causal or not x fp32 or
-    bf16 (bf16 on the tensor cores, fp32 on the CUDA cores, as the route
-    counts of B7, B8 and B9 confirm). Returns the errors at the path's
-    shape."""
+    """The attention kernels against their plain versions: at each shape
+    the main path gives them (bf16, S 4096, D 64: BH 16 causal for the GPT
+    path, Ulysses with flash, MoE and remat, B 2 x H 8; BH 16 non-causal
+    for the encoder; BH 8 causal for the pipeline's micro-batches of 1 x
+    H 8), each with a planted error that must fail, and at S in {1, 127,
+    200, 4096} x D in {16, 64, 128} x causal or not x fp32 or bf16 (bf16
+    on the tensor cores, fp32 on the CUDA cores, as the route counts of
+    B7, B8 and B9 confirm). Returns the errors at the GPT path's shape and
+    at the encoder's."""
     flash.reset_launches()
-    bh = GPT_BATCH * GPT_CONFIG["num_heads"]
-    errors, ratios = flash_errors(flash, *flash_inputs(
-        dev, bh, GPT_SEQ, GPT_CONFIG["head_dim"], torch.bfloat16, 0), True,
-        plant=True)
-    log(f"kernels: attention at the GPT path's shape, largest error over "
-        f"its bound {ratios}; a {PLANTED} error planted in o, dk, dv and dq "
-        f"fails it")
+    heads, d = GPT_CONFIG["num_heads"], GPT_CONFIG["head_dim"]
+    errors = {}
+
+    def at_path_shape(path, bh, causal, seed):
+        errors[path], ratios = flash_errors(flash, *flash_inputs(
+            dev, bh, GPT_SEQ, d, torch.bfloat16, seed), causal, plant=True)
+        log(f"kernels: attention at the {path} path's shape (BH {bh}, S "
+            f"{GPT_SEQ}, D {d}, bf16, causal={causal}), largest error over "
+            f"its bound {ratios}; a {PLANTED} error planted in o, dk, dv "
+            f"and dq fails it")
+
+    at_path_shape("gpt", GPT_BATCH * heads, True, 0)
     seed = 1
     for s in (1, 127, 200, 4096):
-        for d in (16, 64, 128):
+        for dim in (16, 64, 128):
             for causal in (True, False):
                 for dtype in (torch.float32, torch.bfloat16):
-                    flash_errors(flash, *flash_inputs(dev, 3, s, d, dtype,
+                    flash_errors(flash, *flash_inputs(dev, 3, s, dim, dtype,
                                                       seed), causal)
                     seed += 1
-    want = {"mma_bf16": 25, "fp32": 24}  # the path's shape + 24 cases each
+    at_path_shape("encoder", GPT_BATCH * heads, False, seed)
+    at_path_shape("pipeline", GPT_BATCH // PIPE_MICRO * heads, True,
+                  seed + 1)
+    # the 3 path shapes + 24 cases each
+    want = {"mma_bf16": 27, "fp32": 24}
     for name in flash.ROUTES:
         if flash.ROUTES[name] != want:
             raise AssertionError(f"{name} routes {flash.ROUTES[name]}, "
                                  f"expected {want}")
-    return errors
+    return errors["gpt"], errors["encoder"]
 
 
 def kernel_modules():
@@ -1077,9 +1151,15 @@ def check_api(hvd, dev):
 
 
 def reinit(hvd, mesh_shape):
-    """The runtime initialized anew on ``mesh_shape``; its device."""
+    """The runtime initialized anew on ``mesh_shape``; its device. The
+    earlier phases' objects are collected first, so that each phase's peak
+    memory counts its own tensors; what is still allocated is logged."""
     hvd.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
     hvd.init(mesh_shape=mesh_shape)
+    log(f"runtime on {mesh_shape}: {torch.cuda.memory_allocated()} bytes "
+        f"allocated before the phase")
     return hvd.device()
 
 
@@ -1294,18 +1374,13 @@ def train_gpt_zero(hvd):
     and B8, B9 once, all on the tensor cores; Adam's state the computed
     bytes."""
     from horovod_tpu_torch.models import GPT, GPTConfig
-    from horovod_tpu_torch.ops.flash_attention import ROUTES
     path = "gpt_zero1"
     dev = reinit(hvd, {"dp": 1})
     cfg = GPTConfig(**GPT_CONFIG)
     model = GPT(cfg, seed=0).to(dev)
     opt = hvd.ShardedDistributedOptimizer(torch.optim.Adam,
                                           model.parameters(), lr=ZERO_LR)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ),
-                           generator=gen, device=dev)
-    targets = torch.roll(tokens, -1, dims=1)
-    targets[:, -1] = -1
+    tokens, targets = gpt_tokens(dev, cfg)
 
     def step():
         loss = gpt_forward_backward(model, opt, tokens, targets)
@@ -1317,10 +1392,7 @@ def train_gpt_zero(hvd):
     check_mesh_launches(path, launches, {"flash_fwd": 2 * layers,
                                          "flash_dkdv": layers,
                                          "flash_dq": layers})
-    routes = {name: dict(counts) for name, counts in ROUTES.items()}
-    want = {name: {"mma_bf16": launches[name], "fp32": 0} for name in routes}
-    if routes != want:
-        raise AssertionError(f"{path}: routes {routes}, expected {want}")
+    check_flash_routes(path, launches)
     vectors = sum(t.numel() * t.element_size()
                   for st in opt.optimizer.state.values()
                   for t in st.values()
@@ -1329,13 +1401,311 @@ def train_gpt_zero(hvd):
     log(f"{path}: Adam state {total} bytes on this rank ({vectors} in the "
         f"shard's two moments of {opt.shard_len} values, {total - vectors} "
         f"in its step count); every B7, B8 and B9 launch on the tensor "
-        f"cores {routes}")
+        f"cores")
     if opt.shard_len != GPT_PARAMS or vectors != ZERO_STATE_BYTES or \
             not 0 <= total - vectors <= 8:
         raise AssertionError(f"{path}: Adam state {total} bytes, "
                              f"{vectors} in the moments, expected "
                              f"{ZERO_STATE_BYTES}")
     return ms, launches
+
+
+def check_flash_routes(path: str, launches) -> None:
+    """Every B7, B8 and B9 launch of the window on the tensor cores."""
+    from horovod_tpu_torch.ops.flash_attention import ROUTES
+    routes = {name: dict(counts) for name, counts in ROUTES.items()}
+    want = {name: {"mma_bf16": launches[name], "fp32": 0} for name in routes}
+    if routes != want:
+        raise AssertionError(f"{path}: routes {routes}, expected {want}")
+
+
+def check_cpu_copy(path: str, dev, trained, cpu_copy, forward) -> None:
+    """``trained`` (an fp32 copy of the trained model on the card) against
+    ``cpu_copy`` (the same weights on the CPU, where the wrappers take
+    their plain versions) on the first 200 tokens of a seeded sequence;
+    ``forward(model, tokens)`` gives the logits."""
+    gen = torch.Generator().manual_seed(1)
+    small = torch.randint(0, 1000, (1, 200), generator=gen)
+    with torch.no_grad():
+        ref = forward(cpu_copy, small)
+        got = forward(trained.to(dev), small.to(dev)).cpu()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{path}: bad logits {tuple(got.shape)}")
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-4 * float(ref.abs().max()))
+    log(f"{path}: trained model agrees with its CPU copy (fp32, rtol 1e-4)")
+
+
+def gpt_fp32_copies(model):
+    """fp32 copies of a trained GPT: one with its mesh axes (for the card)
+    and one without (for the CPU, where no collective runs; every axis of
+    the phases has size 1, so the two compute the same function)."""
+    from horovod_tpu_torch.models import GPT
+    cfg = dataclasses.replace(model.cfg, dtype=torch.float32)
+    trained = GPT(cfg)
+    trained.load_state_dict(model.state_dict())
+    cpu = GPT(dataclasses.replace(cfg, tp_axis=None, sp_axis=None,
+                                  ep_axis=None))
+    cpu.load_state_dict(model.state_dict())
+    return trained, cpu
+
+
+def gpt_tokens(dev, cfg):
+    """The GPT path's batch of tokens and targets, this rank's shard."""
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.parallel import local_shard
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ),
+                           generator=gen, device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    targets[:, -1] = -1
+    spec = gpt.data_specs(cfg)
+    return local_shard(tokens, spec), local_shard(targets, spec)
+
+
+def mesh_gpt_step(model, opt, tokens, targets):
+    """One SGD step of the model-parallel GPT: the dp average by the
+    optimizer, the sums over sp and ep by ``sum_replica_grads``."""
+    from horovod_tpu_torch.models import gpt
+    loss = gpt_forward_backward(model, opt, tokens, targets)
+    opt.synchronize()
+    gpt.sum_replica_grads(model)
+    with opt.skip_synchronize():
+        opt.step()
+    return loss
+
+
+def make_mesh_gpt_slice(hvd, dev, **overrides):
+    """The GPT path's model with ``overrides``, this rank's shards of it,
+    its ``DistributedOptimizer`` over dp and this rank's batch."""
+    from horovod_tpu_torch.models import GPT, GPTConfig
+    cfg = GPTConfig(**{**GPT_CONFIG, **overrides})
+    model = GPT(cfg, seed=0).to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=GPT_LR),
+        named_parameters=model.named_parameters(), axis="dp")
+    return (model, opt) + gpt_tokens(dev, cfg)
+
+
+def train_mesh_gpt(hvd, path: str, mesh_shape, **overrides):
+    """A model-parallel GPT phase at full width on ``mesh_shape``: the
+    step time, the peak memory of the timed steps and the trained model."""
+    dev = reinit(hvd, mesh_shape)
+    model, opt, tokens, targets = make_mesh_gpt_slice(hvd, dev, **overrides)
+    cfg = model.cfg
+    ms, launches, _ = timed_steps(
+        path, lambda: mesh_gpt_step(model, opt, tokens, targets))
+    peak = torch.cuda.max_memory_allocated()
+    check_mesh_launches(path, launches, MP_LAUNCHES[path])
+    check_flash_routes(path, launches)
+    log(f"{path}: mesh {mesh_shape}, attention {cfg.attention}, remat "
+        f"{cfg.remat}; B7, B8 and B9 launches a step "
+        f"{MP_LAUNCHES[path]}, all on the tensor cores")
+    trained, cpu = gpt_fp32_copies(model)
+    check_cpu_copy(path, dev, trained, cpu, lambda m, t: m(t))
+    return {"ms": ms, "peak_bytes": peak}, model
+
+
+def train_moe(hvd):
+    """(c): the switch GPT on ``{"dp": 1, "ep": 1}``; the dropped fraction
+    and load-balance loss of each switch block's last step."""
+    path = "gpt_moe"
+    mesh_shape, overrides = MP_PATHS[path]
+    out, model = train_mesh_gpt(hvd, path, mesh_shape, **overrides)
+    tokens = GPT_BATCH * GPT_SEQ
+    capacity = math.ceil(tokens * MOE["capacity_factor"] /
+                         MOE["num_experts"])
+    if capacity != MOE_CAPACITY:
+        raise AssertionError(f"{path}: capacity {capacity}")
+    aux = [{k: float(v) for k, v in block.moe_aux.items()}
+           for block in model.layers if block.moe is not None]
+    if len(aux) != GPT_LAYERS // MOE["moe_every"] or not all(
+            math.isfinite(v) for a in aux for v in a.values()) or not all(
+            0 <= a["dropped_fraction"] < 1 for a in aux):
+        raise AssertionError(f"{path}: aux {aux}")
+    log(f"{path}: {capacity} slots an expert for {tokens} tokens; each "
+        f"switch block's last step: {aux}")
+    out["aux"] = aux
+    return out
+
+
+def gpt_loss_and_grads(hvd, dev, remat: str):
+    """Loss, gradients and peak memory of one forward and backward of the
+    GPT path's model (seed 0) with ``remat`` on its batch. The peak is
+    counted from what was allocated before the forward (the model and
+    whatever else is alive), so it is the step's own: activations,
+    recompute, logits and gradients."""
+    from horovod_tpu_torch.models import GPT, GPTConfig, loss_fn
+    model = GPT(GPTConfig(**{**GPT_CONFIG, "remat": remat}), seed=0).to(dev)
+    tokens, targets = gpt_tokens(dev, model.cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = loss_fn(model, tokens, targets)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return (loss.detach(), {k: p.grad for k, p in model.named_parameters()},
+            peak)
+
+
+def train_remat(hvd):
+    """(d): remat "dots" against "none" and "full": the same loss and
+    gradients, bitwise, on the same inputs, the peak memory of that
+    forward and backward lowest for "full" and highest for "none"; then
+    each trained for the timed steps."""
+    dev = reinit(hvd, {"dp": 1})
+    ref_loss, ref, dots_peak = gpt_loss_and_grads(hvd, dev, "dots")
+    peaks = {"dots": dots_peak}
+    diffs = {}
+    for mode in ("none", "full"):
+        loss, grads, peaks[mode] = gpt_loss_and_grads(hvd, dev, mode)
+        worst = max(float((grads[k] - g).abs().max() / g.abs().max())
+                    for k, g in ref.items())
+        loss_diff = abs(float(loss - ref_loss))
+        diffs[mode] = {"loss": loss_diff, "grad": worst,
+                       "bitwise": loss_diff == 0 and all(
+                           torch.equal(grads[k], g) for k, g in ref.items())}
+        # The same kernels run on the same inputs in every mode, so the
+        # loss and every gradient must be the same bits.
+        if not diffs[mode]["bitwise"]:
+            raise AssertionError(f"remat dots against {mode}: {diffs[mode]}")
+        del grads
+    log(f"gpt_remat: dots against none and full on the same inputs (loss "
+        f"difference, largest gradient difference over its tensor's "
+        f"largest magnitude): {diffs}")
+    log(f"gpt_remat: peak memory of one forward and backward above what "
+        f"was allocated before it, bytes {peaks}")
+    if not peaks["full"] < peaks["dots"] < peaks["none"]:
+        raise AssertionError(f"gpt_remat: peak memory {peaks}")
+    del ref, ref_loss
+    out = {"diffs": diffs, "step_peak_bytes": peaks}
+    for mode in ("none", "full", "dots"):
+        out[mode] = train_mesh_gpt(hvd, f"gpt_remat_{mode}", {"dp": 1},
+                                   remat=mode)[0]
+    return out
+
+
+class PipelineStage(torch.nn.Module):
+    """The pipeline's stage: every block of a GPT (one stage at pp = 1)."""
+
+    def __init__(self, blocks):
+        super().__init__()
+        self.blocks = blocks
+
+    def forward(self, x, positions):
+        for block in self.blocks:
+            x = block(x, positions)
+        return x
+
+
+def pipeline_logits(model, tokens):
+    """GPT logits ``[M, mb, S, V]`` of micro-batched ``tokens [M, mb, S]``:
+    the embedding, ``pipeline_apply`` over the blocks (recomputed at each
+    tick), the out norm and head."""
+    from torch.func import functional_call
+    from horovod_tpu_torch.parallel import pipeline_apply
+    stage = PipelineStage(model.layers)
+    params = {k: p.unsqueeze(0) for k, p in stage.named_parameters()}
+    positions = torch.arange(tokens.shape[-1], device=tokens.device
+                             ).expand(tokens.shape[1:])
+    x = model.embed.to(model.cfg.dtype)[tokens]
+    out = pipeline_apply(
+        lambda p, h: functional_call(stage, p, (h, positions)), params, x,
+        axis="pp", remat=True)
+    return model.head(out)
+
+
+def train_pipeline(hvd):
+    """(e): GPipe on ``{"dp": 1, "pp": 1}``, the GPT path's 6 blocks as the
+    stage over 2 micro-batches of one 4096-token sequence."""
+    from horovod_tpu_torch.models import GPT, GPTConfig
+    path = "gpt_pipeline"
+    dev = reinit(hvd, {"dp": 1, "pp": 1})
+    cfg = GPTConfig(**{**GPT_CONFIG, "remat": "none"})
+    model = GPT(cfg, seed=0).to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=GPT_LR),
+        named_parameters=model.named_parameters(), axis="dp")
+    tokens, targets = gpt_tokens(dev, cfg)
+    shape = (PIPE_MICRO, GPT_BATCH // PIPE_MICRO, GPT_SEQ)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        logits = pipeline_logits(model, tokens.view(shape))
+        loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                               targets.reshape(-1), ignore_index=-1)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    ms, launches, _ = timed_steps(path, step)
+    peak = torch.cuda.max_memory_allocated()
+    check_mesh_launches(path, launches, MP_LAUNCHES[path])
+    check_flash_routes(path, launches)
+    log(f"{path}: {PIPE_MICRO} micro-batches of {shape[1]} x {GPT_SEQ} "
+        f"tokens; B7, B8 and B9 launches a step {MP_LAUNCHES[path]}, all "
+        f"on the tensor cores")
+    trained, cpu = gpt_fp32_copies(model)
+    check_cpu_copy(path, dev, trained, cpu, lambda m, t: (
+        pipeline_logits(m, t[None]) if t.is_cuda else m(t)[None]))
+    return {"ms": ms, "peak_bytes": peak}
+
+
+def train_encoder(hvd, seed: int):
+    """(f): the JAX ``Encoder``'s defaults with the non-causal kernels,
+    ``masked_lm_loss`` at 15% of 2 x 4096 positions (from ``seed``),
+    ``DistributedOptimizer`` and Adam."""
+    from horovod_tpu_torch.models import Encoder, masked_lm_loss
+    from horovod_tpu_torch.ops.flash_attention import flash_attention
+    path = "encoder"
+    dev = reinit(hvd, {"dp": 1})
+    model = Encoder(**ENCODER_CONFIG, attn_fn=flash_attention,
+                    seed=seed).to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=ENCODER_LR),
+        named_parameters=model.named_parameters())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, ENCODER_CONFIG["vocab_size"],
+                           (GPT_BATCH, GPT_SEQ), generator=gen, device=dev)
+    mask = torch.rand(tokens.shape, generator=gen, device=dev) < MASK_SHARE
+    inputs = torch.where(mask, MASK_ID, tokens)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = masked_lm_loss(model(inputs), tokens, mask)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    ms, launches, _ = timed_steps(path, step)
+    peak = torch.cuda.max_memory_allocated()
+    check_mesh_launches(path, launches, MP_LAUNCHES[path])
+    check_flash_routes(path, launches)
+    log(f"{path}: {int(mask.sum())} of {mask.numel()} positions masked; "
+        f"B7, B8 and B9 launches a step {MP_LAUNCHES[path]} (non-causal), "
+        f"all on the tensor cores")
+    trained = Encoder(**ENCODER_CONFIG, dtype=torch.float32,
+                      attn_fn=flash_attention)
+    trained.load_state_dict(model.state_dict())
+    check_cpu_copy(path, dev, trained, copy.deepcopy(trained).cpu(),
+                   lambda m, t: m(t))
+    return {"ms": ms, "peak_bytes": peak, "launches": launches}
+
+
+def train_model_parallel(hvd, seed: int):
+    """Phases (a)-(f), each on a runtime initialized anew: step time and
+    peak memory of each (and the encoder's launches)."""
+    out = {}
+    for path in ("gpt_ulysses_flash", "gpt_ring"):
+        mesh_shape, overrides = MP_PATHS[path]
+        out[path] = train_mesh_gpt(hvd, path, mesh_shape, **overrides)[0]
+    out["gpt_moe"] = train_moe(hvd)
+    out["gpt_remat"] = train_remat(hvd)
+    out["gpt_pipeline"] = train_pipeline(hvd)
+    out["encoder"] = train_encoder(hvd, seed)
+    log(f"model-parallel phases: {json.dumps(out)}")
+    return out
 
 
 def make_gpt_slice(hvd, dev):
@@ -1348,12 +1718,7 @@ def make_gpt_slice(hvd, dev):
         torch.optim.SGD(model.parameters(), lr=GPT_LR),
         named_parameters=model.named_parameters())
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ),
-                           generator=gen, device=dev)
-    targets = torch.roll(tokens, -1, dims=1)
-    targets[:, -1] = -1
-    return model, opt, tokens, targets
+    return (model, opt) + gpt_tokens(dev, cfg)
 
 
 def gpt_forward_backward(model, opt, tokens, targets):
@@ -1368,9 +1733,6 @@ def gpt_forward_backward(model, opt, tokens, targets):
 def train_gpt(hvd, dev):
     """The GPT path: 2 warm-up and 10 timed steps of SGD through the dense
     DistributedOptimizer, then the trained model against its CPU copy."""
-    from horovod_tpu_torch.models import GPT
-    from horovod_tpu_torch.ops.flash_attention import ROUTES
-
     model, opt, tokens, targets = make_gpt_slice(hvd, dev)
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
@@ -1415,25 +1777,10 @@ def train_gpt(hvd, dev):
     check_launches("gpt", launches, {"flash_fwd": 2 * layers,
                                      "flash_dkdv": layers,
                                      "flash_dq": layers})
-    routes = {name: dict(counts) for name, counts in ROUTES.items()}
-    want = {name: {"mma_bf16": launches[name], "fp32": 0} for name in routes}
-    if routes != want:
-        raise AssertionError(f"gpt: routes {routes}, expected {want}")
-    log(f"gpt: every B7, B8 and B9 launch on the tensor cores {routes}")
-
-    # The trained model in fp32 against a CPU copy of itself (whose
-    # attention is the plain version), on 200 tokens.
-    fp32 = GPT(dataclasses.replace(cfg, dtype=torch.float32))
-    fp32.load_state_dict(model.state_dict())
-    small = tokens[:1, :200]
-    with torch.no_grad():
-        ref = copy.deepcopy(fp32)(small.cpu())
-        got = fp32.to(dev)(small).cpu()
-    if got.shape != (1, 200, cfg.vocab_size) or not torch.isfinite(got).all():
-        raise AssertionError("bad GPT logits")
-    torch.testing.assert_close(got, ref, rtol=1e-4,
-                               atol=1e-4 * float(ref.abs().max()))
-    log("gpt: trained model agrees with its CPU copy (fp32, rtol 1e-4)")
+    check_flash_routes("gpt", launches)
+    log("gpt: every B7, B8 and B9 launch on the tensor cores")
+    trained, cpu = gpt_fp32_copies(model)
+    check_cpu_copy("gpt", dev, trained, cpu, lambda m, t: m(t))
     return launches
 
 
@@ -1774,7 +2121,59 @@ def paired_ms(fns, rounds: int = FLASH_ROUNDS, graph: bool = False):
     return {name: statistics.median(t) for name, t in times.items()}, times
 
 
-def measure_flash(flash, dev, launches, errors, rates):
+def measure_noncausal(flash, q, k, v, do, heads, sdpa_grad, rates):
+    """B7, B8 and B9 non-causal at the encoder's shape (BH 16, S 4096, D
+    64, bf16): every one of the ``BH * S * S`` pairs, 2 D operations per
+    pair and product, beside SDPA (``is_causal=False``) in alternating
+    rounds, and their plain versions; ``noncausal_*`` fields by kernel."""
+    bandwidth, _, tensor = rates
+    bh, s, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    o, lse = flash.flash_fwd(q, k, v, scale, False)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, scale, False)
+    sdpa_out = F.scaled_dot_product_attention(*heads, is_causal=False)
+    medians, readings = paired_ms({
+        "flash_fwd": lambda: flash.flash_fwd(q, k, v, scale, False),
+        "sdpa_forward": lambda: F.scaled_dot_product_attention(
+            *heads, is_causal=False),
+        "flash_dkdv": lambda: flash.flash_dkdv(*args),
+        "flash_dq": lambda: flash.flash_dq(*args),
+        "sdpa_backward": lambda: torch.autograd.grad(
+            sdpa_out, heads, sdpa_grad, retain_graph=True)})
+    log(f"flash timing, non-causal: {FLASH_ROUNDS} alternating rounds, ms "
+        f"{json.dumps(readings)}")
+    tensor_bytes = q.numel() * q.element_size()
+    stat_bytes = bh * s * 4
+    pairs = bh * s * s
+    work = {"flash_fwd": (lambda: flash.flash_fwd_plain(q, k, v, scale,
+                                                        False),
+                          4 * tensor_bytes + stat_bytes, 2, "sdpa_forward"),
+            "flash_dkdv": (lambda: flash.flash_dkdv_plain(*args),
+                           6 * tensor_bytes + 2 * stat_bytes, 4,
+                           "sdpa_backward"),
+            "flash_dq": (lambda: flash.flash_dq_plain(*args),
+                         5 * tensor_bytes + 2 * stat_bytes, 3,
+                         "sdpa_backward")}
+    out = {}
+    for name, (plain, nbytes, products, lib) in work.items():
+        ops = 2 * d * products * pairs
+        byte_ms, op_ms = nbytes / bandwidth * 1e3, ops / tensor * 1e3
+        out[name] = {"noncausal_ms": medians[name],
+                     "noncausal_plain_ms": time_ms(plain),
+                     "noncausal_bound_ms": max(byte_ms, op_ms),
+                     "noncausal_bound_by": "bytes" if byte_ms >= op_ms
+                     else "operations",
+                     "noncausal_library_ms": medians[lib]}
+        log(f"kernel {name} non-causal: {medians[name]:.4f} ms (plain "
+            f"{out[name]['noncausal_plain_ms']:.4f} ms, bound "
+            f"{max(byte_ms, op_ms):.4f} ms, {ops} operations; SDPA "
+            f"{medians[lib]:.4f} ms)")
+    return out
+
+
+def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
+                  noncausal_errors):
     """B7, B8 and B9 at the GPT path's shape. Bound: the causal pairs this
     run computes, 2 D operations per pair and product (B7 2 products, B8 4,
     B9 3) at the bf16 tensor-core rate, against each input read once and
@@ -1839,6 +2238,8 @@ def measure_flash(flash, dev, launches, errors, rates):
             5 * tensor_bytes + 2 * stat_bytes, 3, medians["sdpa_backward"],
             "its backward: dQ, dK and dV together"),
     }
+    noncausal = measure_noncausal(flash, q, k, v, do, heads, sdpa_grad,
+                                  rates)
     rows = []
     for name, (plain, nbytes, products, lib_ms, lib) in work.items():
         ops = 2 * d * products * pairs
@@ -1853,7 +2254,10 @@ def measure_flash(flash, dev, launches, errors, rates):
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "library_ms": lib_ms, "library": lib}
+            "library_ms": lib_ms, "library": lib,
+            "noncausal_launches": noncausal_launches[name],
+            "noncausal_max_abs_err": noncausal_errors[name],
+            **noncausal[name]}
         rows.append(row)
         log(f"kernel {name} ({kernel}): {ms:.4f} ms (plain {plain_ms:.4f} "
             f"ms, bound {max(byte_ms, op_ms):.4f} ms, {ops} operations, "
@@ -1863,6 +2267,9 @@ def measure_flash(flash, dev, launches, errors, rates):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--seed", type=int, default=0,
+        help="seed of the encoder phase's weights, tokens and mask")
     parser.add_argument(
         "--parent", default=None,
         help="a checkout of the parent commit: time its B3 and B4 (after "
@@ -1913,10 +2320,10 @@ def main() -> int:
             f"midpoint codes one level apart (l2), B6 bitwise, at "
             f"{sum(routes.values())} shapes; launches by route {routes}; "
             f"errors at the path's shape {norm_errors}")
-        flash_err = check_flash(flash, dev)
-        log(f"kernels: B7, B8 and B9 within their tolerances at 49 shapes "
+        flash_err, noncausal_err = check_flash(flash, dev)
+        log(f"kernels: B7, B8 and B9 within their tolerances at 51 shapes "
             f"(bf16 on the tensor cores); errors at the GPT path's shape "
-            f"{flash_err}")
+            f"{flash_err}, at the encoder's {noncausal_err}")
         # Each kernel's launches in the timed steps of the phase that
         # carries it (B3 and B4: the max-min phase).
         phases = {"resnet": train(hvd, dev),
@@ -1930,6 +2337,7 @@ def main() -> int:
         train_sync_adasum(hvd)
         train_hierarchical_compressed(hvd)
         train_gpt_zero(hvd)
+        model_parallel = train_model_parallel(hvd, args.seed)
         dev = reinit(hvd, None)
         launches = {name: phases[path][name]
                     for path in ("resnet_stochastic", "resnet_uni",
@@ -1937,7 +2345,9 @@ def main() -> int:
                     for name in PATH_LAUNCHES[path]}
         rows = measure(kernels, norm_kernels, dev, RESNET50_PARAMS,
                        launches, errors, rates, args.parent)
-        rows += measure_flash(flash, dev, flash_launches, flash_err, rates)
+        rows += measure_flash(flash, dev, flash_launches, flash_err, rates,
+                              model_parallel["encoder"]["launches"],
+                              noncausal_err)
     finally:
         hvd.shutdown()
     print(json.dumps({"kernels": rows}), flush=True)

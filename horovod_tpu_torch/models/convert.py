@@ -27,66 +27,74 @@ flax                                port
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-_BLOCK = re.compile(r"^(?:Bottleneck)?ResNetBlock_(\d+)$")
-_LAYER = re.compile(r"^(Conv|BatchNorm)_(\d+)$")
+_BLOCK = re.compile(r"^(?:(?:Bottleneck)?ResNet)?Block_(\d+)$")
+_LAYER = re.compile(r"^(Conv|BatchNorm|RMSNorm|Dense)_(\d+)$")
+_PREFIX = {"Conv": "conv", "BatchNorm": "bn", "RMSNorm": "norm",
+           "Dense": "fc"}
+_NAMED = {"Embed_0": "embed", "Attention_0": "attn"}
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-         "var": "running_var"}
+         "var": "running_var", "embedding": "weight"}
 
 
-def _module_name(path) -> str:
-    parts = []
-    for key in path:
-        block = _BLOCK.match(key)
-        layer = _LAYER.match(key)
-        if block:
-            parts += ["blocks", block.group(1)]
-        elif layer:
-            prefix = "conv" if layer.group(1) == "Conv" else "bn"
-            parts.append(f"{prefix}{int(layer.group(2)) + 1}")
-        elif key == "Dense_0":
-            parts.append("fc")
-        else:
-            parts.append(key)
-    return ".".join(parts)
+def _module_key(key: str, siblings) -> list:
+    """The port's name parts for flax module ``key`` among ``siblings``."""
+    block = _BLOCK.match(key)
+    if block:
+        return ["blocks", block.group(1)]
+    layer = _LAYER.match(key)
+    if layer:
+        kind = layer.group(1)
+        prefix = _PREFIX[kind]
+        alone = sum(1 for k in siblings if k.startswith(kind + "_")) == 1
+        return [prefix if alone else f"{prefix}{int(layer.group(2)) + 1}"]
+    return [_NAMED.get(key, key)]
 
 
 def _leaf(name: str, value: np.ndarray) -> torch.Tensor:
     value = np.asarray(value, dtype=np.float32)
     if name == "kernel" and value.ndim == 4:
         value = value.transpose(3, 2, 0, 1)
-    elif name == "kernel":
+    elif name == "kernel" and value.ndim == 2:
         value = value.T
     # A fresh, writable copy: arrays from JAX are read-only.
     return torch.from_numpy(np.array(value, order="C"))
 
 
 def flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Convert flax ResNet variables to a ``state_dict`` (see module doc)."""
+    """Convert flax ResNet, Transformer or Encoder variables to a
+    ``state_dict`` (see module doc)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, path):
         for key, value in tree.items():
             if isinstance(value, Mapping):
-                walk(value, path + (key,))
+                walk(value, path + _module_key(key, tree))
                 continue
             name = "weight" if key == "kernel" else _LEAF[key]
-            out[f"{_module_name(path)}.{name}"] = _leaf(key, value)
+            out[".".join(path + [name])] = _leaf(key, value)
 
     for collection in ("params", "batch_stats"):
         if collection in variables:
-            walk(variables[collection], ())
+            walk(variables[collection], [])
     return out
 
 
-def gpt_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+def gpt_params_to_torch(params: Mapping, cfg=None,
+                        coords: Optional[Mapping[str, Tuple[int, int]]] = None
+                        ) -> Dict[str, torch.Tensor]:
     """Convert a JAX GPT parameter tree (nested dicts and lists of arrays)
     to the port's ``state_dict``: ``layers[i]["wq"]`` becomes
-    ``layers.i.wq``, each a writable fp32 copy in the same layout."""
+    ``layers.i.wq``, each a writable fp32 copy in the same layout.
+
+    Given the port's ``GPTConfig``, the tree is the global one and each
+    leaf is cut to a rank's block as ``gpt.param_specs(cfg)`` says: the
+    rank at ``coords`` (``{axis: (index, size)}``), this rank by default
+    (``parallel.mesh_coords()``)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):
@@ -101,4 +109,10 @@ def gpt_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
                     np.array(value, dtype=np.float32, order="C"))
 
     walk(params, "")
-    return out
+    if cfg is None:
+        return out
+    from ..parallel.axes import local_shard
+    from .gpt import param_specs
+    specs = param_specs(cfg)
+    return {name: local_shard(value, specs[name], coords).contiguous()
+            for name, value in out.items()}

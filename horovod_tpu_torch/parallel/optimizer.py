@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import warnings
+import weakref
 import zlib
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
@@ -214,8 +215,18 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._should_synchronize = True
         # Reductions the hooks launched since the last synchronize().
         self.hook_launches = 0
+        # The hook holds the optimizer weakly: a parameter keeps its hooks on
+        # the C++ side, where the collector cannot see a cycle through them,
+        # so a strong reference would keep the optimizer, its buffers and
+        # the parameters alive for the life of the process.
+        ref = weakref.ref(self)
+
+        def hook(p):
+            opt = ref()
+            if opt is not None:
+                opt._hook(p)
         for p in self._unit_of:
-            p.register_post_accumulate_grad_hook(self._hook)
+            p.register_post_accumulate_grad_hook(hook)
 
     def _params(self) -> List[torch.nn.Parameter]:
         return [p for g in self.param_groups for p in g["params"]

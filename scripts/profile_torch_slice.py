@@ -17,7 +17,10 @@ hierarchical=("ici", "dcn"))`` on a ``{"dcn": 1, "ici": 1}`` mesh) beside
 ``resnet_dense`` (the same model with its batch norms and the dense
 Average optimizer, on the same mesh), or ``gpt`` (the ``gpt_long_context_flash``
 configuration with flash attention, 2 x 4096 tokens, remat ``full``, the
-dense ``DistributedOptimizer`` and SGD), and, after warm-up:
+dense ``DistributedOptimizer`` and SGD), or one of its model-parallel
+phases on a one-card mesh (``gpt_ulysses_flash``, ``gpt_ring``,
+``gpt_moe``: ``chip_smoke.MP_PATHS``; the sums over sp and ep after the
+wait), and, after warm-up:
 
 1. times ``--steps`` steps after ``chip_smoke.py``'s warm-up on the host
    clock as ``chip_smoke.py`` does (and each on the device), then the
@@ -59,7 +62,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=(*chip_smoke.PATH_LAUNCHES,
                                            "gpt", "resnet_dense",
-                                           "resnet_syncbn_adasum"),
+                                           "resnet_syncbn_adasum",
+                                           *chip_smoke.MP_PATHS),
                         default="resnet")
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
@@ -76,10 +80,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = args.path in ("resnet_dense", "resnet_syncbn_adasum")
-    hvd.init(**({"mesh_shape": {"dcn": 1, "ici": 1}} if mesh else {}))
+    mesh_shape, overrides = chip_smoke.MP_PATHS.get(args.path, (None, None))
+    if mesh:
+        mesh_shape = {"dcn": 1, "ici": 1}
+    hvd.init(mesh_shape=mesh_shape)
+    after_wait = None
     try:
         dev = hvd.device()
-        if args.path == "gpt":
+        if overrides is not None:
+            from horovod_tpu_torch.models import gpt
+            forward_backward = chip_smoke.gpt_forward_backward
+            model, opt, inputs, targets = chip_smoke.make_mesh_gpt_slice(
+                hvd, dev, **overrides)
+
+            def after_wait():
+                gpt.sum_replica_grads(model)
+        elif args.path == "gpt":
             forward_backward = chip_smoke.gpt_forward_backward
             model, opt, inputs, targets = chip_smoke.make_gpt_slice(hvd, dev)
         elif mesh:
@@ -103,6 +119,8 @@ def main() -> int:
                 marks[1].record()
             with torch.profiler.record_function("hvd.synchronize"):
                 opt.synchronize()
+                if after_wait is not None:
+                    after_wait()
             if marks:
                 marks[2].record()
             inner_step(opt)

@@ -199,14 +199,47 @@ def test_init_follows_jax_scales():
                                                   again.parameters()))
 
 
+def test_config_has_every_jax_field():
+    """``GPTConfig`` takes the JAX config's fields, with its defaults (the
+    dtype aside)."""
+    jax_cfg, cfg = jax_gpt.GPTConfig(), gpt.GPTConfig()
+    names = [f.name for f in dataclasses.fields(jax_cfg)]
+    assert [f.name for f in dataclasses.fields(cfg)] == names
+    for name in names:
+        if name != "dtype":
+            assert getattr(cfg, name) == getattr(jax_cfg, name), name
+
+
+def test_flash_with_a_bound_sp_axis_raises():
+    """``"flash"`` is local attention: with an sp axis on the mesh it
+    raises, as the JAX ``_attention`` does; ``"ulysses_flash"`` runs."""
+    thvd.init(device="cpu", mesh_shape={"sp": 1})
+    try:
+        tokens = torch.zeros(1, 8, dtype=torch.long)
+        model = gpt.GPT(gpt.GPTConfig(**{**SMALL, "dtype": torch.float32}))
+        with pytest.raises(ValueError, match="local attention"):
+            model(tokens)
+        ulysses = gpt.GPT(gpt.GPTConfig(**{
+            **SMALL, "dtype": torch.float32, "attention": "ulysses_flash"}))
+        assert ulysses(tokens).shape == (1, 8, SMALL["vocab_size"])
+    finally:
+        thvd.shutdown()
+
+
 @pytest.mark.parametrize("overrides,error", [
-    (dict(moe_every=2), NotImplementedError),
-    (dict(remat="dots"), NotImplementedError),
+    (dict(moe_every=2), None),
+    (dict(remat="dots"), None),
     (dict(remat="some"), ValueError),
     (dict(attention="sparse"), ValueError)])
 def test_unported_options_raise(overrides, error):
+    """Unknown options raise; mixture of experts and ``remat="dots"`` are
+    ported and build."""
+    cfg = gpt.GPTConfig(**{**SMALL, **overrides})
+    if error is None:
+        gpt.GPT(cfg)
+        return
     with pytest.raises(error):
-        gpt.GPT(gpt.GPTConfig(**{**SMALL, **overrides}))
+        gpt.GPT(cfg)
 
 
 @pytest.mark.parametrize("attention", ["dense", "ring", "ulysses"])

@@ -50,12 +50,20 @@ def test_import_pulls_in_no_jax():
             "import horovod_tpu_torch.compression.quantize\n"
             "import horovod_tpu_torch.compression.config\n"
             "import horovod_tpu_torch.models.gpt\n"
+            "import horovod_tpu_torch.models.encoder\n"
+            "import horovod_tpu_torch.models.transformer\n"
             "import horovod_tpu_torch.ops.flash_attention\n"
+            "import horovod_tpu_torch.ops.remat\n"
+            "import horovod_tpu_torch.ops.spmd\n"
             "import horovod_tpu_torch.parallel.adasum\n"
             "import horovod_tpu_torch.parallel.axes\n"
+            "import horovod_tpu_torch.parallel.moe\n"
+            "import horovod_tpu_torch.parallel.pipeline\n"
+            "import horovod_tpu_torch.parallel.ring_attention\n"
             "import horovod_tpu_torch.parallel.sharded_optimizer\n"
             "import horovod_tpu_torch.parallel.strategy\n"
             "import horovod_tpu_torch.parallel.sync_batch_norm\n"
+            "import horovod_tpu_torch.parallel.ulysses\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "assert not bad, bad\n")

@@ -249,6 +249,25 @@ def test_whole_slice_step_from_converted_weights(worlds):
         assert (np.abs(p.detach().numpy() - want[k]) <= gap).all(), k
 
 
+def test_optimizer_is_freed_with_its_model(worlds):
+    """Dropping the model and its DistributedOptimizer frees both, with
+    the parameters and the bucket buffers: the gradient hooks hold the
+    optimizer weakly."""
+    import gc
+    import weakref
+
+    model = torch.nn.Linear(4, 4)
+    opt = thvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1),
+        named_parameters=model.named_parameters())
+    model(torch.ones(2, 4)).sum().backward()
+    opt.step()
+    refs = [weakref.ref(o) for o in (model, opt, model.weight)]
+    del model, opt
+    gc.collect()
+    assert all(r() is None for r in refs)
+
+
 def test_config_factory(monkeypatch):
     assert make_compressor("none") is None
     assert make_compressor("int4") == MaxMinQuantizer(4, 512)

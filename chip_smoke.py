@@ -61,6 +61,24 @@ just after:
   15% of 2 x 4096 positions from ``--seed``, Adam). Each checks its exact
   B7, B8 and B9 launches a step (``MP_LAUNCHES``), all on the tensor
   cores, and its trained model against a CPU copy.
+* four vision phases at full width, each on a runtime initialized anew
+  (2 warm-up and 10 timed steps): (g) VGG-16 (138,357,544 parameters,
+  batch 64, 224x224, bf16) through 4-bit max-min (``scatter_allgather``,
+  error feedback, buckets of 512: B1, B3, B4) with cuDNN deterministic;
+  after timed step 5 ``save_checkpoint`` stores the model's and the
+  optimizer's ``state_dict`` (the residuals through ``stack_ranks``), and a
+  fresh model and optimizer restored from it must repeat steps 6-10 with
+  the same losses and weights, bitwise; then the trained model against its
+  CPU copy; (h) VGG-16 through ``PowerSGDOptimizer(SGD(momentum=0.9),
+  rank=4)``: no kernel, 320,524 factor and 13,416 dense floats a step
+  against 138,357,544; (i) Inception V3 (299x299, batch 64) through the
+  normalized quantizer (B5, B6); (j) ``autotune_compressed("ici", "dcn")``
+  on ``{"dcn": 1, "ici": 1}`` at 1 MiB and 16 MiB (B1, B3, B4 through
+  ``hierarchical_compressed_allreduce``), its table and the crossover link
+  speed from the measured compressed call (at a world of one no byte
+  crosses a link, so the table names no real winner). B1, B3 and B4 are
+  also held bitwise at VGG-16's 138,357,544 values, B5 and B6 at
+  Inception's 23,834,568, and timed there.
 
 ``DistributedOptimizer`` reduces from gradient hooks: every timed step of
 a training phase must launch its reductions before ``loss.backward()``
@@ -113,7 +131,8 @@ import time
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 BITS, BUCKET = 4, 512
 RESNET50_PARAMS = 25_557_032  # the fused gradient buffer of the path
@@ -163,7 +182,11 @@ FLASH_KERNELS = {
 PATH_LAUNCHES = {
     "resnet": {"maxmin_quantize": 2, "maxmin_dequantize_sum": 1,
                "maxmin_dequantize": 2},
+    "vgg16": {"maxmin_quantize": 2, "maxmin_dequantize_sum": 1,
+              "maxmin_dequantize": 2},
     "resnet_uni": {"norm_quantize": 2, "norm_dequantize": 3},
+    "inception_v3": {"norm_quantize": 2, "norm_dequantize": 3},
+    "vgg16_powersgd": {},
     "resnet_stochastic": {"maxmin_quantize_stochastic": 2,
                           "maxmin_dequantize_sum": 1,
                           "maxmin_dequantize": 2},
@@ -174,8 +197,9 @@ PATH_LAUNCHES = {
 # payload as it crossed the wire.
 DECODE_ROUTES = {"maxmin_dequantize_sum": "packed",
                  "maxmin_dequantize": "packed"}
-PATH_ROUTES = {"resnet": DECODE_ROUTES,
+PATH_ROUTES = {"resnet": DECODE_ROUTES, "vgg16": DECODE_ROUTES,
                "resnet_uni": {"norm_quantize": "packed_search"},
+               "inception_v3": {"norm_quantize": "packed_search"},
                "resnet_stochastic": {"maxmin_quantize_stochastic": "packed",
                                      **DECODE_ROUTES}}
 # The mesh phases: 2 warm-up and 5 timed steps each.
@@ -222,6 +246,44 @@ PIPE_MICRO = 2  # micro-batches of one 4096-token sequence
 ENCODER_CONFIG = dict(vocab_size=32000, num_layers=4, num_heads=8,
                       head_dim=64, embed_dim=512, mlp_dim=2048)
 ENCODER_LR, MASK_SHARE, MASK_ID = 1e-3, 0.15, 0
+# The vision phases (g)-(j): VGG-16 (138,357,544 parameters) through
+# 4-bit max-min and through PowerSGD, Inception V3 (23,834,568 in 284
+# leaves, 299x299) through the normalized quantizer, and the A/B
+# calibration of the compressed hierarchical allreduce, each 2 warm-up and
+# 10 timed steps (the calibration: its own calls). VGG's learning rate is
+# chosen once, SGD's 0.01 with momentum 0.9 (the paper's, for a batch of
+# 256): without batch norm at lecun-normal init the loss falls slowly.
+VGG16_PARAMS = 138_357_544
+VGG_CFG = None  # VGG-16's (a rehearsal on the CPU narrows it)
+VGG_IMAGE, VGG_LR, VGG_RESUME_AT = 224, 0.01, 5
+INCEPTION_PARAMS, INCEPTION_LEAVES = 23_834_568, 284
+INCEPTION_IMAGE = 299
+POWERSGD_RANK = 4
+# Floats a rank sends a step under PowerSGD at rank 4 (P and Q of the 16
+# weight matrices in torch's layout, and the 16 biases dense), against the
+# dense gradients' 138,357,544.
+POWERSGD_WIRE = (320_524, 13_416)
+# autotune_compressed's calls of the compressed allreduce: a warm-up and
+# AUTOTUNE_REPS timed calls at each of the two sizes; each is the max-min
+# reducer without a residual: B1 twice (the rows and the reduced chunk),
+# B3 once and B4 once (the gathered chunks; no residual to decode).
+AUTOTUNE_SIZES, AUTOTUNE_REPS = (1 << 20, 16 << 20), 5
+AUTOTUNE_CALLS = len(AUTOTUNE_SIZES) * (1 + AUTOTUNE_REPS)
+AUTOTUNE_LAUNCHES = {"maxmin_quantize": 2, "maxmin_dequantize_sum": 1,
+                     "maxmin_dequantize": 1}
+# Suffixes of the fields each path's shape gives a kernel row: the main
+# path's (ResNet-50's buffer) has none; (j)'s are its two sizes in fp32
+# values (262,144 and 4,194,304: 512 and 8,192 buckets).
+SHAPES = {RESNET50_PARAMS: "", VGG16_PARAMS: "_at_vgg16",
+          INCEPTION_PARAMS: "_at_inception_v3",
+          **{n // 4: f"_at_autotune_{n >> 20}mib" for n in AUTOTUNE_SIZES}}
+# The other paths' buffers whose kernels are timed beside the main path's:
+# suffix: (values, phase, kernels).
+AT_SHAPES = {
+    "_at_vgg16": (VGG16_PARAMS, "vgg16", (
+        "maxmin_quantize", "maxmin_dequantize_sum", "maxmin_dequantize")),
+    "_at_inception_v3": (INCEPTION_PARAMS, "inception_v3", (
+        "norm_quantize", "norm_dequantize"))}
 SYNC_BN_LAYERS = 53  # ResNet-50's batch norms
 ZERO_LR = 1e-3
 # Adam keeps two fp32 state tensors of the shard's length: at a world of
@@ -329,29 +391,36 @@ def bitwise(got, want) -> bool:
         if got.is_floating_point() else torch.equal(got, want))
 
 
-def check_kernels(kernels, dev, n_values: int):
+def check_kernels(kernels, dev, sizes):
     """Every kernel against its plain version on the card; returns the
-    largest error of each at the main path's shape. B1 bitwise: at the
-    path's shape, then ragged sizes with a constant first bucket and, where
-    there is room, a bucket holding a NaN and one holding an inf, at 1, 2,
-    4 and 8 bits and buckets of 64, 512 and 100 (not a multiple of 8). B4
+    largest error of each at the shape of each path (``sizes``: values of
+    the fused buffer; the errors keyed by name and ``SHAPES`` suffix). B1
+    bitwise: at the paths' shapes, on random values and on ones (the
+    constant buckets ``autotune_compressed`` feeds), then ragged sizes
+    with a constant first bucket and, where there is room, a bucket
+    holding a NaN and one holding an inf, at 1, 2, 4 and 8 bits and
+    buckets of 64, 512 and 100 (not a multiple of 8). B4
     bitwise on each of B1's results in four forms, all decoding to the same
     values: packed as ``compress`` packs it (one row), the byte codes at 8
     bits, the packed row one byte into a buffer, and packed in rows as
     ``compress_rows`` packs them (:func:`decode_rows`). B3 bitwise at 1 to
-    4 ranks: at the path's shape, then at 1, 2, 4 and 8 bits, buckets of
-    64, 512 and 100, aligned and one byte into a buffer. Every B3 and B4
+    4 ranks: at the path's shape, on B1's payload of the path's inputs at
+    one rank, then at 1, 2, 4 and 8 bits, buckets of 64, 512 and 100,
+    aligned and one byte into a buffer. Every B3 and B4
     launch on the route its bucket asks for."""
     from horovod_tpu_torch.compression.quantize import pack_bits
 
     gen = torch.Generator(device=dev).manual_seed(1)
     errors = {}
-    cases = [(n_values, BITS, BUCKET, False)] + [
-        (n, bits, bucket, True) for n in (1, 511, 513, 100_003)
+    cases = [(n, BITS, BUCKET, values) for n in sizes
+             for values in ("random", "ones")] + [
+        (n, bits, bucket, "special") for n in (1, 511, 513, 100_003)
         for bits in (1, 2, 4, 8) for bucket in (64, 512, 100)]
-    for n, bits, bucket, special in cases:
-        where = f"n={n} bits={bits} bucket={bucket}"
+    for n, bits, bucket, values in cases:
+        where = f"n={n} bits={bits} bucket={bucket} values={values}"
+        special = values == "special"
         x = special_values(gen, dev, n, bucket) if special else \
+            torch.ones(n, device=dev) if values == "ones" else \
             torch.randn(n, generator=gen, device=dev) * 1e-2
         got = kernels.maxmin_quantize(x, bits, bucket)
         want = kernels.maxmin_quantize_plain(x, bits, bucket)
@@ -381,18 +450,34 @@ def check_kernels(kernels, dev, n_values: int):
                 torch.isfinite(back[0]).all()):
             raise AssertionError(f"a NaN or inf bucket decoded to a number "
                                  f"at {where}")
-        if n == n_values:
-            errors["maxmin_quantize"] = max(
-                float((g.float() - w.float()).abs().max())
-                for g, w in zip(got, want))
-            errors["maxmin_dequantize"] = float(
-                (decoded[0] - kernels.maxmin_dequantize_plain(
-                    packed, mn, unit, bits, bucket)).abs().max())
-    n_buckets = -(-n_values // BUCKET)
-    sums = [(n_ranks, n_buckets, BITS, BUCKET, 0) for n_ranks in (1, 2, 3, 4)
-            ] + [(n_ranks, 1001, bits, bucket, shift)
-                 for n_ranks in (1, 2, 3, 4) for bits in (1, 2, 4, 8)
-                 for bucket in (64, 512, 100) for shift in (0, 1)]
+        if special:
+            continue
+        summed, route = routed(kernels, "maxmin_dequantize_sum",
+                               lambda: kernels.maxmin_dequantize_sum(
+                                   packed, mn[None], unit[None], bits,
+                                   bucket))
+        check_route("B3", route, bucket, where)
+        plain_sum = kernels.maxmin_dequantize_sum_plain(
+            packed, mn[None], unit[None], bits, bucket)
+        if not bitwise(summed, plain_sum):
+            raise AssertionError(f"B3 differs on B1's payload at {where}")
+        for name, err in (
+                ("maxmin_dequantize_sum", float(
+                    (summed - plain_sum).nan_to_num(0.0).abs().max())),
+                ("maxmin_quantize", max(float((g.float() - w.float()).abs()
+                                              .max())
+                                        for g, w in zip(got, want))),
+                ("maxmin_dequantize", float(
+                    (decoded[0] - kernels.maxmin_dequantize_plain(
+                        packed, mn, unit, bits, bucket)).abs().max()))):
+            key = name + SHAPES[n]
+            errors[key] = max(errors.get(key, 0.0), err)
+    path_buckets = {-(-n // BUCKET): n for n in sizes}
+    sums = [(n_ranks, buckets, BITS, BUCKET, 0) for buckets in path_buckets
+            for n_ranks in (1, 2, 3, 4)] + [
+        (n_ranks, 1001, bits, bucket, shift)
+        for n_ranks in (1, 2, 3, 4) for bits in (1, 2, 4, 8)
+        for bucket in (64, 512, 100) for shift in (0, 1)]
     for n_ranks, buckets, bits, bucket, shift in sums:
         where = (f"n_ranks={n_ranks} n_buckets={buckets} bits={bits} "
                  f"bucket={bucket} shift={shift}")
@@ -405,10 +490,11 @@ def check_kernels(kernels, dev, n_values: int):
         want = kernels.maxmin_dequantize_sum_plain(q, mn, unit, bits, bucket)
         if not bitwise(got, want):
             raise AssertionError(f"B3 differs at {where}")
-        if buckets == n_buckets and n_ranks == 1:
+        if buckets in path_buckets and n_ranks == 1 and bits == BITS:
             # Bitwise, NaN for NaN: the largest error of the numbers.
-            errors["maxmin_dequantize_sum"] = float(
-                (got - want).nan_to_num(0.0).abs().max())
+            key = "maxmin_dequantize_sum" + SHAPES[path_buckets[buckets]]
+            errors[key] = max(errors[key], float(
+                (got - want).nan_to_num(0.0).abs().max()))
     torch.cuda.synchronize()
     return errors
 
@@ -622,10 +708,10 @@ def level_steps(levels: torch.Tensor, got: torch.Tensor,
     return (ranks[0] - ranks[1]).abs()
 
 
-def check_norm(norm_kernels, dev, n_values: int):
-    """B5 and B6 against their plain versions: at the path's shape (4 bits,
-    uniform levels, linf), then n in {1, 511, 513, 100003} x bits {2, 4, 8}
-    x uniform or exponential levels x linf or l2 x buckets of 64, 125 or
+def check_norm(norm_kernels, dev, sizes):
+    """B5 and B6 against their plain versions: at each path's shape
+    (``sizes``, the main path's first: 4 bits, uniform levels, linf),
+    then n in {1, 511, 513, 100003} x bits {2, 4, 8} x uniform or exponential levels x linf or l2 x buckets of 64, 125 or
     512, with special buckets, and l2 and 8 bits at the path's shape; then
     at 100003 values, for each bits and norm: the two scan tables of
     :func:`norm_tables`, a view at an offset of one value (the packed
@@ -645,7 +731,8 @@ def check_norm(norm_kernels, dev, n_values: int):
     from horovod_tpu_torch.compression.quantize import pack_bits, unpack_bits
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    cases = [(n_values, 4, "uni", "linf", BUCKET, "path", 0),
+    n_values = sizes[0]
+    cases = [(n, 4, "uni", "linf", BUCKET, "path", 0) for n in sizes] + [
              (n_values, 4, "uni", "l2", BUCKET, "path", 0),
              (n_values, 8, "uni", "linf", BUCKET, "path", 0)] + [
         (n, bits, kind, norm, bucket, "special", 0)
@@ -711,11 +798,11 @@ def check_norm(norm_kernels, dev, n_values: int):
                 norm_kernels.norm_dequantize(codes, short, nrm),
                 norm_kernels.norm_dequantize_plain(codes, short, nrm))):
             raise AssertionError(f"B6 differs at {where}")
-        if values == "path" and "norm_quantize" not in errors:
-            errors["norm_quantize"] = max(
+        if values == "path" and "norm_quantize" + SHAPES[n] not in errors:
+            errors["norm_quantize" + SHAPES[n]] = max(
                 float((codes.float() - wq.float()).abs().max()),
                 float((nrm - wnrm).abs().max()))
-            errors["norm_dequantize"] = float(
+            errors["norm_dequantize" + SHAPES[n]] = float(
                 (back - norm_kernels.norm_dequantize_plain(codes, levels,
                                                            nrm))
                 .abs().max())
@@ -869,10 +956,23 @@ def read_routes():
             for name, counts in module.ROUTES.items()}
 
 
-def check_launches(path: str, launches, per_step) -> None:
-    want = {name: per_step.get(name, 0) * STEPS for name in launches}
+def check_launches(path: str, launches, per_step, steps: int = None,
+                   routes=None, want_routes=()) -> None:
+    """A phase's exact launches in ``steps`` steps (``STEPS`` by default):
+    ``per_step`` of each kernel a step, 0 of every other; and every launch
+    of each kernel of ``want_routes`` on its route (``routes``: the
+    phase's launches by route)."""
+    steps = STEPS if steps is None else steps
+    want = {name: per_step.get(name, 0) * steps for name in launches}
     if launches != want:
         raise AssertionError(f"{path}: launches {launches}, expected {want}")
+    for name, route in dict(want_routes).items():
+        want = {r: launches[name] if r == route else 0 for r in routes[name]}
+        if routes[name] != want:
+            raise AssertionError(f"{path}: {name} routes {routes[name]}, "
+                                 f"expected {want}")
+        log(f"{path}: every {name} launch on the {route} route "
+            f"{routes[name]}")
 
 
 def resnet_compressors():
@@ -979,28 +1079,12 @@ def train(hvd, dev, path: str = "resnet", check_copy: bool = True):
         raise AssertionError(f"ResNet-50 has {n_params} parameters")
     check_losses(losses)
     check_hook_launches(path, launched, [1])
-    check_launches(path, launches, PATH_LAUNCHES[path])
-    for name, route in PATH_ROUTES.get(path, {}).items():
-        want = {r: launches[name] if r == route else 0 for r in routes[name]}
-        if routes[name] != want:
-            raise AssertionError(f"{path}: {name} routes {routes[name]}, "
-                                 f"expected {want}")
-        log(f"{path}: every {name} launch on the {route} route "
-            f"{routes[name]}")
+    check_launches(path, launches, PATH_LAUNCHES[path], routes=routes,
+                   want_routes=PATH_ROUTES.get(path, {}))
     if not check_copy:
         return launches
 
-    # The trained model against a CPU copy of itself, fp32, small input.
-    model.eval()
-    small = images[:2, :64, :64].contiguous()
-    with torch.no_grad():
-        got = model(small).cpu()
-        ref = copy.deepcopy(model).cpu().float()(small.cpu())
-    if got.shape != (2, 1000) or not torch.isfinite(got).all():
-        raise AssertionError("bad logits")
-    torch.testing.assert_close(got, ref, rtol=1e-3,
-                               atol=1e-3 * float(ref.abs().max()))
-    log(f"{path}: trained model agrees with its CPU copy (fp32, rtol 1e-3)")
+    check_vision_copy(path, model, images[:2, :64, :64].contiguous())
     return launches
 
 
@@ -1046,12 +1130,8 @@ def train_accumulated(hvd, dev):
     if any(passes != [0, 1] for passes in launched):
         raise AssertionError(f"{path}: reductions launched by the two "
                              f"passes {launched}, expected [0, 1] a step")
-    check_launches(path, launches, PATH_LAUNCHES["resnet"])
-    for name, route in PATH_ROUTES["resnet"].items():
-        want = {r: launches[name] if r == route else 0 for r in routes[name]}
-        if routes[name] != want:
-            raise AssertionError(f"{path}: {name} routes {routes[name]}, "
-                                 f"expected {want}")
+    check_launches(path, launches, PATH_LAUNCHES["resnet"], routes=routes,
+                   want_routes=PATH_ROUTES["resnet"])
     return launches
 
 
@@ -1185,12 +1265,6 @@ def timed_steps(path: str, step, warmup: int = MESH_WARMUP,
     return ms, launches, routes
 
 
-def check_mesh_launches(path: str, launches, per_step) -> None:
-    want = {name: per_step.get(name, 0) * MESH_STEPS for name in launches}
-    if launches != want:
-        raise AssertionError(f"{path}: launches {launches}, expected {want}")
-
-
 def check_adasum(dev):
     """The fused per-tensor Adasum combine on the card: 4 synthetic rank
     vectors in ResNet-50's layout (161 tensors, one segment each), folded
@@ -1300,7 +1374,7 @@ def train_sync_adasum(hvd):
         f"(ici, dcn), {units} dense buckets; launched before backward() "
         f"returned, each timed step: {timed}")
     check_hook_launches(path, timed, [units])
-    check_mesh_launches(path, launches, {})
+    check_launches(path, launches, {}, MESH_STEPS)
     model.eval()
     small = images[:2, :64, :64].contiguous()
     with torch.no_grad():
@@ -1358,14 +1432,8 @@ def train_hierarchical_compressed(hvd):
     if not all(math.isfinite(v) and v > 0 for v in norms) or \
             len(set(norms)) != len(norms):
         raise AssertionError(f"{path}: residual not carried: {norms}")
-    check_mesh_launches(path, launches, PATH_LAUNCHES["resnet"])
-    for name, route in DECODE_ROUTES.items():
-        want = {r: launches[name] if r == route else 0 for r in routes[name]}
-        if routes[name] != want:
-            raise AssertionError(f"{path}: {name} routes {routes[name]}, "
-                                 f"expected {want}")
-    log(f"{path}: every B3 and B4 launch on the packed route "
-        f"{ {n: routes[n] for n in DECODE_ROUTES} }")
+    check_launches(path, launches, PATH_LAUNCHES["resnet"], MESH_STEPS,
+                   routes, DECODE_ROUTES)
     return ms, launches
 
 
@@ -1389,9 +1457,9 @@ def train_gpt_zero(hvd):
 
     ms, launches, _ = timed_steps(path, step)
     layers = cfg.num_layers
-    check_mesh_launches(path, launches, {"flash_fwd": 2 * layers,
-                                         "flash_dkdv": layers,
-                                         "flash_dq": layers})
+    check_launches(path, launches, {"flash_fwd": 2 * layers,
+                                    "flash_dkdv": layers,
+                                    "flash_dq": layers}, MESH_STEPS)
     check_flash_routes(path, launches)
     vectors = sum(t.numel() * t.element_size()
                   for st in opt.optimizer.state.values()
@@ -1496,7 +1564,7 @@ def train_mesh_gpt(hvd, path: str, mesh_shape, **overrides):
     ms, launches, _ = timed_steps(
         path, lambda: mesh_gpt_step(model, opt, tokens, targets))
     peak = torch.cuda.max_memory_allocated()
-    check_mesh_launches(path, launches, MP_LAUNCHES[path])
+    check_launches(path, launches, MP_LAUNCHES[path], MESH_STEPS)
     check_flash_routes(path, launches)
     log(f"{path}: mesh {mesh_shape}, attention {cfg.attention}, remat "
         f"{cfg.remat}; B7, B8 and B9 launches a step "
@@ -1641,7 +1709,7 @@ def train_pipeline(hvd):
 
     ms, launches, _ = timed_steps(path, step)
     peak = torch.cuda.max_memory_allocated()
-    check_mesh_launches(path, launches, MP_LAUNCHES[path])
+    check_launches(path, launches, MP_LAUNCHES[path], MESH_STEPS)
     check_flash_routes(path, launches)
     log(f"{path}: {PIPE_MICRO} micro-batches of {shape[1]} x {GPT_SEQ} "
         f"tokens; B7, B8 and B9 launches a step {MP_LAUNCHES[path]}, all "
@@ -1680,7 +1748,7 @@ def train_encoder(hvd, seed: int):
 
     ms, launches, _ = timed_steps(path, step)
     peak = torch.cuda.max_memory_allocated()
-    check_mesh_launches(path, launches, MP_LAUNCHES[path])
+    check_launches(path, launches, MP_LAUNCHES[path], MESH_STEPS)
     check_flash_routes(path, launches)
     log(f"{path}: {int(mask.sum())} of {mask.numel()} positions masked; "
         f"B7, B8 and B9 launches a step {MP_LAUNCHES[path]} (non-causal), "
@@ -1705,6 +1773,254 @@ def train_model_parallel(hvd, seed: int):
     out["gpt_pipeline"] = train_pipeline(hvd)
     out["encoder"] = train_encoder(hvd, seed)
     log(f"model-parallel phases: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the vision phases (g)-(j)
+# ---------------------------------------------------------------------------
+
+def make_vision_slice(hvd, dev, path: str):
+    """The model, optimizer and fixed synthetic batch of a vision phase:
+    ``vgg16`` (VGG-16 through 4-bit max-min, ``scatter_allgather`` with
+    error feedback, buckets of 512), ``vgg16_powersgd`` (through
+    ``PowerSGDOptimizer`` at rank 4) or ``inception_v3`` (Inception V3
+    through ``make_compressor("uni")``)."""
+    from horovod_tpu_torch.compression import (CompressionConfig,
+                                               MaxMinQuantizer,
+                                               make_compressor)
+    from horovod_tpu_torch.models import VGG, InceptionV3
+    torch.manual_seed(0)
+    if path == "inception_v3":
+        model, image, lr = InceptionV3(num_classes=1000), INCEPTION_IMAGE, LR
+    else:
+        cfg = {} if VGG_CFG is None else {"cfg": VGG_CFG}
+        model = VGG(num_classes=1000, image_size=VGG_IMAGE, **cfg)
+        image, lr = VGG_IMAGE, VGG_LR
+    model = model.to(dev, memory_format=torch.channels_last)
+    sgd = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9)
+    if path == "vgg16_powersgd":
+        opt = hvd.PowerSGDOptimizer(sgd, rank=POWERSGD_RANK)
+    else:
+        compressor = make_compressor("uni") if path == "inception_v3" \
+            else MaxMinQuantizer(bits=BITS, bucket_size=BUCKET)
+        opt = hvd.DistributedOptimizer(
+            sgd, named_parameters=model.named_parameters(),
+            compression=CompressionConfig(
+                compressor, reduction="scatter_allgather",
+                error_feedback=True))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    images = torch.randn(BATCH, image, image, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    return model, opt, images, labels
+
+
+def vision_step(model, opt, images, labels, launched=None):
+    """One training step; ``launched`` gets the reductions the hooks had
+    launched when ``backward()`` returned."""
+    def step():
+        loss = forward_backward(model, opt, images, labels)
+        if launched is not None:
+            launched.append([opt.hook_launches])
+        opt.step()
+        return loss
+    return step
+
+
+def check_param_count(path: str, model, want: int) -> None:
+    got = sum(p.numel() for p in model.parameters())
+    if got != want:
+        raise AssertionError(f"{path}: {got} parameters, expected {want}")
+
+
+def train_vgg(hvd):
+    """(g) VGG-16 through 4-bit max-min with cuDNN deterministic: 2
+    warm-up and 10 timed steps (B1 twice, B3 once and B4 twice a step, B3
+    and B4 on the packed route), the model's and optimizer's
+    ``state_dict`` (error-feedback residuals included, through
+    ``stack_ranks``) saved with ``save_checkpoint`` after timed step 5
+    (out of the clock); then a fresh model and optimizer restored from it
+    run steps 6-10 again, and must give the same losses and weights,
+    bitwise. Last, the trained model against its CPU copy."""
+    import shutil
+    from horovod_tpu_torch.checkpoint import stack_ranks, unstack_rank
+    path = "vgg16"
+    dev = reinit(hvd, None)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    ckpt = os.path.join(ROOT, "_smoke_checkpoints")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        model, opt, images, labels = make_vision_slice(hvd, dev, path)
+        if VGG_CFG is None:
+            check_param_count(path, model, VGG16_PARAMS)
+        launched = []
+        step = vision_step(model, opt, images, labels, launched)
+        losses = [step() for _ in range(WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        del launched[:]
+        t0 = time.perf_counter()
+        losses += [step() for _ in range(VGG_RESUME_AT)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hvd.save_checkpoint(ckpt, {"model": model.state_dict(),
+                                   "opt": stack_ranks(opt.state_dict())},
+                            step=WARMUP + VGG_RESUME_AT)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        straight = [step() for _ in range(STEPS - VGG_RESUME_AT)]
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        losses += straight
+        launches, routes = read_launches(), read_routes()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        log(f"{path}: VGG-16, batch {BATCH}, {VGG_IMAGE}x{VGG_IMAGE}, SGD "
+            f"lr {VGG_LR} momentum 0.9, cuDNN deterministic; losses "
+            f"{losses}")
+        log(f"{path}: step {seconds / STEPS * 1e3:.3f} ms, "
+            f"{BATCH * STEPS / seconds:.1f} images/s, peak memory "
+            f"{peak / 2**30:.3f} GiB, launches in {STEPS} steps {launches}; "
+            f"reductions launched before backward() returned {launched}")
+        check_losses(losses)
+        check_hook_launches(path, launched, [1])
+        check_launches(path, launches, PATH_LAUNCHES[path], STEPS, routes,
+                       DECODE_ROUTES)
+
+        fresh, fresh_opt, _, _ = make_vision_slice(hvd, dev, path)
+        t0 = time.perf_counter()
+        saved = hvd.restore_checkpoint(ckpt)
+        fresh.load_state_dict(saved["model"])
+        fresh_opt.load_state_dict(unstack_rank(saved["opt"]))
+        del saved
+        restore_s = time.perf_counter() - t0
+        resume = vision_step(fresh, fresh_opt, images, labels)
+        resumed = [float(resume()) for _ in range(STEPS - VGG_RESUME_AT)]
+        straight = [float(v) for v in straight]
+        differ = [name for (name, p), q in zip(model.named_parameters(),
+                                               fresh.parameters())
+                  if not torch.equal(p, q)]
+        log(f"{path}: checkpoint after step {VGG_RESUME_AT} saved in "
+            f"{save_s:.3f} s, restored in {restore_s:.3f} s; steps "
+            f"{VGG_RESUME_AT + 1}-{STEPS}: uninterrupted {straight}, "
+            f"resumed {resumed}; parameters that differ {differ}")
+        if resumed != straight or differ:
+            raise AssertionError(f"{path}: the resumed run is not the "
+                                 f"uninterrupted one")
+        del fresh, fresh_opt, resume
+        check_vision_copy(path, model, images[:1])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    return {"ms": seconds / STEPS * 1e3, "peak_bytes": peak,
+            "launches": launches}
+
+
+def check_vision_copy(path: str, model, small) -> None:
+    """The trained model (fp32, eval mode) against a CPU copy of itself on
+    ``small``, within rtol 1e-3."""
+    model.eval()
+    with torch.no_grad():
+        got = model(small).cpu()
+        ref = copy.deepcopy(model).cpu().float()(small.cpu())
+    if got.shape != (small.shape[0], 1000) or not torch.isfinite(got).all():
+        raise AssertionError(f"{path}: bad logits")
+    torch.testing.assert_close(got, ref, rtol=1e-3,
+                               atol=1e-3 * float(ref.abs().max()))
+    log(f"{path}: trained model agrees with its CPU copy (fp32, rtol 1e-3)")
+
+
+def train_vgg_powersgd(hvd):
+    """(h) VGG-16 through ``PowerSGDOptimizer(SGD(momentum=0.9), rank=4)``:
+    no kernel; the floats a step sends against the dense gradients'."""
+    from horovod_tpu_torch.compression.powersgd import wire_floats
+    path = "vgg16_powersgd"
+    dev = reinit(hvd, None)
+    model, opt, images, labels = make_vision_slice(hvd, dev, path)
+    params = list(model.parameters())
+    wire = wire_floats(params, POWERSGD_RANK)
+    dense = sum(p.numel() for p in params)
+    log(f"{path}: {wire[0]} factor floats and {wire[1]} dense floats a "
+        f"step, against {dense} dense ({dense / sum(wire):.1f}x fewer)")
+    if VGG_CFG is None and (wire != POWERSGD_WIRE or dense != VGG16_PARAMS):
+        raise AssertionError(f"{path}: {wire} floats on the wire of "
+                             f"{dense}, expected {POWERSGD_WIRE}")
+    ms, launches, _ = timed_steps(path, vision_step(model, opt, images,
+                                                    labels),
+                                  WARMUP, STEPS)
+    check_launches(path, launches, {})
+    return {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "wire_floats": wire}
+
+
+def train_inception(hvd):
+    """(i) Inception V3 through the normalized quantizer (4 bits, buckets
+    of 512, linf): B5 twice and B6 three times a step, B5 on the packed
+    bisection route; the trained model against its CPU copy at 75x75."""
+    path = "inception_v3"
+    dev = reinit(hvd, None)
+    model, opt, images, labels = make_vision_slice(hvd, dev, path)
+    if INCEPTION_IMAGE == 299:
+        check_param_count(path, model, INCEPTION_PARAMS)
+    if len(list(model.parameters())) != INCEPTION_LEAVES:
+        raise AssertionError(f"{path}: not {INCEPTION_LEAVES} leaves")
+    launched = []
+    ms, launches, routes = timed_steps(
+        path, vision_step(model, opt, images, labels, launched), WARMUP,
+        STEPS)
+    check_hook_launches(path, launched[WARMUP:], [1])
+    check_launches(path, launches, PATH_LAUNCHES[path], STEPS, routes,
+                   PATH_ROUTES[path])
+    peak = torch.cuda.max_memory_allocated()
+    check_vision_copy(path, model, images[:2, :75, :75].contiguous())
+    return {"ms": ms, "peak_bytes": peak, "launches": launches}
+
+
+def check_autotune(hvd):
+    """(j) ``autotune_compressed("ici", "dcn")`` on ``{"dcn": 1, "ici":
+    1}`` at 1 MiB and 16 MiB with its default 4-bit max-min compressor:
+    the exact launches of its compressed calls (B3 and B4 on the packed
+    route), the table, and the crossover link speed of each size from the
+    measured compressed call. At a world of one no byte crosses a link:
+    the compressed call's time is its compression work and the dense
+    call's a copy, so neither names a winner."""
+    from horovod_tpu_torch.compression import MaxMinQuantizer
+    path = "autotune_compressed"
+    reinit(hvd, {"dcn": 1, "ici": 1})
+    reset_launches()
+    table = hvd.autotune_compressed("ici", "dcn", sizes=AUTOTUNE_SIZES,
+                                    reps=AUTOTUNE_REPS)
+    torch.cuda.synchronize()
+    launches, routes = read_launches(), read_routes()
+    check_launches(path, launches, AUTOTUNE_LAUNCHES, AUTOTUNE_CALLS, routes,
+                   DECODE_ROUTES)
+    out = {}
+    for nbytes, (winner, dense_s, comp_s) in sorted(table.items()):
+        comp_bytes = hvd.payload_nbytes(MaxMinQuantizer(bits=4), nbytes // 4)
+        cross = hvd.crossover_gbps(nbytes, comp_bytes, comp_s)
+        out[nbytes] = {"dense_ms": dense_s * 1e3, "compressed_ms":
+                       comp_s * 1e3, "payload_bytes": comp_bytes,
+                       "crossover_gbps": cross, "table_says": winner}
+        log(f"{path}: {nbytes} bytes: dense {dense_s * 1e3:.4f} ms, "
+            f"compressed {comp_s * 1e3:.4f} ms, payload {comp_bytes} "
+            f"bytes; compression pays below {cross:.2f} Gb/s (wire time 0 "
+            f"at a world of one: no winner is read from '{winner}')")
+    return {"table": out, "launches": launches}
+
+
+def train_vision(hvd):
+    """Phases (g)-(j), each on a runtime initialized anew."""
+    out = {"vgg16": train_vgg(hvd), "vgg16_powersgd":
+           train_vgg_powersgd(hvd), "inception_v3": train_inception(hvd),
+           "autotune_compressed": check_autotune(hvd)}
+    log(f"vision phases: {json.dumps(out)}")
     return out
 
 
@@ -1819,45 +2135,113 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
     ``*_graph`` fields. Their calls cycle through ``ROTATE`` copies of the
     inputs and keep ``ROTATE`` outputs alive (:func:`rotating`), so that
     no reading is served from the L2."""
+    x = torch.randn(n_values, device=dev) * 1e-2
+    shifted = at_offset(x, 1)
+    work, inputs = kernel_work(kernels, norm_kernels, x, rates[1],
+                               extra=True)
+    packed = packed_rounds(kernels, norm_kernels, x, shifted,
+                           inputs["tables"])
+    decoded, graphed = decode_rounds(
+        kernels, inputs["decode"], inputs["codes"],
+        parent_kernels(parent) if parent else {})
+    packed.update(decoded)
+    library = {"maxmin_dequantize": (
+        packed["maxmin_dequantize"], packed["addcmul"],
+        "torch.addcmul(mn[:, None], q, unit[:, None]) on the unpacked uint8 "
+        "codes (rate only: one rounding, a byte a code)")}
+    for name in ("maxmin_quantize_stochastic", "norm_quantize",
+                 "maxmin_dequantize_sum"):
+        library[name] = (packed[name], None, None)
+    rows = []
+    for name in (n for n in work if n in REPLACES):
+        source = "norm" if name.startswith("norm") else "maxmin"
+        ms, lib_ms, lib = library.get(name, (None, None, None))
+        row = {"name": name, "route": "cuda", "source": SOURCES[source],
+               "replaces": REPLACES[name], "launches": launches[name],
+               "max_abs_err": errors[name],
+               **bounded(work[name], rates, ms), "library_ms": lib_ms}
+        if lib is not None:
+            row["library"] = lib
+        if name in graphed:
+            row.update(graphed[name])
+        if name == "norm_quantize":
+            row.update({f"{k}_at_8_bits": v for k, v in bounded(
+                work["norm_quantize_8"], rates,
+                packed["norm_quantize_8"]).items()})
+        if name == "maxmin_dequantize_sum":
+            four = f"maxmin_dequantize_sum_{B3_RANKS}_ranks"
+            row.update({f"{k}_at_{B3_RANKS}_ranks": v for k, v in bounded(
+                work[four], rates, packed[four]).items()})
+            row.update({f"{k}_at_{B3_RANKS}_ranks": v for k, v in
+                        graphed[four].items()})
+            log(f"kernel maxmin_dequantize_sum at {B3_RANKS} ranks of "
+                f"{B3_RANK_BUCKETS} buckets: "
+                f"{row['ms_at_4_ranks']:.4f} ms (plain "
+                f"{row['plain_ms_at_4_ranks']:.4f} ms, bound "
+                f"{row['bound_ms_at_4_ranks']:.6f} ms by "
+                f"{row['bound_by_at_4_ranks']})")
+        rows.append(row)
+        nbytes, ops = work[name][2:]
+        log(f"kernel {name}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}"
+            f" ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+            f"{nbytes} bytes, {ops:.0f} operations at the fp32 rate)"
+            + (f"; {lib} {lib_ms:.4f} ms" if lib else ""))
+    eight = next(row for row in rows if row["name"] == "norm_quantize")
+    log(f"kernel norm_quantize at 8 bits (128 levels): "
+        f"{eight['ms_at_8_bits']:.4f} ms (plain "
+        f"{eight['plain_ms_at_8_bits']:.4f} ms, bound "
+        f"{eight['bound_ms_at_8_bits']:.4f} ms by "
+        f"{eight['bound_by_at_8_bits']})")
+    return rows
+
+
+def kernel_work(kernels, norm_kernels, x, fp32: float, extra: bool = False,
+                copies: int = ROTATE):
+    """B1-B6 on ``x`` at 4 bits and buckets of 512 (B5 and B6 with the
+    uniform table, linf), and the terms of each one's bound as
+    :func:`measure` counts them: ``work`` maps a kernel's name to (kernel,
+    plain, bytes moved, operations at the fp32 rate). B3 (one rank) and
+    B4 decode ``x``'s packed payload, each call on the next of ``copies``
+    copies (:func:`rotating`). With ``extra``, also B3 on ``B3_RANKS``
+    ranks of ``B3_RANK_BUCKETS`` buckets and B5 with the 8-bit table, as
+    ``maxmin_dequantize_sum_4_ranks`` and ``norm_quantize_8``. Returns
+    ``work`` and the inputs: ``codes`` (B1's, unpacked), ``decode`` (B3's
+    and B4's copies by name) and ``tables`` (by bits)."""
     from horovod_tpu_torch.compression.quantize import (default_levels,
                                                         pack_bits,
                                                         unpack_bits)
-
-    bandwidth, fp32, _ = rates
     issue = fp32 / 2
+    n_values = x.numel()
     n_buckets = -(-n_values // BUCKET)
     padded = n_buckets * BUCKET
-    x = torch.randn(n_values, device=dev) * 1e-2
-    shifted = at_offset(x, 1)
     codes, mn, unit = kernels.maxmin_quantize(x, BITS, BUCKET)
     q = pack_bits(codes.view(1, -1), BITS)
-    gen = torch.Generator(device=dev).manual_seed(4)
-    decode_inputs = {name: [tuple(t.clone() for t in args)
-                            for _ in range(ROTATE)]
-                     for name, args in {
-        "maxmin_dequantize": (q, mn, unit),
-        "maxmin_dequantize_sum": (q, mn[None], unit[None]),
-        "maxmin_dequantize_sum_4_ranks": packed_ranks(
-            gen, dev, B3_RANKS, B3_RANK_BUCKETS, BITS, BUCKET)}.items()}
-    tables = {bits: norm_kernels.LevelTable(default_levels(bits, "uni"), dev)
-              for bits in (BITS, 8)}
+    decode = {"maxmin_dequantize": (q, mn, unit),
+              "maxmin_dequantize_sum": (q, mn[None], unit[None])}
+    if extra:
+        gen = torch.Generator(device=x.device).manual_seed(4)
+        decode[f"maxmin_dequantize_sum_{B3_RANKS}_ranks"] = packed_ranks(
+            gen, x.device, B3_RANKS, B3_RANK_BUCKETS, BITS, BUCKET)
+    decode = {name: [tuple(t.clone() for t in args) for _ in range(copies)]
+              for name, args in decode.items()}
+    tables = {bits: norm_kernels.LevelTable(default_levels(bits, "uni"),
+                                            x.device)
+              for bits in ((BITS, 8) if extra else (BITS,))}
     nq, nrm = norm_kernels.norm_quantize(x, tables[BITS], BUCKET, False,
                                          BITS)
     nq = unpack_bits(nq, BITS, BUCKET)
-    quantize_bytes = 4 * n_values + padded + 8 * n_buckets
-    b2_slots = sum(B2_SLOTS.values()) * padded
 
     def decode_work(name, ops_per_value):
-        inputs = decode_inputs[name]
-        qd, mnd, _ = inputs[0]
-        b3 = name.startswith("maxmin_dequantize_sum")
-        kernel = kernels.maxmin_dequantize_sum if b3 else \
-            kernels.maxmin_dequantize
-        plain = kernels.maxmin_dequantize_sum_plain if b3 else \
-            kernels.maxmin_dequantize_plain
+        copies = decode[name]
+        qd, mnd, _ = copies[0]
+        b4 = name == "maxmin_dequantize"
+        kernel = kernels.maxmin_dequantize if b4 else \
+            kernels.maxmin_dequantize_sum
+        plain = kernels.maxmin_dequantize_plain if b4 else \
+            kernels.maxmin_dequantize_sum_plain
         values = mnd.shape[-1] * BUCKET
-        return (rotating(lambda *a: kernel(*a, BITS, BUCKET), inputs),
-                rotating(lambda *a: plain(*a, BITS, BUCKET), inputs),
+        return (rotating(lambda *a: kernel(*a, BITS, BUCKET), copies),
+                rotating(lambda *a: plain(*a, BITS, BUCKET), copies),
                 qd.numel() + 8 * mnd.numel() + 4 * values,
                 ops_per_value * qd.shape[0] * values)
 
@@ -1872,17 +2256,16 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
                 (15 + 3 * steps) * padded * fp32 / issue)
 
     work = {
-        # name: (kernel, plain, bytes moved, operations at the fp32 rate)
         "maxmin_quantize": (
             lambda: kernels.maxmin_quantize(x, BITS, BUCKET),
             lambda: kernels.maxmin_quantize_plain(x, BITS, BUCKET),
-            quantize_bytes, 7 * padded),
+            4 * n_values + padded + 8 * n_buckets, 7 * padded),
         "maxmin_quantize_stochastic": (
             lambda: kernels.maxmin_quantize_stochastic(x, BITS, BUCKET, 0),
             lambda: kernels.maxmin_quantize_stochastic_plain(x, BITS, BUCKET,
                                                              0),
             4 * n_values + padded * BITS // 8 + 8 * n_buckets,
-            b2_slots * fp32 / issue),
+            sum(B2_SLOTS.values()) * padded * fp32 / issue),
         "maxmin_dequantize_sum": decode_work("maxmin_dequantize_sum", 3),
         "maxmin_dequantize": decode_work("maxmin_dequantize", 2),
         "norm_quantize": norm_work(BITS),
@@ -1893,65 +2276,50 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
                 nq, tables[BITS].levels, nrm),
             padded + 4 * n_buckets + 4 * padded, 4 * padded),
     }
+    if extra:
+        four = f"maxmin_dequantize_sum_{B3_RANKS}_ranks"
+        work[four] = decode_work(four, 3)
+        work["norm_quantize_8"] = norm_work(8)
+    return work, {"codes": codes, "decode": decode, "tables": tables}
 
-    def timed(kernel, plain, nbytes, ops, ms=None):
-        byte_ms, op_ms = nbytes / bandwidth * 1e3, ops / fp32 * 1e3
-        return {"ms": time_ms(kernel) if ms is None else ms,
-                "plain_ms": time_ms(plain),
-                "bound_ms": max(byte_ms, op_ms),
-                "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
 
-    packed = packed_rounds(kernels, norm_kernels, x, shifted, tables)
-    decoded, graphed = decode_rounds(
-        kernels, decode_inputs, codes,
-        parent_kernels(parent) if parent else {})
-    packed.update(decoded)
-    library = {"maxmin_dequantize": (
-        packed["maxmin_dequantize"], packed["addcmul"],
-        "torch.addcmul(mn[:, None], q, unit[:, None]) on the unpacked uint8 "
-        "codes (rate only: one rounding, a byte a code)")}
-    for name in ("maxmin_quantize_stochastic", "norm_quantize",
-                 "maxmin_dequantize_sum"):
-        library[name] = (packed[name], None, None)
-    rows = []
-    for name, (kernel, plain, nbytes, ops) in work.items():
-        source = "norm" if name.startswith("norm") else "maxmin"
-        ms, lib_ms, lib = library.get(name, (None, None, None))
-        row = {"name": name, "route": "cuda", "source": SOURCES[source],
-               "replaces": REPLACES[name], "launches": launches[name],
-               "max_abs_err": errors[name],
-               **timed(kernel, plain, nbytes, ops, ms), "library_ms": lib_ms}
-        if lib is not None:
-            row["library"] = lib
-        if name in graphed:
-            row.update(graphed[name])
-        if name == "norm_quantize":
-            row.update({f"{k}_at_8_bits": v for k, v in timed(
-                *norm_work(8), packed["norm_quantize_8"]).items()})
-        if name == "maxmin_dequantize_sum":
-            row.update({f"{k}_at_{B3_RANKS}_ranks": v for k, v in timed(
-                *decode_work("maxmin_dequantize_sum_4_ranks", 3),
-                packed["maxmin_dequantize_sum_4_ranks"]).items()})
-            row.update({f"{k}_at_{B3_RANKS}_ranks": v for k, v in
-                        graphed["maxmin_dequantize_sum_4_ranks"].items()})
-            log(f"kernel maxmin_dequantize_sum at {B3_RANKS} ranks of "
-                f"{B3_RANK_BUCKETS} buckets: "
-                f"{row['ms_at_4_ranks']:.4f} ms (plain "
-                f"{row['plain_ms_at_4_ranks']:.4f} ms, bound "
-                f"{row['bound_ms_at_4_ranks']:.6f} ms by "
-                f"{row['bound_by_at_4_ranks']})")
-        rows.append(row)
-        log(f"kernel {name}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}"
-            f" ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
-            f"{nbytes} bytes, {ops:.0f} operations at the fp32 rate)"
-            + (f"; {lib} {lib_ms:.4f} ms" if lib else ""))
-    eight = next(row for row in rows if row["name"] == "norm_quantize")
-    log(f"kernel norm_quantize at 8 bits (128 levels): "
-        f"{eight['ms_at_8_bits']:.4f} ms (plain "
-        f"{eight['plain_ms_at_8_bits']:.4f} ms, bound "
-        f"{eight['bound_ms_at_8_bits']:.4f} ms by "
-        f"{eight['bound_by_at_8_bits']})")
-    return rows
+def bounded(work, rates, ms=None):
+    """``ms`` (timed here if not given) and the plain version's time of
+    one entry of :func:`kernel_work`, beside its bound: the larger of its
+    bytes at the memory rate and its operations at the fp32 rate."""
+    kernel, plain, nbytes, ops = work
+    bandwidth, fp32, _ = rates
+    byte_ms, op_ms = nbytes / bandwidth * 1e3, ops / fp32 * 1e3
+    return {"ms": time_ms(kernel) if ms is None else ms,
+            "plain_ms": time_ms(plain),
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def measure_at(kernels, norm_kernels, dev, rows, errors, vision, rates):
+    """Each path's other shapes (``AT_SHAPES``): its kernels' rows get
+    the time, plain time and bound at that path's buffer (from
+    :func:`kernel_work`, by CUDA events over eager calls), the error of
+    the check at that shape and the launches of the path's run, as fields
+    with the shape's suffix. The inputs (96 MB and more) do not fit the
+    L2, so B3 and B4 decode one copy of theirs."""
+    for suffix, (n, phase, names) in AT_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(n, generator=gen, device=dev) * 1e-2
+        work, _ = kernel_work(kernels, norm_kernels, x, rates[1], copies=1)
+        for row in rows:
+            name = row["name"]
+            if name not in names:
+                continue
+            timed = bounded(work[name], rates)
+            row.update({k + suffix: v for k, v in timed.items()})
+            row["max_abs_err" + suffix] = errors[name + suffix]
+            row["launches" + suffix] = vision[phase]["launches"][name]
+            log(f"kernel {name} at {n} values: {timed['ms']:.4f} ms (plain "
+                f"{timed['plain_ms']:.4f} ms, bound {timed['bound_ms']:.6f} "
+                f"ms by {timed['bound_by']}, {work[name][2]} bytes)")
+        del work
+        torch.cuda.empty_cache()
 
 
 def packed_rounds(kernels, norm_kernels, x, shifted, tables):
@@ -1997,10 +2365,10 @@ def timed_rounds(name: str, fns, graph: bool = False):
 
 def rotating(fn, inputs):
     """A function that calls ``fn`` on each tuple of ``inputs`` in turn and
-    keeps its last ``ROTATE`` outputs alive, so that successive calls read
+    keeps as many of its last outputs alive, so that successive calls read
     and write other memory."""
     turn = itertools.cycle(inputs)
-    alive = collections.deque(maxlen=ROTATE)
+    alive = collections.deque(maxlen=len(inputs))
 
     def call():
         alive.append(fn(*next(turn)))
@@ -2303,7 +2671,9 @@ def main() -> int:
     hvd.init()
     try:
         dev = hvd.device()
-        errors = check_kernels(kernels, dev, RESNET50_PARAMS)
+        errors = check_kernels(kernels, dev, (
+            RESNET50_PARAMS, VGG16_PARAMS,
+            *(n // 4 for n in AUTOTUNE_SIZES)))
         log(f"kernels: B1, B3 and B4 bitwise (B3 and B4 on packed "
             f"payloads at every width, aligned or not, and on byte codes); "
             f"errors at the path's shape {errors}")
@@ -2312,8 +2682,8 @@ def main() -> int:
         log(f"kernels: B2 bitwise (packed payloads against pack_bits of "
             f"the plain codes) at {sum(routes.values())} shapes, seeds and "
             f"offsets; launches by route {routes}")
-        norm_errors, midpoints, routes = check_norm(norm_kernels, dev,
-                                                    RESNET50_PARAMS)
+        norm_errors, midpoints, routes = check_norm(
+            norm_kernels, dev, (RESNET50_PARAMS, INCEPTION_PARAMS))
         errors.update(norm_errors)
         log(f"kernels: B5 bitwise (linf; packed payloads against pack_bits "
             f"of the plain codes) and within rtol 1e-6 with {midpoints} "
@@ -2338,6 +2708,7 @@ def main() -> int:
         train_hierarchical_compressed(hvd)
         train_gpt_zero(hvd)
         model_parallel = train_model_parallel(hvd, args.seed)
+        vision = train_vision(hvd)
         dev = reinit(hvd, None)
         launches = {name: phases[path][name]
                     for path in ("resnet_stochastic", "resnet_uni",
@@ -2345,6 +2716,14 @@ def main() -> int:
                     for name in PATH_LAUNCHES[path]}
         rows = measure(kernels, norm_kernels, dev, RESNET50_PARAMS,
                        launches, errors, rates, args.parent)
+        measure_at(kernels, norm_kernels, dev, rows, errors, vision, rates)
+        for row in rows:
+            if row["name"] in AUTOTUNE_LAUNCHES:
+                row["launches_autotune_compressed"] = \
+                    vision["autotune_compressed"]["launches"][row["name"]]
+                row.update({"max_abs_err" + SHAPES[n // 4]:
+                            errors[row["name"] + SHAPES[n // 4]]
+                            for n in AUTOTUNE_SIZES})
         rows += measure_flash(flash, dev, flash_launches, flash_err, rates,
                               model_parallel["encoder"]["launches"],
                               noncausal_err)

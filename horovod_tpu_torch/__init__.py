@@ -7,8 +7,13 @@ optionally through the IST-DASLab quantized allreduce (max-min or
 normalized quantizers), whose kernels are hand-written CUDA for Hopper
 (``horovod_tpu_torch/csrc``). The ranks form a device mesh with named axes,
 over which the collectives, the hierarchical and Adasum reductions, ZeRO-1
-(``ShardedDistributedOptimizer``) and ``SyncBatchNorm`` run. The JAX package ``horovod_tpu`` is the
-reference it is tested against; this package imports nothing of it.
+(``ShardedDistributedOptimizer``) and ``SyncBatchNorm`` run. PowerSGD
+(``PowerSGDOptimizer``) is the low-rank alternative to quantization, and
+``autotune_compressed`` times the two against dense on the live mesh.
+``save_checkpoint``/``restore_checkpoint`` write and read trees of tensors
+and DTensors over ``torch.distributed.checkpoint``. The JAX package
+``horovod_tpu`` is the reference it is tested against; this package
+imports nothing of it.
 
 Usage::
 
@@ -22,7 +27,15 @@ Usage::
     handle = hvd.allreduce_async(t)  # ... hvd.synchronize(handle)
 """
 
-from .compression import Compression, set_quantization_levels  # noqa: F401
+from .checkpoint import (checkpoint_metadata,  # noqa: F401
+                         latest_checkpoint_step, restore_checkpoint,
+                         save_checkpoint)
+from .compression import (Compression, PowerSGDOptimizer,  # noqa: F401
+                          PowerSGDState, autotune_compressed,
+                          crossover_gbps, payload_nbytes, powersgd_allreduce,
+                          powersgd_init, projected_step_seconds,
+                          set_quantization_levels)
+from .models import MLP, VGG, VGG16, VGG19, InceptionV3  # noqa: F401
 from .exceptions import HvdTpuInternalError  # noqa: F401
 from .functions import allgather_object, broadcast_object  # noqa: F401
 from .ops.collectives import (Adasum, Average, Max, Min,  # noqa: F401

@@ -3,7 +3,8 @@
 Reference surface: ``horovod/torch/compression.py`` (``Compressor`` /
 ``NoneCompressor`` / ``FP16Compressor`` / ``Compression``) plus the
 IST-DASLab quantizers (max-min, deterministic or stochastic, and
-normalized), top-k, error feedback and the five compressed reducers.
+normalized), top-k, error feedback, the five compressed reducers,
+PowerSGD and the compressed-against-dense A/B model.
 """
 
 from __future__ import annotations
@@ -80,5 +81,10 @@ from .reducers import (compressed_allreduce,  # noqa: E402
                        compressed_grouped_allreduce,
                        hierarchical_compressed_allreduce,
                        hierarchical_compressed_residual_zeros)
+from .powersgd import (PowerSGDOptimizer, PowerSGDState,  # noqa: E402
+                       powersgd_allreduce, powersgd_init,
+                       powersgd_state_from_jax)
 from .config import (CompressionConfig, LayerRule, from_env,  # noqa: E402
                      make_compressor)
+from .ab import (autotune_compressed, crossover_gbps,  # noqa: E402
+                 payload_nbytes, projected_step_seconds)

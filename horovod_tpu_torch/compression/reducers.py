@@ -16,8 +16,8 @@ with ``all_gather`` as ``all_gather_into_tensor``, ``all_to_all`` as
 ``all_to_all_single``, ``ppermute`` as ``batch_isend_irecv``
 (:func:`collectives.send_recv`) and ``broadcast_p`` as ``broadcast``, each
 through the collectives' unchecked launches: every rank passes the same
-shapes, so no descriptor is exchanged. Each runs over every rank, or
-over a mesh axis's ranks (``axis=``, as the JAX reducers take
+shapes, so no descriptor is exchanged. Each runs over the data-parallel
+axis, or over another mesh axis's ranks (``axis=``, as the JAX reducers take
 ``axis=outer_axis``). The
 named reducer runs at every world size, one included: then the exchanges
 move the payload to this rank itself and the quantize and decode kernels
@@ -309,8 +309,8 @@ def compressed_allreduce(x: torch.Tensor, compressor,
                          op: C.ReduceOp = C.ReduceOp.AVERAGE,
                          residual: Optional[torch.Tensor] = None,
                          key=None, axis=None):
-    """Allreduce with lossy compression on the wire, over every rank or the
-    ranks of mesh axis ``axis``. ``key`` (an ``int`` seed or a CPU
+    """Allreduce with lossy compression on the wire, over the ranks of mesh
+    axis ``axis`` (the data-parallel axis by default). ``key`` (an ``int`` seed or a CPU
     ``torch.Generator``) seeds stochastic rounding where the reducer takes
     it.
 
@@ -335,7 +335,8 @@ def compressed_grouped_allreduce(tensors: Sequence[torch.Tensor], compressor,
     """Compressed allreduce of a list of tensors as ONE fused buffer
     (reference: ``CompressionMode::Fused``, ``common.h:164-168``): the
     tensors are flattened into one fp32 buffer, quantized and reduced once
-    (over every rank, or mesh axis ``axis``), and split back.
+    (over mesh axis ``axis``, the data-parallel one by default), and split
+    back.
 
     Returns the reduced list, or ``(list, new_residuals)`` when
     ``residuals`` is given.

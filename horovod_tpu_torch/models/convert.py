@@ -5,9 +5,10 @@
 layouts, so each leaf is copied under its dotted path.
 
 :func:`flax_to_torch` takes the ``{"params": ..., "batch_stats": ...}``
-tree of ``horovod_tpu.models.ResNet`` as nested dicts of numpy arrays
-(either collection may be absent, so a gradient tree converts too) and
-returns tensors named as in :class:`horovod_tpu_torch.models.resnet.ResNet`:
+tree of a flax model of ``horovod_tpu.models`` (``ResNet``, ``MLP``,
+``VGG``, ``InceptionV3``, ``Transformer``, ``Encoder``) as nested dicts of
+numpy arrays (either collection may be absent, so a gradient tree converts
+too) and returns tensors named as in the port's model, for ResNet:
 
 ==================================  ===================================
 flax                                port
@@ -17,6 +18,8 @@ flax                                port
 ``Conv_j`` / ``BatchNorm_j``        ``conv{j+1}`` / ``bn{j+1}``
 ``conv_proj`` / ``norm_proj``       ``conv_proj`` / ``norm_proj``
 ``Dense_0``                         ``fc``
+``Conv_j`` alone in its module      ``conv`` (likewise ``bn``, ``fc``)
+any other module (``ConvBN_3``)     its own name
 ``kernel`` (HWIO conv)              ``weight`` (OIHW)
 ``kernel`` (in, out dense)          ``weight`` (out, in)
 ``scale`` / ``bias``                ``weight`` / ``bias``
@@ -66,8 +69,7 @@ def _leaf(name: str, value: np.ndarray) -> torch.Tensor:
 
 
 def flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Convert flax ResNet, Transformer or Encoder variables to a
-    ``state_dict`` (see module doc)."""
+    """Convert flax variables to a ``state_dict`` (see module doc)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, path):

@@ -36,13 +36,19 @@ def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0
+def _pair(v: Union[int, Sequence[int]]) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _pad_same(x: torch.Tensor, kernel, stride, value: float = 0.0
               ) -> Tuple[torch.Tensor, Tuple[int, int]]:
-    """Pad ``x`` (NCHW) for a ``SAME`` window op. Symmetric padding is
-    returned for the op to apply itself; an asymmetric one is applied here,
-    keeping ``x``'s memory format."""
-    (ht, hb), (wl, wr) = (_same_pads(x.shape[2], kernel, stride),
-                          _same_pads(x.shape[3], kernel, stride))
+    """Pad ``x`` (NCHW) for a ``SAME`` window op (``kernel`` and ``stride``
+    an int or one per spatial dim). Symmetric padding is returned for the
+    op to apply itself; an asymmetric one is applied here, keeping ``x``'s
+    memory format."""
+    (kh, kw), (sh, sw) = _pair(kernel), _pair(stride)
+    (ht, hb), (wl, wr) = (_same_pads(x.shape[2], kh, sh),
+                          _same_pads(x.shape[3], kw, sw))
     if ht == hb and wl == wr:
         return x, (ht, wl)
     fmt = (torch.channels_last
@@ -59,25 +65,32 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int) -> None:
 
 
 class Conv(nn.Module):
-    """``nn.Conv(use_bias=False)`` of flax: ``SAME`` padding unless an
-    explicit symmetric ``padding`` is given."""
+    """``nn.Conv`` of flax, without a bias unless ``bias``: ``kernel`` and
+    ``stride`` an int or one per spatial dim; ``padding`` ``"SAME"``,
+    ``"VALID"`` or an explicit symmetric int."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int,
-                 stride: int = 1, padding: Union[str, int] = "SAME"):
+    def __init__(self, in_channels: int, out_channels: int, kernel,
+                 stride=1, padding: Union[str, int] = "SAME",
+                 bias: bool = False):
         super().__init__()
-        self.kernel = kernel
-        self.stride = stride
+        self.kernel = _pair(kernel)
+        self.stride = _pair(stride)
         self.padding = padding
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kernel, kernel))
-        _lecun_normal_(self.weight, in_channels * kernel * kernel)
+            torch.empty(out_channels, in_channels, *self.kernel))
+        _lecun_normal_(self.weight, in_channels * math.prod(self.kernel))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias \
+            else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.padding == "SAME":
             x, pad = _pad_same(x, self.kernel, self.stride)
+        elif self.padding == "VALID":
+            pad = (0, 0)
         else:
             pad = (self.padding, self.padding)
-        return F.conv2d(x, self.weight, stride=self.stride, padding=pad)
+        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
+                        padding=pad)
 
 
 class BatchNorm(nn.Module):

@@ -12,14 +12,15 @@ as ``lax.ppermute``, and the two-level reductions over two mesh axes,
 Reference surface: ``horovod/torch/mpi_ops.py``.
 
 Every op returns new tensors; its input is left as it was. They run over
-every rank, or with ``axis=`` over a mesh axis's process group
-(``runtime.group``; NCCL on the card, gloo on the CPU): sizes, ranks,
+the data-parallel axis (every rank on the default one-axis mesh), or with
+``axis=`` over another mesh axis's process group (``runtime.group``; NCCL on the card, gloo on the CPU): sizes, ranks,
 roots and Average's divisor are then the group's. ``op=Adasum`` runs the
 VHDD exchange of :mod:`horovod_tpu_torch.parallel.adasum`, each tensor of
 a group with its own coefficients.
 
 * **Agreement.** Before any data moves, each call a user makes (sync or
-  async) gathers one fixed-size int64 descriptor from every rank (the
+  async) gathers one fixed-size int64 descriptor from every rank of its
+  group (the
   operation, dtype, reduce op, root, shape and splits) and checks it by the
   port's copy of the rules of ``horovod_tpu/native/core.cpp:2501-2600``. On
   a mismatch every rank raises :class:`HvdTpuInternalError` with the
@@ -993,8 +994,8 @@ def send_recv(send: Optional[Dict[str, torch.Tensor]] = None,
     """Send the tensors of ``send`` to rank ``dst`` and receive tensors
     shaped like those of ``recv_like`` from rank ``src``, in one
     ``batch_isend_irecv`` (one rank's part of a ``lax.ppermute``). ``dst``
-    and ``src`` are ranks of mesh axis ``axis`` (or of ``group``), every
-    rank's by default. Either side may be left out; the tensors go in the
+    and ``src`` are ranks of mesh axis ``axis`` (or of ``group``), the
+    data-parallel axis's by default. Either side may be left out; the tensors go in the
     order of their sorted names. Returns the received tensors, or None."""
     if group is None:
         group = runtime.group(axis)

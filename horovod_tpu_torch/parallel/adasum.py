@@ -116,7 +116,7 @@ def _bitrev(m: int, bits: int) -> int:
 def adasum(x: torch.Tensor, axis=None, group=None,
            sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Adasum of ``x`` over the ranks of mesh axis ``axis`` (or ``group``;
-    every rank by default), computed in fp32 and returned in ``x``'s dtype
+    the data-parallel axis by default), computed in fp32 and returned in ``x``'s dtype
     and shape. ``sizes``: the lengths of the tensors fused in ``x``, each
     combined with its own coefficients (default: ``x`` is one tensor). At
     one rank ``x`` is returned as it is (JAX ``adasum.py:61-62``)."""

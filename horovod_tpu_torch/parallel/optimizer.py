@@ -20,8 +20,8 @@ pass:
   filled in reverse registration order (the order backward produces them)
   up to ``HVDTPU_FUSION_THRESHOLD`` bytes (64 MiB by default); a bucket
   copies its gradients into one flat buffer, allocated once and reused, and
-  starts an async allreduce on it (over every rank, a mesh axis
-  ``axis``, or, with ``hierarchical=(inner, outer)``, the two-level
+  starts an async allreduce on it (over the data-parallel axis, a mesh
+  axis ``axis``, or, with ``hierarchical=(inner, outer)``, the two-level
   reduction of :func:`~horovod_tpu_torch.ops.collectives.
   hierarchical_allreduce`; Adasum combines each gradient of a bucket with
   its own coefficients);
@@ -352,7 +352,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         C._agree("DistributedOptimizer",
                  (len(self._units), sum(p.numel() for p in params)),
                  params[0].dtype if params else torch.float32,
-                 op=self._op, sig=zlib.crc32(repr(layout).encode()))
+                 group=runtime.world_group(), op=self._op,
+                 sig=zlib.crc32(repr(layout).encode()))
 
     # -- synchronization -------------------------------------------------------
 
@@ -463,8 +464,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
       scaled by f/size before the sum and by 1/f after (op must be
       Average; size is the ranks the reduction spans); otherwise
       ``prescale_factor``/``postscale_factor`` scale before and after.
-    * ``axis``: reduce over the ranks of this mesh axis (every rank by
-      default).
+    * ``axis``: reduce over the ranks of this mesh axis (the
+      data-parallel axis by default, as in the JAX package).
     * ``hierarchical``: ``(inner_axis, outer_axis)`` reduces each dense
       bucket by :func:`~horovod_tpu_torch.ops.collectives.
       hierarchical_allreduce` (Adasum: sum within the inner axis, Adasum

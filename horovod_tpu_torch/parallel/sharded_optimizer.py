@@ -35,7 +35,8 @@ from ..ops import collectives as C
 
 
 class ShardedDistributedOptimizer:
-    """ZeRO-1 over the ranks of mesh axis ``axis`` (every rank by default).
+    """ZeRO-1 over the ranks of mesh axis ``axis`` (the data-parallel axis
+    by default).
 
     Usage::
 

@@ -168,7 +168,8 @@ def autotune_hierarchical(inner_axis: str, outer_axis: str,
           m("hierarchical", nb, inner_axis, outer_axis, reps)]
          for nb in sizes_sorted], dtype=torch.float64,
         device=runtime.device())
-    times = C._broadcast(times, root_rank=0).tolist()
+    times = C._broadcast(times, root_rank=0,
+                         group=runtime.world_group()).tolist()
     results = {}
     table: List[Tuple[int, str]] = []
     for (flat_s, hier_s), nbytes in zip(times, sizes_sorted):

@@ -88,7 +88,7 @@ class _SyncBatchNormFn(torch.autograd.Function):
 
 class SyncBatchNorm(BatchNorm):
     """``BatchNorm`` whose training statistics span the ranks of mesh axis
-    ``axis`` (a name or a tuple of names; every rank by default). In eval
+    ``axis`` (a name or a tuple of names; the data-parallel axis by default). In eval
     mode it normalizes by the running statistics, as ``BatchNorm`` does."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,

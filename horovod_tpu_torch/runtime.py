@@ -20,7 +20,9 @@ devices: row-major over the axes in the order given, so on a
 ``{"dcn": D, "ici": I}`` mesh rank ``o * I + i`` sits at ``(o, i)``. Every
 axis, and every set of axes, has its process group (:func:`group`): the
 ranks that share their coordinates on the other axes. The collectives take
-an ``axis=`` and run over that group; without one they run over every rank.
+an ``axis=`` and run over that group; without one they run over the
+data-parallel axis (:func:`dp_axis`), as the JAX package's ``axis=None``
+does. An exchange that must span every rank asks for :func:`world_group`.
 """
 
 from __future__ import annotations
@@ -296,16 +298,26 @@ def axis_names() -> Tuple[str, ...]:
 def group(axis=None):
     """The process group of a mesh axis (a name), of several axes (a tuple
     of names in any order: the ranks that share their coordinates on the
-    other axes), or of every rank (``None``)."""
+    other axes), or of the data-parallel axis (``None``; JAX
+    ``_resolve_axis``, ``horovod_tpu/ops/collectives.py:71``). Every axis
+    together is every rank."""
     st = _require_init()
     if axis is None:
-        return dist.group.WORLD
+        axis = st.dp_axis
     names = (axis,) if isinstance(axis, str) else tuple(axis)
     unknown = [a for a in names if a not in st.axis_names]
     if unknown or not names or len(set(names)) != len(names):
         raise ValueError(f"axis {axis!r} does not name axes of the mesh "
                          f"{st.mesh_shape} once each")
     return st.groups[tuple(a for a in st.axis_names if a in names)]
+
+
+def world_group():
+    """The process group of every rank: for the exchanges that span the
+    whole world whatever the mesh (the optimizer's layout check, the
+    object collectives)."""
+    _require_init()
+    return dist.group.WORLD
 
 
 # Build flags (reference: ``horovod/common/basics.py``), for this package:

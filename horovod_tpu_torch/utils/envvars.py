@@ -8,7 +8,8 @@ the gradient buckets' size (reference: ``HOROVOD_FUSION_THRESHOLD``,
 ``horovod_tpu/basics.py:292``), the device mesh (``HVDTPU_MESH_SHAPE``,
 ``horovod_tpu/utils/envvars.py:350``), the flat-or-hierarchical
 calibration's log (``HVDTPU_AUTOTUNE_LOG``, ``:242``; reference:
-``HOROVOD_AUTOTUNE_LOG``) and the log level.
+``HOROVOD_AUTOTUNE_LOG``), PowerSGD's residual cap and warning
+(``:361-362``) and the log level.
 """
 
 from __future__ import annotations
@@ -45,6 +46,12 @@ HVDTPU_MESH_SHAPE = "HVDTPU_MESH_SHAPE"
 # Where autotune_hierarchical saves its table and choose_hierarchical
 # loads it from on its first uncalibrated query.
 HVDTPU_AUTOTUNE_LOG = "HVDTPU_AUTOTUNE_LOG"
+
+# PowerSGD's residual state, reckoned globally (world x fp32 gradients):
+# a hard cap in bytes (unset: none), and the size above which init warns.
+HVDTPU_POWERSGD_RESIDUAL_CAP = "HVDTPU_POWERSGD_RESIDUAL_CAP"
+HVDTPU_POWERSGD_RESIDUAL_WARN = "HVDTPU_POWERSGD_RESIDUAL_WARN"
+DEFAULT_POWERSGD_RESIDUAL_WARN = 1 << 30
 
 HVDTPU_COMPRESSION = "HVDTPU_COMPRESSION"
 HVDTPU_REDUCTION = "HVDTPU_REDUCTION"

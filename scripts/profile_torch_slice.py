@@ -20,7 +20,10 @@ configuration with flash attention, 2 x 4096 tokens, remat ``full``, the
 dense ``DistributedOptimizer`` and SGD), or one of its model-parallel
 phases on a one-card mesh (``gpt_ulysses_flash``, ``gpt_ring``,
 ``gpt_moe``: ``chip_smoke.MP_PATHS``; the sums over sp and ep after the
-wait), and, after warm-up:
+wait), or a vision phase (``vgg16``: VGG-16 through 4-bit max-min;
+``vgg16_powersgd``: through ``PowerSGDOptimizer`` at rank 4, whose wait is
+the PowerSGD reduction; ``inception_v3``: Inception V3 at 299x299 through
+the normalized quantizer), and, after warm-up:
 
 1. times ``--steps`` steps after ``chip_smoke.py``'s warm-up on the host
    clock as ``chip_smoke.py`` does (and each on the device), then the
@@ -102,11 +105,19 @@ def main() -> int:
             forward_backward = chip_smoke.forward_backward
             model, opt, inputs, targets = chip_smoke.make_sync_adasum_slice(
                 hvd, dev, sync=args.path == "resnet_syncbn_adasum")
+        elif args.path in ("vgg16", "vgg16_powersgd", "inception_v3"):
+            forward_backward = chip_smoke.forward_backward
+            model, opt, inputs, targets = chip_smoke.make_vision_slice(
+                hvd, dev, args.path)
         else:
             forward_backward = chip_smoke.forward_backward
             model, opt, inputs, targets = chip_smoke.make_slice(
                 hvd, dev, chip_smoke.resnet_compressors()[args.path])
-        inner_step = type(opt).__mro__[1].step
+        if isinstance(opt, hvd.PowerSGDOptimizer):
+            def inner_step(o):
+                o.optimizer.step()
+        else:
+            inner_step = type(opt).__mro__[1].step
         launched = []
 
         def step(marks=None):

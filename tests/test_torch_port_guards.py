@@ -45,6 +45,12 @@ def test_import_pulls_in_no_jax():
     code = ("import sys\n"
             "import horovod_tpu_torch\n"
             "import horovod_tpu_torch.models.convert\n"
+            "import horovod_tpu_torch.checkpoint\n"
+            "import horovod_tpu_torch.compression.ab\n"
+            "import horovod_tpu_torch.compression.powersgd\n"
+            "import horovod_tpu_torch.models.inception\n"
+            "import horovod_tpu_torch.models.mlp\n"
+            "import horovod_tpu_torch.models.vgg\n"
             "import horovod_tpu_torch.compression.kernels\n"
             "import horovod_tpu_torch.compression.norm_kernels\n"
             "import horovod_tpu_torch.compression.quantize\n"

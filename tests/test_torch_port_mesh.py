@@ -102,7 +102,8 @@ def _port_hierarchical(world, rank):
             out[(op, n)] = {
                 "hier": thvd.hierarchical_allreduce(
                     x, _op(op), "ici", "dcn").numpy(),
-                "flat": thvd.allreduce(x, op=_op(op)).numpy()}
+                "flat": thvd.allreduce(x, op=_op(op),
+                                       axis=("dcn", "ici")).numpy()}
     for n in LENGTHS:
         x = torch.from_numpy(_values(world, (n,), n)[rank])
         out[("adasum", n)] = thvd.hierarchical_allreduce(
@@ -229,7 +230,7 @@ def _port_optimizer(world, rank):
     os.environ["HVDTPU_FUSION_THRESHOLD"] = "64"
     out = {}
     for name, kw in (("hier", dict(hierarchical=("ici", "dcn"))),
-                     ("flat", {})):
+                     ("flat", dict(axis=("dcn", "ici")))):
         torch.manual_seed(0)
         model = torch.nn.Linear(5, 3)
         opt = thvd.DistributedOptimizer(

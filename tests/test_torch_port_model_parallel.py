@@ -18,7 +18,8 @@ with ``DistributedOptimizer(axis="dp")`` and
 the port's plain flash), 8 query heads over 4 kv heads; the switch-MoE GPT
 on ep x sp (4 experts, capacity factor 1, so tokens are dropped); GPipe on
 dp x pp (``_dryrun_pipeline_pp``'s stage and data, M = 4; also with
-``remat=True``); GPT on dp x tp. The flax-style ``Transformer`` with
+``remat=True``); GPT on dp x tp, with the optimizer's ``axis="dp"`` and
+again at its default axis, which is dp as in the JAX package. The flax-style ``Transformer`` with
 ``make_ring_attention``/``make_ulysses_attention`` over sp is held to the
 same model on the whole sequence (within 1e-5).
 Each in-step operator's gradient is held against ``jax.grad`` of a
@@ -75,6 +76,10 @@ GPT_CASES = {
     "dp_tp": ("dp_tp", dict(DENSE, tp_axis="tp", sp_axis=None,
                             attention="dense", num_kv_heads=None)),
 }
+# The dp x tp case again with the port's optimizer at its default axis,
+# which must be dp as in the JAX package (the JAX side always uses it).
+GPT_CASES["dp_tp_default_axis"] = GPT_CASES["dp_tp"]
+DEFAULT_AXIS_CASES = ("dp_tp_default_axis",)
 STEPS, LR = 2, 0.1
 PIPE_M, PIPE_MB, PIPE_D = 4, 2, 8
 RTOL, OP_TOL = 1e-5, 1e-6
@@ -115,9 +120,10 @@ def _port_gpt(name, params):
     cfg = gpt.GPTConfig(dtype=torch.float32, **kw)
     model = gpt.GPT(cfg)
     model.load_state_dict(gpt_params_to_torch(params, cfg))
+    axis = {} if name in DEFAULT_AXIS_CASES else {"axis": "dp"}
     opt = thvd.DistributedOptimizer(
         torch.optim.SGD(model.parameters(), lr=LR),
-        named_parameters=model.named_parameters(), axis="dp")
+        named_parameters=model.named_parameters(), **axis)
     spec = gpt.data_specs(cfg)
     tokens, targets, positions = (local_shard(torch.from_numpy(a), spec)
                                   for a in _batch(name))

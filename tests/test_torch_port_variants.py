@@ -135,20 +135,27 @@ def _slice_inputs():
 # ---------------------------------------------------------------------------
 
 def _port_adasum(world, rank):
+    # Every rank, as the JAX side's one dp axis: on the 2 x 2 mesh the
+    # default axis is the first one (dcn), so the cases name both.
+    every = thvd.axis_names()
     out = {case: thvd.allreduce(torch.from_numpy(
-        _adasum_inputs(case, world)[rank]), op=thvd.Adasum).numpy()
+        _adasum_inputs(case, world)[rank]), op=thvd.Adasum,
+        axis=every).numpy()
         for case in ADASUM_CASES}
     group = [torch.from_numpy(v[rank]) for v in _group_inputs(world)]
     out["grouped"] = [t.numpy() for t in
-                      thvd.grouped_allreduce(group, op=thvd.Adasum)]
+                      thvd.grouped_allreduce(group, op=thvd.Adasum,
+                                             axis=every)]
     x = torch.from_numpy(_adasum_inputs("random", world)[rank])
     out["async_bitwise"] = torch.equal(
-        thvd.synchronize(thvd.allreduce_async(x, op=thvd.Adasum)),
-        thvd.allreduce(x, op=thvd.Adasum))
-    out["bf16"] = thvd.allreduce(x.to(torch.bfloat16), op=thvd.Adasum) \
-        .float().numpy()
+        thvd.synchronize(thvd.allreduce_async(x, op=thvd.Adasum,
+                                              axis=every)),
+        thvd.allreduce(x, op=thvd.Adasum, axis=every))
+    out["bf16"] = thvd.allreduce(x.to(torch.bfloat16), op=thvd.Adasum,
+                                 axis=every).float().numpy()
     out["scaled"] = thvd.allreduce(x, op=thvd.Adasum, prescale_factor=0.5,
-                                   postscale_factor=3.0).numpy()
+                                   postscale_factor=3.0,
+                                   axis=every).numpy()
     if world == 4:
         out["dcn"] = thvd.allreduce(x, op=thvd.Adasum, axis="dcn").numpy()
     return out
@@ -161,6 +168,7 @@ def _port_zero(world, rank):
                   for k, v in _zero_params().items()}
         kw = dict(momentum=0.9) if name == "sgd" else {}
         opt = thvd.ShardedDistributedOptimizer(cls, params.values(),
+                                               axis=thvd.axis_names(),
                                                lr=ZERO_LR[name], **kw)
         for grads in _zero_grads(world):
             opt.zero_grad()

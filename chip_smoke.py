@@ -79,6 +79,32 @@ just after:
   crosses a link, so the table names no real winner). B1, B3 and B4 are
   also held bitwise at VGG-16's 138,357,544 values, B5 and B6 at
   Inception's 23,834,568, and timed there.
+* phase (k), the process-mode native core: the script starts itself
+  twice (``--process-worker``, with the ``HVDTPU_*`` topology variables a
+  launcher exports), two ranks of ``hvd.init(mode="process",
+  device="cuda:0")`` sharing the card (one rank if its compute mode allows
+  one context), the core built from ``horovod_tpu_torch/native`` by the
+  parent beside the kernels. On tensors on the card, staged through pinned
+  host memory: (k1) the collective menu (allreduce over fp32, bf16, fp16
+  and int32 with Sum, Average, Min and Max, fp32 Adasum, pre- and
+  postscale; grouped allreduce, broadcast, allgather with uneven rows,
+  alltoall with splits and the splits received, reducescatter, the object
+  collectives), every result equal to what the host computes, and a
+  shape mismatch, a dtype mismatch and a duplicate name each raising its
+  own class on every rank; then full-width ResNet-50 (batch 64 a rank,
+  synthetic data from ``--seed`` plus the rank), 2 warm-up and 5 timed
+  steps each: (k2) the dense ``DistributedOptimizer`` through the core
+  (the weights bitwise equal across the ranks; step, backward and the
+  hooks' stream wait, peak memory, bytes staged each way, the core's wire
+  bytes and transports), (k5) ``join``: the last rank takes one step more,
+  its reduction is its own gradient over the world, and ``join()``
+  returns that rank everywhere, (k3) 4-bit max-min with error feedback
+  through the eager process-compressed path (B1 once and B4 ranks + 1
+  times a step, B4 on the packed route; weights bitwise equal), (k6)
+  ZeRO-1 Adam over the core's reduce-scatter and allgather (weights
+  bitwise equal; the Adam state of the shard, published to the core's
+  gauge), and (k4) the core's int4 wire on a world of its own (2 + 3
+  steps; fewer bytes sent than raw).
 
 ``DistributedOptimizer`` reduces from gradient hooks: every timed step of
 a training phase must launch its reductions before ``loss.backward()``
@@ -339,6 +365,11 @@ GRAPH_REPLAYS = 5  # replays of a captured graph of timed calls
 # 50 MB L2, so one buffer reused would be timed from the cache.
 ROTATE = 4
 BF16_TOL = (2**-7, 2**-8, 2**-14)  # of |value|, of mean |value|, absolute
+# Phase (k), the process-mode native core: two ranks share the card (one
+# where its compute mode allows one context), 2 warm-up and MESH_STEPS
+# timed steps a sub-phase, the int4 wire world PROCESS_WIRE_STEPS; the
+# ranks must finish within PROCESS_TIMEOUT seconds.
+PROCESS_RANKS, PROCESS_WIRE_STEPS, PROCESS_TIMEOUT = 2, 3, 420
 
 
 def log(msg: str) -> None:
@@ -2633,6 +2664,397 @@ def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# (k) the process-mode native core: ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+def process_launches(n: int):
+    """(k3)'s launches a step: B1 quantizes the fused group once; B4
+    decodes it once for the error-feedback residual and once for each
+    rank's gathered payload."""
+    return {"maxmin_quantize": 1, "maxmin_dequantize": n + 1}
+
+
+def process_menu(hvd, dev, r: int, n: int) -> int:
+    """(k1): the collective menu through the core on tensors on ``dev``,
+    each result equal to what the host computes from every rank's inputs
+    (integers, and scales by powers of two, so that every result is
+    exact); the error classes on every rank. Returns the results
+    checked."""
+    checked = [0]
+
+    def same(what, got, want):
+        got = got.cpu()
+        if got.dtype != want.dtype or got.shape != want.shape or \
+                not torch.equal(got, want):
+            raise AssertionError(f"(k1) {what}: {got} against {want}")
+        checked[0] += 1
+
+    def vals(q, rows=6):
+        return ((torch.arange(rows * 4).view(rows, 4) * (q + 3)) % 17
+                - 8).double()
+
+    stack = torch.stack([vals(q) for q in range(n)])
+    wants = {"Sum": stack.sum(0), "Min": stack.min(0).values,
+             "Max": stack.max(0).values, "Average": stack.sum(0) / n}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32):
+        x = vals(r).to(dtype).to(dev)
+        floating = dtype.is_floating_point
+        for op, want in wants.items():
+            if op == "Average" and not floating:
+                # The core scales integers by llround.
+                want = want.sign() * (want.abs() + 0.5).floor()
+            same(f"{dtype} {op}", hvd.allreduce(
+                x, op=getattr(hvd, op), name=f"k1.{dtype}.{op}"),
+                want.to(dtype))
+        if not floating:
+            continue
+        same(f"{dtype} Sum, prescale 0.5, postscale 4", hvd.allreduce(
+            x, op=hvd.Sum, prescale_factor=0.5, postscale_factor=4.0,
+            name=f"k1.{dtype}.scaled"), (stack.sum(0) * 2).to(dtype))
+        if dtype != torch.float32:
+            continue  # the core's Adasum takes fp32 and fp64
+        # Orthogonal vectors: Adasum adds them.
+        rows = torch.zeros(n, 6, 4, dtype=torch.float64)
+        for q in range(n):
+            rows[q, q] = vals(q)[q]
+        same(f"{dtype} Adasum", hvd.allreduce(
+            rows[r].to(dtype).to(dev), op=hvd.Adasum,
+            name=f"k1.{dtype}.adasum"), rows.sum(0).to(dtype))
+    group = [vals(r)[:3].float(), vals(r).reshape(-1)[:5].float(),
+             vals(r).reshape(-1)[:7].to(torch.bfloat16)]
+    for i, got in enumerate(hvd.grouped_allreduce(
+            [t.to(dev) for t in group], op=hvd.Sum, name="k1.group")):
+        same(f"grouped {i}", got, sum(
+            [vals(q)[:3], vals(q).reshape(-1)[:5],
+             vals(q).reshape(-1)[:7]][i] for q in range(n)).to(
+                 group[i].dtype))
+    root = n - 1
+    same("broadcast", hvd.broadcast(vals(r).float().to(dev), root,
+                                    name="k1.bc"), vals(root).float())
+    same("allgather", hvd.allgather(vals(r, r + 1).float().to(dev),
+                                    name="k1.ag"),
+         torch.cat([vals(q, q + 1) for q in range(n)]).float())
+    sends = [[(q + j) % 3 for j in range(n)] for q in range(n)]
+    rows = [vals(q, sum(sends[q])).float() for q in range(n)]
+    got, recv = hvd.alltoall(rows[r].to(dev), splits=sends[r],
+                             name="k1.a2a")
+    same("alltoall", got, torch.cat(
+        [rows[q][sum(sends[q][:r]):sum(sends[q][:r + 1])]
+         for q in range(n)]))
+    same("alltoall received splits", recv,
+         torch.tensor([sends[q][r] for q in range(n)], dtype=torch.int32))
+    same("reducescatter", hvd.reducescatter(
+        vals(r, 3 * n).float().to(dev), op=hvd.Sum, name="k1.rs"),
+        sum(vals(q, 3 * n) for q in range(n))[3 * r:3 * r + 3].float())
+    if hvd.broadcast_object({"rank": r, "v": [r] * 3}, 0) != \
+            {"rank": 0, "v": [0, 0, 0]} or \
+            hvd.allgather_object(r) != list(range(n)):
+        raise AssertionError("(k1) object collectives")
+    checked[0] += 2
+    def raises(what, cls, call):
+        try:
+            call()
+        except cls as e:
+            log(f"(k1) {what}: {cls.__name__}: {e}")
+            checked[0] += 1
+        else:
+            raise AssertionError(f"(k1) no {cls.__name__} for the {what}")
+
+    with hvd.grouped_enqueue():  # the first stays pending
+        h = hvd.allreduce_async(torch.ones(2, device=dev), name="k1.dup")
+        raises("duplicate name", hvd.DuplicateNameError,
+               lambda: hvd.allreduce_async(torch.ones(2, device=dev),
+                                           name="k1.dup"))
+    same("allreduce beside the duplicate", hvd.synchronize(h),
+         torch.full((2,), float(n)) / n)
+    if n > 1:
+        raises("shape mismatch", hvd.TensorShapeMismatchError,
+               lambda: hvd.allreduce(torch.ones(r + 1, device=dev),
+                                     name="k1.bad_shape"))
+        raises("dtype mismatch", hvd.TensorDtypeMismatchError,
+               lambda: hvd.allreduce(torch.ones(
+                   3, device=dev, dtype=torch.float32 if r == 0
+                   else torch.float64), name="k1.bad_dtype"))
+    return checked[0]
+
+
+def weights_digest(model) -> str:
+    """SHA-256 of every parameter's bytes, in order."""
+    import hashlib
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+def same_weights(hvd, path: str, model) -> str:
+    """Every rank's weights bitwise equal (their digests through the
+    core's allgather)."""
+    digests = hvd.allgather_object(weights_digest(model))
+    if len(set(digests)) != 1:
+        raise AssertionError(f"{path}: the ranks' weights differ {digests}")
+    return digests[0]
+
+
+def process_slice(hvd, dev, seed: int, compression=None, zero=False):
+    """Full-width ResNet-50 on ``dev``, its optimizer through the core, and
+    this rank's synthetic batch (seed + rank)."""
+    from horovod_tpu_torch.models import ResNet50
+    torch.manual_seed(seed)
+    model = ResNet50(num_classes=1000).to(dev,
+                                          memory_format=torch.channels_last)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    if zero:
+        opt = hvd.ShardedDistributedOptimizer(
+            torch.optim.Adam, model.parameters(), lr=ZERO_LR)
+    else:
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=LR, momentum=0.9),
+            named_parameters=model.named_parameters(),
+            compression=compression)
+    gen = torch.Generator(device=dev).manual_seed(seed + hvd.rank())
+    images = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    return model, opt, images, labels
+
+
+def process_steps(hvd, path: str, model, opt, images, labels,
+                  steps: int = MESH_STEPS, falls: bool = True):
+    """``MESH_WARMUP`` steps, then ``steps`` timed ones: their losses, step
+    ms, backward ms and the part of it the hooks waited for the stream
+    before the core could read a bucket, peak memory, bytes staged each way
+    a step, the core's wire bytes, and the launches and routes."""
+    from horovod_tpu_torch.ops import collectives as C
+    backward, waits = [], []
+
+    def step():
+        w0, t0 = C.STAGED["wait_s"], time.perf_counter()
+        loss = forward_backward(model, opt, images, labels)
+        backward.append(time.perf_counter() - t0)
+        waits.append(C.STAGED["wait_s"] - w0)
+        opt.step()
+        return loss
+
+    losses = [step() for _ in range(MESH_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    del backward[:], waits[:]
+    staged, wire = dict(C.STAGED), hvd.runtime.core().wire_stats()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    raw, sent = (b - a for a, b in zip(wire, hvd.runtime.core().wire_stats()))
+    stats = {
+        "losses": [float(v) for v in losses], "step_ms": ms,
+        "backward_ms": statistics.mean(backward) * 1e3,
+        "backward_wait_ms": statistics.mean(waits) * 1e3,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "d2h_bytes_a_step": (C.STAGED["d2h"] - staged["d2h"]) // steps,
+        "h2d_bytes_a_step": (C.STAGED["h2d"] - staged["h2d"]) // steps,
+        "wire_raw_bytes_a_step": raw // steps,
+        "wire_sent_bytes_a_step": sent // steps,
+        "launches": read_launches(), "routes": read_routes()}
+    log(f"(k) {path} rank {hvd.rank()}: step {ms:.3f} ms, backward "
+        f"{stats['backward_ms']:.3f} ms of which the hooks waited "
+        f"{stats['backward_wait_ms']:.3f} ms for the stream, peak "
+        f"{stats['peak_gib']:.3f} GiB, staged a step "
+        f"{stats['d2h_bytes_a_step']} bytes to the host and "
+        f"{stats['h2d_bytes_a_step']} back, wire a step "
+        f"{stats['wire_raw_bytes_a_step']} raw / "
+        f"{stats['wire_sent_bytes_a_step']} sent, launches in {steps} steps "
+        f"{stats['launches']}; losses {stats['losses']}")
+    if falls:
+        check_losses(stats["losses"])
+    elif not all(math.isfinite(v) for v in stats["losses"]):
+        raise AssertionError(f"{path}: non-finite loss {stats['losses']}")
+    return stats
+
+
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def transports(hvd):
+    """The transports the core's ops ran over, from its metrics."""
+    import re
+    return sorted(set(re.findall(r'transport="([^"]*)"',
+                                 hvd.runtime.core().metrics_dump())))
+
+
+def next_process_world(hvd, device, compression: str) -> None:
+    """A new world with the core's wire compression set: rank 0 finds a
+    free port and tells the others through the old core; ``join`` first,
+    so no rank shuts down while a peer still receives its bytes."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    port = int(hvd.broadcast(torch.tensor([port]), 0, name="k.port")[0])
+    hvd.join()
+    hvd.shutdown()
+    os.environ["HVDTPU_CONTROLLER_PORT"] = str(port)
+    os.environ["HVDTPU_COMPRESSION"] = compression
+    hvd.init(mode="process", device=device)
+
+
+def process_worker(out_dir: str, seed: int, device: str = "cuda:0") -> None:
+    """One rank of phase (k): every sub-phase, its results written to
+    ``out_dir/<rank>.json``."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.compression import (CompressionConfig,
+                                               MaxMinQuantizer)
+    hvd.init(mode="process", device=device)
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    res = {"rank": r, "size": n, "device": str(dev)}
+    res["menu_checked"] = process_menu(hvd, dev, r, n)
+    log(f"(k1) rank {r}: {res['menu_checked']} results exact")
+
+    # (k2) dense, then (k5) join on the same model.
+    model, opt, images, labels = process_slice(hvd, dev, seed)
+    res["dense"] = process_steps(hvd, "process_dense", model, opt, images,
+                                 labels)
+    res["dense"]["digest"] = same_weights(hvd, "(k2)", model)
+    res["dense"]["transports"] = transports(hvd)
+    log(f"(k2) rank {r}: the core's ops ran over "
+        f"{res['dense']['transports']}; weights {res['dense']['digest']}")
+    if r == n - 1 and n > 1:
+        # One step more than the others, which have joined: their zeros
+        # come into the Average.
+        forward_backward(model, opt, images, labels)
+        local = [p.grad.detach().clone() for p in model.parameters()]
+        opt.synchronize()
+        if not all(torch.equal(p.grad, g * (1.0 / n))
+                   for p, g in zip(model.parameters(), local)):
+            raise AssertionError("(k5) the extra step's reduction is not "
+                                 "this rank's gradient over the world")
+        with opt.skip_synchronize():
+            opt.step()
+    res["join"] = hvd.join()
+    if res["join"] != n - 1:
+        raise AssertionError(f"(k5) join returned {res['join']}")
+    log(f"(k5) rank {r}: join returned {res['join']}")
+    del model, opt
+    free_memory()
+
+    # (k3) 4-bit max-min through the eager process-compressed path.
+    model, opt, images, labels = process_slice(
+        hvd, dev, seed, CompressionConfig(
+            MaxMinQuantizer(bits=BITS, bucket_size=BUCKET),
+            reduction="scatter_allgather", error_feedback=True))
+    res["maxmin"] = process_steps(hvd, "process_maxmin", model, opt, images,
+                                  labels)
+    res["maxmin"]["digest"] = same_weights(hvd, "(k3)", model)
+    check_launches("process_maxmin", res["maxmin"]["launches"],
+                   process_launches(n), MESH_STEPS, res["maxmin"]["routes"],
+                   {"maxmin_dequantize": "packed"})
+    del model, opt
+    free_memory()
+
+    # (k6) ZeRO-1 Adam.
+    model, opt, images, labels = process_slice(hvd, dev, seed, zero=True)
+    res["zero1"] = process_steps(hvd, "process_zero1", model, opt, images,
+                                 labels)
+    res["zero1"]["digest"] = same_weights(hvd, "(k6)", model)
+    total = sum(p.numel() for p in model.parameters())
+    want = 2 * 4 * -(-total // n) + 4  # m and v of the shard; the step
+    res["zero1"]["state_bytes"] = opt.state_bytes()
+    gauge = [line for line in hvd.runtime.core().metrics_dump().splitlines()
+             if line.startswith("hvdtpu_optimizer_state_bytes")]
+    log(f"(k6) rank {r}: Adam state {opt.state_bytes()} bytes of the "
+        f"shard's {opt.shard_len} values (expected {want}); published "
+        f"{gauge}")
+    if opt.state_bytes() != want or not gauge or \
+            float(gauge[0].split()[-1]) != want:
+        raise AssertionError(f"(k6) state bytes {opt.state_bytes()}, "
+                             f"published {gauge}, expected {want}")
+    del model, opt
+    free_memory()
+
+    # (k4) the core's own int4 wire compression, on a world of its own.
+    next_process_world(hvd, str(dev), "int4")
+    model, opt, images, labels = process_slice(hvd, dev, seed)
+    res["wire_int4"] = process_steps(hvd, "process_wire_int4", model, opt,
+                                     images, labels, PROCESS_WIRE_STEPS,
+                                     falls=False)
+    wire = res["wire_int4"]
+    if not 0 < wire["wire_sent_bytes_a_step"] < wire["wire_raw_bytes_a_step"]:
+        raise AssertionError(f"(k4) wire bytes {wire}")
+    res["wire_int4"]["transports"] = transports(hvd)
+    del model, opt
+    free_memory()
+    hvd.join()
+    hvd.shutdown()
+    with open(os.path.join(out_dir, f"{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def process_ranks() -> int:
+    """Two ranks share the card unless its compute mode allows one
+    context only."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    ranks = PROCESS_RANKS if mode == "Default" else 1
+    log(f"(k) compute mode {mode}: {ranks} ranks on the card")
+    return ranks
+
+
+def train_process(seed: int, ranks: int):
+    """Phase (k): ``ranks`` processes of this script
+    (``--process-worker``), each ``hvd.init(mode="process",
+    device="cuda:0")`` with the topology variables a launcher exports;
+    their logs, then the results every rank wrote."""
+    import socket
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_process_")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for r in range(ranks):
+        env = dict(os.environ, HVDTPU_RANK=str(r), HVDTPU_SIZE=str(ranks),
+                   HVDTPU_LOCAL_RANK=str(r), HVDTPU_LOCAL_SIZE=str(ranks),
+                   HVDTPU_CONTROLLER_ADDR="127.0.0.1",
+                   HVDTPU_CONTROLLER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--process-worker",
+             out_dir, "--seed", str(seed)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + PROCESS_TIMEOUT
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, out in enumerate(outputs):
+        for line in out.splitlines():
+            log(f"[rank {r}] {line}")
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"(k): ranks exited "
+                             f"{[p.returncode for p in procs]}")
+    results = []
+    for r in range(ranks):
+        with open(os.path.join(out_dir, f"{r}.json")) as f:
+            results.append(json.load(f))
+    for key in ("dense", "maxmin", "zero1"):
+        if len({res[key]["digest"] for res in results}) != 1:
+            raise AssertionError(f"(k) {key}: weights differ across ranks")
+    return results
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -2642,7 +3064,14 @@ def main() -> int:
         "--parent", default=None,
         help="a checkout of the parent commit: time its B3 and B4 (after "
              "unpack_bits) beside this tree's in alternating rounds")
+    parser.add_argument(
+        "--process-worker", default=None, metavar="DIR",
+        help="run one rank of phase (k) (started by this script) and write "
+             "its results into DIR")
     args = parser.parse_args()
+    if args.process_worker:
+        process_worker(args.process_worker, args.seed)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2664,9 +3093,17 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     rates = card_rates(name)
 
+    # The native core (g++) builds while nvcc builds the kernels.
+    from concurrent.futures import ThreadPoolExecutor
+    from horovod_tpu_torch.utils import native_build
     t0 = time.perf_counter()
-    path = cuda_build.build()
-    log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        core_build = pool.submit(native_build.build)
+        path = cuda_build.build()
+        log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
+        core_path = core_build.result()
+    log(f"build: {core_path.name} (the native core) done "
+        f"{time.perf_counter() - t0:.1f} s after the start")
 
     hvd.init()
     try:
@@ -2727,6 +3164,23 @@ def main() -> int:
         rows += measure_flash(flash, dev, flash_launches, flash_err, rates,
                               model_parallel["encoder"]["launches"],
                               noncausal_err)
+        hvd.shutdown()
+        free_memory()
+        process = train_process(args.seed, process_ranks())
+        for row in rows:
+            if row["name"] in process_launches(1):
+                row["launches_process_maxmin"] = \
+                    process[0]["maxmin"]["launches"][row["name"]]
+        dense, zero1 = process[0]["dense"], process[0]["zero1"]
+        log(f"(k) {len(process)} ranks: (k1) {process[0]['menu_checked']} "
+            f"exact results; (k2) dense {dense['step_ms']:.3f} ms a step, "
+            f"transports {dense['transports']}; (k5) join returned "
+            f"{[res['join'] for res in process]}; (k6) Adam state "
+            f"{zero1['state_bytes']} bytes a rank; (k4) int4 wire "
+            f"{process[0]['wire_int4']['wire_sent_bytes_a_step']} of "
+            f"{process[0]['wire_int4']['wire_raw_bytes_a_step']} bytes a "
+            f"step; weights bitwise equal across the ranks in (k2), (k3) "
+            f"and (k6)")
     finally:
         hvd.shutdown()
     print(json.dumps({"kernels": rows}), flush=True)

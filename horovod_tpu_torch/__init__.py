@@ -20,6 +20,8 @@ Usage::
     import horovod_tpu_torch as hvd
     hvd.init()                      # cuda:{local_rank}; device="cpu" on CPU
     # or hvd.init(mesh_shape={"dcn": nodes, "ici": gpus_per_node})
+    # or hvd.init(mode="process"): the native core instead of
+    # torch.distributed (negotiation, fusion, join, wire compression)
     opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), 0.1),
                                    named_parameters=model.named_parameters(),
                                    backward_passes_per_step=1)
@@ -36,16 +38,18 @@ from .compression import (Compression, PowerSGDOptimizer,  # noqa: F401
                           powersgd_init, projected_step_seconds,
                           set_quantization_levels)
 from .models import MLP, VGG, VGG16, VGG19, InceptionV3  # noqa: F401
-from .exceptions import HvdTpuInternalError  # noqa: F401
+from .exceptions import (DuplicateNameError,  # noqa: F401
+                         HvdTpuInternalError, NotInitializedError,
+                         TensorDtypeMismatchError, TensorShapeMismatchError)
 from .functions import allgather_object, broadcast_object  # noqa: F401
 from .ops.collectives import (Adasum, Average, Max, Min,  # noqa: F401
                               Product, ReduceOp, Sum, allgather,
                               allgather_async, allreduce, allreduce_async,
                               alltoall, alltoall_async, broadcast,
                               broadcast_, broadcast_async, grouped_allreduce,
-                              grouped_allreduce_async,
+                              grouped_allreduce_async, grouped_enqueue,
                               hierarchical_allgather, hierarchical_allreduce,
-                              poll, reducescatter, release_handle,
+                              join, poll, reducescatter, release_handle,
                               synchronize)
 from .parallel import (DistributedOptimizer,  # noqa: F401
                        ShardedDistributedOptimizer, SyncBatchNorm,
@@ -58,5 +62,5 @@ from .runtime import (axis_names, ccl_built, cross_rank,  # noqa: F401
                       cross_size, cuda_built, ddl_built, device, dp_axis,
                       gloo_built, gloo_enabled, init, is_homogeneous,
                       is_initialized, local_rank, local_size, mesh,
-                      mpi_built, mpi_enabled, mpi_threads_supported,
+                      mode, mpi_built, mpi_enabled, mpi_threads_supported,
                       nccl_built, rank, rocm_built, shutdown, size)

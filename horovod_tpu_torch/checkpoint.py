@@ -192,6 +192,8 @@ def save_checkpoint(path: str, tree: Any, step: int = 0, force: bool = True,
     values = {k: v for k, v in leaves.items()
               if not isinstance(v, torch.Tensor)}
     collective = _collective(tensors) and runtime.is_initialized()
+    if collective:
+        runtime.require_spmd("a checkpoint with DTensor leaves")
     writer = not runtime.is_initialized() or runtime.rank() == 0
     if not collective and not writer:
         return False
@@ -246,6 +248,7 @@ def stack_ranks(tree):
     over every axis, in rank order), so that a save keeps every rank's
     own value."""
     from torch.distributed.tensor import Shard
+    runtime.require_spmd("stack_ranks")
     mesh = runtime.mesh()
     skeleton, leaves = _flatten(tree)
     return _fill(skeleton, {
@@ -348,6 +351,7 @@ def restore_checkpoint(path: str, template: Any = None,
         targets = {k: _target(leaves[k], *meta[k]) for k in meta}
     if targets:
         if _collective(targets) and runtime.is_initialized():
+            runtime.require_spmd("a checkpoint with DTensor leaves")
             dcp.load(targets, storage_reader=FsspecReader(directory),
                      process_group=runtime.world_group())
         else:

@@ -25,6 +25,15 @@ still run. The reducers take a :class:`MaxMinQuantizer`, a
 :class:`NormalizedQuantizer` or a :class:`TopKCompressor`. ``key`` goes
 where the JAX package passes it: to the ``allgather`` and ``ps`` uplinks and
 the ``tree``; ``scatter_allgather`` and ``ring`` ignore it.
+
+In process mode (``init(mode="process")``) ``compressed_allreduce`` and
+``compressed_grouped_allreduce`` take the JAX package's eager process path
+(``_eager_process_compressed``, ``reducers.py:514-549``) whatever the
+``reduction``: the fused buffer is compressed on this rank (with error
+feedback), each payload tensor goes through the native core's allgather as
+``car.{i}``, and every rank's payload is decompressed and summed in rank
+order in fp32. The named reducers and the hierarchical one run over
+``torch.distributed`` groups and raise there.
 """
 
 from __future__ import annotations
@@ -251,6 +260,41 @@ _REDUCERS = {
 }
 
 
+def _eager_process_compressed(leaves, compressor, op, res_leaves, key,
+                              prescale, postscale):
+    """Process mode (JAX ``_eager_process_compressed``,
+    ``reducers.py:514-549``): fuse the leaves and prescale; compress on
+    this rank's device (max-min: B1, and B4 once for the residual); send
+    each payload tensor through the core's allgather as ``car.{i}`` (the
+    JAX payload's leaf order: sorted keys); decompress every rank's payload
+    (max-min: B4 once a rank) and add them in rank order in fp32; divide
+    by the world for Average; postscale. Decompressing rank by rank keeps
+    the reference's order of rounding, which B3's fused sum does not."""
+    n = runtime.size()
+    fused = C._apply_scale(_fuse_leaves(leaves), prescale)
+    new_res_fused = None
+    if res_leaves is not None:
+        payload, ctx, new_res_fused = compress_with_feedback(
+            compressor, fused, _fuse_leaves(res_leaves), key)
+    else:
+        payload, ctx = compressor.compress(fused, key)
+    keys = sorted(payload)
+    gathered = [C.allgather(payload[k].unsqueeze(0), name=f"car.{i}")
+                for i, k in enumerate(keys)]
+    total = torch.zeros(ctx.shape, dtype=torch.float32, device=fused.device)
+    for r in range(n):
+        part = {k: g[r] for k, g in zip(keys, gathered)}
+        total = total + compressor.decompress(part, ctx).to(torch.float32)
+    if op == C.ReduceOp.AVERAGE:
+        total = total / n
+    total = C._apply_scale(total, postscale)
+    outs = _split_leaves(total, leaves)
+    new_res = None
+    if res_leaves is not None:
+        new_res = _split_leaves(new_res_fused.to(torch.float32), res_leaves)
+    return outs, new_res
+
+
 def _check_args(reduction: str, op: C.ReduceOp) -> None:
     if reduction not in _REDUCERS:
         raise ValueError(f"unknown reduction {reduction!r}; choose from "
@@ -318,9 +362,14 @@ def compressed_allreduce(x: torch.Tensor, compressor,
     """
     _check_args(reduction, op)
     _check_compressor(compressor)
-    outs, new_res = _reduce_fused(
-        [x], compressor, reduction, op,
-        None if residual is None else [residual], key, 1.0, 1.0, axis)
+    res_leaves = None if residual is None else [residual]
+    if runtime.mode() == "process":
+        runtime.group(axis)
+        outs, new_res = _eager_process_compressed(
+            [x], compressor, op, res_leaves, key, 1.0, 1.0)
+    else:
+        outs, new_res = _reduce_fused([x], compressor, reduction, op,
+                                      res_leaves, key, 1.0, 1.0, axis)
     return outs[0] if residual is None else (outs[0], new_res[0])
 
 
@@ -346,10 +395,16 @@ def compressed_grouped_allreduce(tensors: Sequence[torch.Tensor], compressor,
     tensors = list(tensors)
     if not tensors:
         return tensors if residuals is None else (tensors, list(residuals))
-    outs, new_res = _reduce_fused(
-        tensors, compressor, reduction, op,
-        None if residuals is None else list(residuals), key, prescale_factor,
-        postscale_factor, axis)
+    res_leaves = None if residuals is None else list(residuals)
+    if runtime.mode() == "process":
+        runtime.group(axis)
+        outs, new_res = _eager_process_compressed(
+            tensors, compressor, op, res_leaves, key, prescale_factor,
+            postscale_factor)
+    else:
+        outs, new_res = _reduce_fused(tensors, compressor, reduction, op,
+                                      res_leaves, key, prescale_factor,
+                                      postscale_factor, axis)
     return outs if residuals is None else (outs, new_res)
 
 
@@ -384,6 +439,7 @@ def hierarchical_compressed_allreduce(
     previous call returned. Sum and Average only; Average divides by both
     axes' sizes. Returns ``out``, or ``(out, new_residual)`` with a
     residual."""
+    runtime.require_spmd("hierarchical_compressed_allreduce")
     if inner_axis is None or outer_axis is None:
         raise ValueError("hierarchical_compressed_allreduce needs explicit "
                          "inner_axis and outer_axis")

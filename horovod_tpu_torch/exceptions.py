@@ -14,6 +14,22 @@ class HvdTpuInternalError(RuntimeError):
     messages are those of ``horovod_tpu/native/core.cpp:2501-2600``)."""
 
 
+class TensorShapeMismatchError(ValueError):
+    """The ranks passed different shapes for one named collective (JAX
+    ``exceptions.py:33``; reference: ``controller.cc:380-657``). Raised by
+    process mode, whose native core reports it to every rank."""
+
+
+class TensorDtypeMismatchError(ValueError):
+    """The ranks passed different dtypes for one named collective (JAX
+    ``exceptions.py:41``)."""
+
+
+class DuplicateNameError(ValueError):
+    """A collective was enqueued under a name that is still pending on this
+    rank (JAX ``exceptions.py:46``; reference: "already pending")."""
+
+
 class NotInitializedError(RuntimeError):
     """An API was called before ``init()`` (reference: basics.py check)."""
 

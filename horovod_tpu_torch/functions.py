@@ -6,6 +6,9 @@ Counterpart of ``horovod_tpu/functions.py`` (``broadcast_object`` :31,
 device; the sizes are exchanged first, then the payloads, over the port's
 own broadcast and uneven allgather, over every rank whatever the mesh
 (the JAX package's process mode exchanges objects between all processes).
+In process mode they run through the native core as the JAX package's do
+(names ``broadcast_object``/``allgather_object`` and ``{name}.sz``; the
+allgather's two gathers in one grouped window), on host tensors.
 """
 
 from __future__ import annotations
@@ -29,10 +32,37 @@ def _deserialize(payload: torch.Tensor) -> Any:
     return pickle.loads(payload.cpu().numpy().tobytes())
 
 
+def _broadcast_object_process(obj, root_rank: int, name: str) -> Any:
+    payload = _serialize(obj).cpu() if runtime.rank() == root_rank else \
+        torch.zeros(0, dtype=torch.uint8)
+    size = C.broadcast(torch.tensor([payload.numel()], dtype=torch.int64),
+                       root_rank, name=f"{name}.sz")
+    if runtime.rank() != root_rank:
+        payload = torch.zeros(int(size[0]), dtype=torch.uint8)
+    return _deserialize(C.broadcast(payload, root_rank, name=name))
+
+
+def _allgather_object_process(obj, name: str) -> List[Any]:
+    payload = _serialize(obj).cpu()
+    with C.grouped_enqueue():
+        h_pay = C.allgather_async(payload, name=name)
+        h_sz = C.allgather_async(torch.tensor([payload.numel()],
+                                              dtype=torch.int64),
+                                 name=f"{name}.sz")
+    gathered = C.synchronize(h_pay)
+    sizes = C.synchronize(h_sz).tolist()
+    return [_deserialize(part) for part in gathered.split(sizes)]
+
+
 def broadcast_object(obj: Any = None, root_rank: int = 0,
                      name: Optional[str] = None) -> Any:
     """``root_rank``'s object, on every rank (reference:
     ``horovod/torch/functions.py:186``)."""
+    if runtime.mode() == "process":
+        if runtime.size() == 1:
+            return obj
+        return _broadcast_object_process(obj, root_rank,
+                                         name or "broadcast_object")
     dev = runtime.device()
     if runtime.rank() == root_rank:
         payload = _serialize(obj)
@@ -51,6 +81,10 @@ def broadcast_object(obj: Any = None, root_rank: int = 0,
 def allgather_object(obj: Any, name: Optional[str] = None) -> List[Any]:
     """Every rank's object, in rank order (reference:
     ``horovod/torch/functions.py:229``)."""
+    if runtime.mode() == "process":
+        if runtime.size() == 1:
+            return [obj]
+        return _allgather_object_process(obj, name or "allgather_object")
     payload = _serialize(obj)
     world = runtime.axis_names()
     sizes = C.allgather(torch.tensor([payload.numel()], dtype=torch.int64,

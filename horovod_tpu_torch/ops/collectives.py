@@ -38,13 +38,31 @@ a group with its own coefficients.
   ``alltoall`` are differentiable when their input requires grad, with the
   reference binding's backward rules (``horovod_tpu/torch/__init__.py:
   166-370``).
+* **Backends.** Each public op, and the launch the optimizer and the
+  reducers use (:func:`_launch_reduce`), resolves its backend in the
+  registry of :mod:`horovod_tpu_torch.ops.dispatch`: the
+  ``torch.distributed`` code above, or, in process mode
+  (``init(mode="process")``), the native core (the JAX package's process
+  paths, ``collectives.py:570-764`` and :1039-1162). There the core
+  negotiates each named op with every rank, fuses ops and raises the same
+  error class on every rank (:class:`TensorShapeMismatchError`,
+  :class:`TensorDtypeMismatchError`, :class:`DuplicateNameError`, else
+  :class:`HvdTpuInternalError`); prescale, postscale and Average are the
+  core's, so its bytes are the JAX package's process mode's. A tensor on
+  the card is copied into pinned host memory, the stream synchronized
+  before the core reads it, and the result copied back with
+  ``non_blocking`` (``STAGED`` counts the bytes each way). Only
+  ``axis=None`` or ``"dp"`` is taken there; autograd runs through
+  ``allreduce`` alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import itertools
 import threading
+import time
 import zlib
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -53,6 +71,8 @@ import torch.distributed as dist
 
 from .. import runtime
 from ..exceptions import HvdTpuInternalError
+from . import dispatch as _dispatch
+from .dispatch import CollectiveBackend, DispatchContext
 
 
 class ReduceOp(enum.IntEnum):
@@ -123,12 +143,41 @@ class _Pending:
             w.wait()
         return self.finish()
 
+    def release(self) -> None:
+        for w in self.works:
+            w.wait()
+
+
+class _Group:
+    """Launched exchanges that wait as one (their backend's ``_Pending`` or
+    native handles); ``finish`` takes their results in order."""
+
+    __slots__ = ("handles", "finish")
+
+    def __init__(self, handles, finish=list):
+        self.handles = list(handles)
+        self.finish = finish
+
+    def poll(self) -> bool:
+        return all(h.poll() for h in self.handles)
+
+    def wait(self):
+        return self.finish([h.wait() for h in self.handles])
+
+    def release(self) -> None:
+        for h in self.handles:
+            h.release()
+
 
 def _size(group) -> int:
+    if runtime.mode() == "process":
+        return runtime.size()
     return dist.get_world_size(group)
 
 
 def _rank(group) -> int:
+    if runtime.mode() == "process":
+        return runtime.rank()
     return dist.get_rank(group)
 
 
@@ -142,12 +191,24 @@ def _global(group, rank: int) -> int:
 def _launch_reduce(x: torch.Tensor, op: ReduceOp, prescale: float,
                    postscale: float, scatter: bool = False,
                    inplace: bool = False, group=None,
-                   sizes: Optional[Sequence[int]] = None) -> _Pending:
+                   sizes: Optional[Sequence[int]] = None,
+                   name: Optional[str] = None):
     """Allreduce (or, with ``scatter``, reduce-scatter along dim 0) a
-    contiguous tensor over ``group`` (every rank by default). ``inplace``
-    lets the exchange write ``x`` itself. Adasum takes ``sizes``, the
-    lengths of the tensors fused in ``x``: each gets its own
-    coefficients."""
+    contiguous tensor over ``group`` (every rank by default), on the
+    backend the registry resolves. ``inplace`` lets the exchange write
+    ``x`` itself. Adasum takes ``sizes``, the lengths of the tensors fused
+    in ``x``: each gets its own coefficients. ``name`` names the op for
+    the native core (the same on every rank; else one is counted out)."""
+    return _dispatch.resolve("launch_reduce", _ctx(None)).launch_reduce(
+        x, op, prescale, postscale, scatter, inplace, group, sizes, name)
+
+
+def _dist_launch_reduce(x: torch.Tensor, op: ReduceOp, prescale: float,
+                        postscale: float, scatter: bool = False,
+                        inplace: bool = False, group=None,
+                        sizes: Optional[Sequence[int]] = None,
+                        name: Optional[str] = None) -> _Pending:
+    """:func:`_launch_reduce` over ``torch.distributed``."""
     group = dist.group.WORLD if group is None else group
     if op == ReduceOp.ADASUM:
         if scatter:
@@ -189,21 +250,18 @@ def _launch_reduce(x: torch.Tensor, op: ReduceOp, prescale: float,
 
 def _launch_allreduce(x: torch.Tensor, op: ReduceOp, prescale: float,
                       postscale: float, compression=None,
-                      group=None) -> _Pending:
+                      group=None) -> _Group:
     ctx = None
     if compression is not None:
         x, ctx = compression.compress(x)
     shape = x.shape
-    pending = _launch_reduce(x.reshape(-1), op, prescale, postscale,
-                             group=group)
-    reduce_finish = pending.finish
 
-    def finish():
-        out = reduce_finish().view(shape)
+    def finish(outs):
+        out = outs[0].view(shape)
         return out if compression is None else \
             compression.decompress(out, ctx)
-    pending.finish = finish
-    return pending
+    return _Group([_launch_reduce(x.reshape(-1), op, prescale, postscale,
+                                  group=group)], finish)
 
 
 def _grouped_inputs(tensors, compression):
@@ -224,7 +282,7 @@ def _grouped_inputs(tensors, compression):
 
 def _launch_grouped(tensors, op: ReduceOp, prescale: float,
                     postscale: float, compression=None,
-                    group=None) -> _Pending:
+                    group=None) -> _Group:
     """Allreduce a list of tensors as one fused buffer per dtype (reference:
     ``FuseResponses``, ``controller.cc:686``); Adasum gives each tensor its
     own coefficients, as the JAX package's one ``allreduce_p`` a leaf does
@@ -237,17 +295,16 @@ def _launch_grouped(tensors, op: ReduceOp, prescale: float,
                                sizes=[tensors[i].numel() for i in idxs])
                 for idxs in groups]
 
-    def finish():
+    def finish(reds):
         outs: List[torch.Tensor] = [None] * len(tensors)
-        for idxs, pending in zip(groups, pendings):
-            red = pending.finish()
+        for idxs, red in zip(groups, reds):
             for i, part in zip(idxs, red.split([tensors[i].numel()
                                                 for i in idxs])):
                 outs[i] = part.view(tensors[i].shape)
         if compression is not None:
             outs = [compression.decompress(o, c) for o, c in zip(outs, ctxs)]
         return outs
-    return _Pending([w for p in pendings for w in p.works], finish)
+    return _Group(pendings, finish)
 
 
 def _launch_allgather(x: torch.Tensor, dims: Sequence[int],
@@ -255,6 +312,7 @@ def _launch_allgather(x: torch.Tensor, dims: Sequence[int],
     """Concatenate every rank's rows (of ``group``); ``dims[r]`` is rank r's
     dim 0. Unequal ranks send padded to the largest and the result is
     trimmed (NCCL's ``all_gather_into_tensor`` takes equal sizes)."""
+    runtime.require_spmd("this allgather")
     x = (x.reshape(1) if x.dim() == 0 else x).contiguous()
     rows, rest = max(dims), tuple(x.shape[1:])
     if x.shape[0] < rows:
@@ -274,6 +332,7 @@ def _launch_allgather(x: torch.Tensor, dims: Sequence[int],
 def _launch_broadcast(x: torch.Tensor, root_rank: int,
                       inplace: bool = False, group=None) -> _Pending:
     """``root_rank`` is a rank of ``group``."""
+    runtime.require_spmd("this broadcast")
     out = x if inplace else x.clone(memory_format=torch.contiguous_format)
     work = dist.broadcast(out, src=_global(group, root_rank), group=group,
                           async_op=True)
@@ -286,6 +345,7 @@ def _launch_alltoall(x: torch.Tensor, send: Optional[Sequence[int]] = None,
     """Send ``send[r]`` rows to rank r (of ``group``) and receive
     ``recv[r]`` from it, in rank order; without splits, equal dim-0 parts
     both ways."""
+    runtime.require_spmd("this alltoall")
     x = x.contiguous()
     rows = x.shape[0] if recv is None else sum(recv)
     out = torch.empty((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
@@ -382,6 +442,7 @@ def _launch_hierarchical(x: torch.Tensor, op: ReduceOp, inner, outer,
     the one before it, which on the card orders the streams of the legs'
     communicators without blocking the host. ``sizes``: the tensors fused
     in ``x``, for Adasum's coefficients."""
+    runtime.require_spmd("the hierarchical reduction")
     gi, go = runtime.group(inner), runtime.group(outer)
     y = _apply_scale(x, prescale)
     if op in (ReduceOp.MIN, ReduceOp.MAX, ReduceOp.PRODUCT):
@@ -561,7 +622,13 @@ def _check(rows: Sequence[Sequence[int]], name: Optional[str] = None
 
 def _exchange(words: Sequence[int], group=None) -> List[List[int]]:
     """Every rank's row of ``words``, in ``group``'s rank order (one
-    allgather on the runtime's device and a copy to the host)."""
+    allgather on the runtime's device and a copy to the host; in process
+    mode, one allgather of the host tensor through the native core)."""
+    if runtime.mode() == "process":
+        mine = torch.tensor(list(words), dtype=torch.int64)
+        rows = runtime.core().collective("allgather", "hvd.descriptor",
+                                         mine)
+        return rows.view(runtime.size(), -1).tolist()
     dev = runtime.device()
     n = _size(group)
     mine = torch.tensor(list(words), dtype=torch.int64, device=dev)
@@ -668,7 +735,7 @@ class _AlltoallFn(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# the API
+# torch.distributed: the default backend's operations
 # ---------------------------------------------------------------------------
 
 def _wire_dtype(x: torch.Tensor, compression) -> torch.dtype:
@@ -682,15 +749,8 @@ def _plan_allreduce(x, op, compression, name, group):
            op=op)
 
 
-def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
-              prescale_factor: float = 1.0, postscale_factor: float = 1.0,
-              compression=None, name: Optional[str] = None,
-              axis=None) -> torch.Tensor:
-    """Allreduce a tensor across ranks, or across the ranks of mesh axis
-    ``axis``; Average by default (reference: ``hvd.allreduce``,
-    ``horovod/torch/mpi_ops.py:132``). ``compression``
-    (``Compression.fp16``/``bf16``) casts the payload for the wire.
-    Differentiable."""
+def _dist_allreduce(x, op, prescale_factor, postscale_factor, compression,
+                    name, axis):
     group = runtime.group(axis)
     _plan_allreduce(x, op, compression, name, group)
     if _wants_grad(x):
@@ -711,20 +771,12 @@ def _plan_grouped(tensors, op, compression, name, group):
            sig=_group_signature(tensors, dtypes))
 
 
-def grouped_allreduce(tensors: Sequence[torch.Tensor],
-                      op: ReduceOp = ReduceOp.AVERAGE,
-                      prescale_factor: float = 1.0,
-                      postscale_factor: float = 1.0,
-                      compression=None, name: Optional[str] = None,
-                      axis=None) -> List[torch.Tensor]:
-    """Allreduce a list of tensors as one fused buffer per dtype (reference:
-    ``FuseResponses``, ``controller.cc:686``); Adasum combines each tensor
-    with its own coefficients."""
-    tensors = list(tensors)
+def _dist_grouped_allreduce_async(tensors, op, prescale_factor,
+                                  postscale_factor, compression, name, axis):
     group = runtime.group(axis)
     _plan_grouped(tensors, op, compression, name, group)
     return _launch_grouped(tensors, op, prescale_factor, postscale_factor,
-                           compression, group).wait()
+                           compression, group)
 
 
 def _plan_allgather(x, name, group) -> List[int]:
@@ -732,22 +784,7 @@ def _plan_allgather(x, name, group) -> List[int]:
     return [r[_DIMS] if r[_NDIM] else 1 for r in rows]
 
 
-def allgather(x: torch.Tensor, name: Optional[str] = None, axis=None,
-              hierarchical: Optional[Sequence[str]] = None
-              ) -> torch.Tensor:
-    """Concatenate every rank's tensor along dim 0; ranks may differ in dim
-    0 (reference: ``hvd.allgather``, ``mpi_ops.py:238``; a scalar counts as
-    one row). ``hierarchical=(inner_axis, outer_axis)`` gathers over the
-    inner axis, then the slabs over the outer one
-    (:func:`hierarchical_allgather`; JAX ``collectives.py:971-1000``).
-    Differentiable, but for the hierarchical form."""
-    if hierarchical is not None:
-        if len(hierarchical) != 2 or hierarchical[0] == "auto":
-            raise ValueError(
-                "allgather takes hierarchical=(inner_axis, outer_axis); "
-                "the (\"auto\", inner, outer) form applies to "
-                "allreduce_gradients/DistributedOptimizer only")
-        return hierarchical_allgather(x, *hierarchical, name=name)
+def _dist_allgather(x, name, axis):
     group = runtime.group(axis)
     dims = _plan_allgather(x, name, group)
     if _wants_grad(x):
@@ -755,11 +792,7 @@ def allgather(x: torch.Tensor, name: Optional[str] = None, axis=None,
     return _launch_allgather(x, dims, group).wait()
 
 
-def broadcast(x: torch.Tensor, root_rank: int = 0,
-              name: Optional[str] = None, axis=None) -> torch.Tensor:
-    """Return ``root_rank``'s tensor on every rank (reference:
-    ``hvd.broadcast``, ``mpi_ops.py:387``); over a mesh axis, the root is
-    the axis's rank ``root_rank``. Differentiable."""
+def _dist_broadcast(x, root_rank, name, axis):
     group = runtime.group(axis)
     _agree("broadcast", x.shape, x.dtype, name, group, root=root_rank)
     if _wants_grad(x):
@@ -767,10 +800,7 @@ def broadcast(x: torch.Tensor, root_rank: int = 0,
     return _launch_broadcast(x, root_rank, group=group).wait()
 
 
-def broadcast_(x: torch.Tensor, root_rank: int = 0,
-               name: Optional[str] = None, axis=None) -> torch.Tensor:
-    """In-place broadcast (reference: ``hvd.broadcast_``). A dense tensor
-    (``channels_last`` included) is broadcast where it lies."""
+def _dist_broadcast_(x, root_rank, name, axis):
     group = runtime.group(axis)
     _agree("broadcast", x.shape, x.dtype, name, group, root=root_rank)
     if x.is_contiguous() or (x.dim() == 4 and x.is_contiguous(
@@ -807,14 +837,7 @@ def _plan_alltoall(x, splits, name, group):
     return send, recv, recv
 
 
-def alltoall(x: torch.Tensor, splits=None, name: Optional[str] = None,
-             axis=None):
-    """Send dim-0 parts of ``x`` to every rank and concatenate what each
-    rank sent here, in rank order (reference: ``hvd.alltoall``,
-    ``operations.cc:1055-1116``). Without ``splits`` the parts are equal and
-    the output is returned alone; with ``splits`` (rows to each rank) it
-    returns ``(output, received_splits)``, the rows that came from each
-    rank as an int32 tensor on the CPU. Differentiable."""
+def _dist_alltoall(x, splits, name, axis):
     group = runtime.group(axis)
     splits = _splits_list(splits)
     send, recv, received = _plan_alltoall(x, splits, name, group)
@@ -827,6 +850,457 @@ def alltoall(x: torch.Tensor, splits=None, name: Optional[str] = None,
     return out, torch.tensor(received, dtype=torch.int32)
 
 
+def _dist_reducescatter(x, op, prescale_factor, postscale_factor, name,
+                        axis):
+    group = runtime.group(axis)
+    _agree("reducescatter", x.shape, x.dtype, name, group, op=op)
+    return _dist_launch_reduce(x.contiguous(), op, prescale_factor,
+                               postscale_factor, scatter=True,
+                               group=group).wait()
+
+
+def _dist_allreduce_async(x, op, prescale_factor, postscale_factor,
+                          compression, name, axis):
+    group = runtime.group(axis)
+    _plan_allreduce(x, op, compression, name, group)
+    return _launch_allreduce(x, op, prescale_factor, postscale_factor,
+                             compression, group)
+
+
+def _dist_allgather_async(x, name, axis):
+    group = runtime.group(axis)
+    return _launch_allgather(x, _plan_allgather(x, name, group), group)
+
+
+def _dist_broadcast_async(x, root_rank, name, axis):
+    group = runtime.group(axis)
+    _agree("broadcast", x.shape, x.dtype, name, group, root=root_rank)
+    return _launch_broadcast(x, root_rank, group=group)
+
+
+def _dist_alltoall_async(x, splits, name, axis):
+    group = runtime.group(axis)
+    send, recv, _ = _plan_alltoall(x, _splits_list(splits), name, group)
+    return _launch_alltoall(x, send, recv, group)
+
+
+def _dist_join():
+    raise NotImplementedError(
+        "join needs the native core's view of every rank's requests: "
+        "initialize with init(mode=\"process\")")
+
+
+class _TorchDistributedBackend(CollectiveBackend):
+    """The ``torch.distributed`` process groups of the mesh (NCCL on the
+    card, gloo on the CPU); every op agrees on a descriptor first."""
+
+    name = "torch_distributed"
+    priority = 100
+
+    def enabled(self, ctx: DispatchContext) -> bool:
+        return ctx.mode != "process"
+
+    allreduce = staticmethod(_dist_allreduce)
+    allreduce_async = staticmethod(_dist_allreduce_async)
+    grouped_allreduce_async = staticmethod(_dist_grouped_allreduce_async)
+    allgather = staticmethod(_dist_allgather)
+    allgather_async = staticmethod(_dist_allgather_async)
+    broadcast = staticmethod(_dist_broadcast)
+    broadcast_ = staticmethod(_dist_broadcast_)
+    broadcast_async = staticmethod(_dist_broadcast_async)
+    alltoall = staticmethod(_dist_alltoall)
+    alltoall_async = staticmethod(_dist_alltoall_async)
+    reducescatter = staticmethod(_dist_reducescatter)
+    join = staticmethod(_dist_join)
+    launch_reduce = staticmethod(_dist_launch_reduce)
+
+    def grouped_allreduce(self, *args):
+        return self.grouped_allreduce_async(*args).wait()
+
+
+# ---------------------------------------------------------------------------
+# process mode: the native core (JAX collectives.py:570-764)
+# ---------------------------------------------------------------------------
+
+# Bytes copied between the card and pinned host memory for the core:
+# device to host ("d2h") and host to device ("h2d"); and the seconds the
+# host waited for the stream before the core could read a staged input
+# ("wait_s").
+STAGED = {"d2h": 0, "h2d": 0, "wait_s": 0.0}
+
+_name_counter = itertools.count(1)
+
+
+def _auto_name(prefix: str) -> str:
+    """A name for an unnamed op, the same on every rank that makes the same
+    calls in the same order (JAX ``_auto_name``)."""
+    return f"{prefix}.noname.{next(_name_counter)}"
+
+
+def _require_core():
+    core = runtime.core()
+    if core is None:
+        raise HvdTpuInternalError(
+            "process-mode collective requested but native core is not "
+            "running")
+    return core
+
+
+def _stage_in(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous CPU tensor of ``x`` for the core to read. A tensor on
+    the card is copied into pinned host memory and the stream is
+    synchronized, since the core's thread reads the buffer as soon as the
+    op is enqueued."""
+    x = x.detach()
+    if x.device.type == "cpu":
+        return x.contiguous()
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    t0 = time.perf_counter()
+    torch.cuda.current_stream(x.device).synchronize()
+    STAGED["wait_s"] += time.perf_counter() - t0
+    STAGED["d2h"] += host.numel() * host.element_size()
+    return host
+
+
+class _NativeHandle:
+    """A collective in flight on the native core (JAX ``_NativeHandle``,
+    ``collectives.py:589``). ``wait`` copies the result out of the core
+    (into pinned memory when the input was on the card), reshapes it, takes
+    it back to the input's device with a ``non_blocking`` copy, and applies
+    ``post``. The staged input is held by the core until then."""
+
+    __slots__ = ("_core", "_handle", "_kind", "_shape", "_dtype",
+                 "_row_shape", "_device", "_post")
+
+    def __init__(self, core, handle, kind, x, post=None):
+        self._core = core
+        self._handle = handle
+        self._kind = kind
+        self._shape = tuple(x.shape)
+        self._dtype = x.dtype
+        self._row_shape = tuple(x.shape[1:]) if x.dim() > 0 else ()
+        self._device = x.device
+        self._post = post
+
+    def poll(self) -> bool:
+        return self._core.poll(self._handle)
+
+    def wait(self):
+        on_card = self._device.type != "cpu"
+        out = self._core.wait(self._handle, self._dtype, self._row_shape,
+                              pin=on_card)
+        if self._kind in ("allreduce", "broadcast"):
+            out = out.reshape(self._shape)
+        if on_card:
+            STAGED["h2d"] += out.numel() * out.element_size()
+            out = out.to(self._device, non_blocking=True)
+        return out if self._post is None else self._post(out)
+
+    def release(self) -> None:
+        self.wait()
+
+
+def _core_async(kind: str, x: torch.Tensor, name: str, post=None,
+                **kw) -> _NativeHandle:
+    """Enqueue ``x`` on the native core and return its handle at once
+    (JAX ``_core_async``, ``collectives.py:626``)."""
+    core = _require_core()
+    host = _stage_in(x)
+    handle = core.enqueue(kind, name, host, **kw)
+    return _NativeHandle(core, handle, kind, x, post)
+
+
+def _core_collective(kind: str, x: torch.Tensor, name: str, **kw):
+    """The synchronous native op (JAX ``_core_collective``, :580)."""
+    return _core_async(kind, x, name, **kw).wait()
+
+
+@contextlib.contextmanager
+def grouped_enqueue():
+    """Grouped-collective window (process mode; JAX ``grouped_enqueue``,
+    ``collectives.py:947``): every async op enqueued inside the ``with``
+    waits on the native core and negotiates in one control-plane round when
+    the window closes, and ops of one kind and dtype fuse. Only enqueue
+    inside it and ``synchronize`` after it: a blocking wait inside the
+    window would wait on a negotiation it holds. Outside process mode it
+    does nothing."""
+    core = runtime.core() if runtime.mode() == "process" else None
+    if core is None:
+        yield
+        return
+    core.group_begin()
+    try:
+        yield
+    finally:
+        core.group_end()
+
+
+def _check_native_grad(x: torch.Tensor, what: str) -> None:
+    if _wants_grad(x):
+        raise NotImplementedError(
+            f"autograd through process-mode {what} is not ported yet "
+            "(ROADMAP A8); only allreduce is differentiable there")
+
+
+def _native_launch_reduce(x, op, prescale, postscale, scatter=False,
+                          inplace=False, group=None, sizes=None, name=None):
+    """:func:`_launch_reduce` on the native core. An Adasum buffer of
+    several tensors enqueues each under ``name.{i}`` in one grouped window,
+    so each gets its own coefficients."""
+    kind = "reducescatter" if scatter else "allreduce"
+    name = name or _auto_name(kind)
+    kw = dict(op=int(op), prescale=prescale, postscale=postscale)
+    if op == ReduceOp.ADASUM and sizes is not None and len(sizes) > 1:
+        parts = x.reshape(-1).split(list(sizes))
+        with grouped_enqueue():
+            handles = [_core_async(kind, p, f"{name}.{i}", **kw)
+                       for i, p in enumerate(parts)]
+        return _Group(handles, torch.cat)
+    return _core_async(kind, x, name, **kw)
+
+
+def _native_allreduce(x, op, prescale_factor, postscale_factor, compression,
+                      name, axis):
+    runtime.group(axis)
+    if compression is not None:
+        wire, ctx = compression.compress(x)
+        return compression.decompress(_native_allreduce(
+            wire, op, prescale_factor, postscale_factor, None, name, axis),
+            ctx)
+    if _wants_grad(x):
+        return _AllreduceFn.apply(x, op, prescale_factor, postscale_factor,
+                                  None)
+    return _core_collective("allreduce", x, name or _auto_name("allreduce"),
+                            op=int(op), prescale=prescale_factor,
+                            postscale=postscale_factor)
+
+
+def _native_allreduce_async(x, op, prescale_factor, postscale_factor,
+                            compression, name, axis):
+    runtime.group(axis)
+    _check_native_grad(x, "allreduce_async")
+    tensor, post = x, None
+    if compression is not None:
+        tensor, cctx = compression.compress(x)
+
+        def post(out):
+            return compression.decompress(out, cctx)
+    return _core_async("allreduce", tensor, name or _auto_name("allreduce"),
+                       post, op=int(op), prescale=prescale_factor,
+                       postscale=postscale_factor)
+
+
+def _native_grouped_allreduce_async(tensors, op, prescale_factor,
+                                    postscale_factor, compression, name,
+                                    axis):
+    """Every tensor enqueued under ``{name}.{i}`` in one grouped window,
+    so the core negotiates the group in one round and fuses it (JAX
+    ``_NativeProcessBackend.grouped_allreduce``, :722-733)."""
+    runtime.group(axis)
+    prefix = name or "group"
+    with grouped_enqueue():
+        handles = [_native_allreduce_async(t, op, prescale_factor,
+                                           postscale_factor, compression,
+                                           f"{prefix}.{i}", axis)
+                   for i, t in enumerate(tensors)]
+    return _Group(handles)
+
+
+def _native_grouped_allreduce(tensors, op, prescale_factor, postscale_factor,
+                              compression, name, axis):
+    if compression is not None:
+        # A compressed group keeps one op a tensor, as the JAX package's.
+        prefix = name or "group"
+        return [_native_allreduce(t, op, prescale_factor, postscale_factor,
+                                  compression, f"{prefix}.{i}", axis)
+                for i, t in enumerate(tensors)]
+    return _native_grouped_allreduce_async(
+        tensors, op, prescale_factor, postscale_factor, None, name,
+        axis).wait()
+
+
+def _native_allgather_async(x, name, axis):
+    runtime.group(axis)
+    _check_native_grad(x, "allgather")
+    return _core_async("allgather", x, name or _auto_name("allgather"))
+
+
+def _native_allgather(x, name, axis):
+    return _native_allgather_async(x, name, axis).wait()
+
+
+def _native_broadcast_async(x, root_rank, name, axis):
+    runtime.group(axis)
+    _check_native_grad(x, "broadcast")
+    return _core_async("broadcast", x, name or _auto_name("broadcast"),
+                       root_rank=root_rank)
+
+
+def _native_broadcast(x, root_rank, name, axis):
+    return _native_broadcast_async(x, root_rank, name, axis).wait()
+
+
+def _native_broadcast_(x, root_rank, name, axis):
+    x.copy_(_native_broadcast(x, root_rank, name, axis))
+    return x
+
+
+def _native_alltoall_async(x, splits, name, axis):
+    runtime.group(axis)
+    _check_native_grad(x, "alltoall")
+    splits = _splits_list(splits)
+    return _core_async("alltoall", x, name or _auto_name("alltoall"),
+                       splits=None if splits is None
+                       else torch.tensor(splits, dtype=torch.int32))
+
+
+def _native_alltoall(x, splits, name, axis):
+    """With ``splits``, the rows received from each rank come from an
+    int32 allgather of every rank's send splits, as in the JAX package
+    (:744-758): the core negotiates the matrix but returns the payload
+    alone."""
+    name = name or _auto_name("alltoall")
+    out = _native_alltoall_async(x, splits, name, axis).wait()
+    if splits is None:
+        return out
+    sp = torch.tensor(_splits_list(splits), dtype=torch.int32)
+    matrix = _core_collective("allgather", sp, f"{name}.splits")
+    return out, matrix.reshape(-1, sp.numel())[:, runtime.rank()].clone()
+
+
+def _native_reducescatter(x, op, prescale_factor, postscale_factor, name,
+                          axis):
+    runtime.group(axis)
+    _check_native_grad(x, "reducescatter")
+    return _core_collective("reducescatter", x,
+                            name or _auto_name("reducescatter"), op=int(op),
+                            prescale=prescale_factor,
+                            postscale=postscale_factor)
+
+
+def _native_join() -> int:
+    return int(_require_core().join())
+
+
+class _NativeProcessBackend(CollectiveBackend):
+    """The native C++ controller and its TCP and shared-memory data plane
+    (process mode; the MPI/Gloo analog)."""
+
+    name = "native_process"
+    priority = 200
+
+    def enabled(self, ctx: DispatchContext) -> bool:
+        return ctx.mode == "process"
+
+    allreduce = staticmethod(_native_allreduce)
+    allreduce_async = staticmethod(_native_allreduce_async)
+    grouped_allreduce = staticmethod(_native_grouped_allreduce)
+    grouped_allreduce_async = staticmethod(_native_grouped_allreduce_async)
+    allgather = staticmethod(_native_allgather)
+    allgather_async = staticmethod(_native_allgather_async)
+    broadcast = staticmethod(_native_broadcast)
+    broadcast_ = staticmethod(_native_broadcast_)
+    broadcast_async = staticmethod(_native_broadcast_async)
+    alltoall = staticmethod(_native_alltoall)
+    alltoall_async = staticmethod(_native_alltoall_async)
+    reducescatter = staticmethod(_native_reducescatter)
+    join = staticmethod(_native_join)
+    launch_reduce = staticmethod(_native_launch_reduce)
+
+
+for _builtin in (_NativeProcessBackend(), _TorchDistributedBackend()):
+    try:
+        _dispatch.register_backend(_builtin)
+    except ValueError:
+        pass  # module reloaded; the built-ins are registered
+
+
+# ---------------------------------------------------------------------------
+# the API
+# ---------------------------------------------------------------------------
+
+def _ctx(axis) -> DispatchContext:
+    return DispatchContext(mode=runtime.mode(), axis=axis)
+
+
+def _backend(op: str, axis=None) -> CollectiveBackend:
+    return _dispatch.resolve(op, _ctx(axis))
+
+
+def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+              prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+              compression=None, name: Optional[str] = None,
+              axis=None) -> torch.Tensor:
+    """Allreduce a tensor across ranks, or across the ranks of mesh axis
+    ``axis``; Average by default (reference: ``hvd.allreduce``,
+    ``horovod/torch/mpi_ops.py:132``). ``compression``
+    (``Compression.fp16``/``bf16``) casts the payload for the wire.
+    Differentiable."""
+    return _backend("allreduce", axis).allreduce(
+        x, op, prescale_factor, postscale_factor, compression, name, axis)
+
+
+def grouped_allreduce(tensors: Sequence[torch.Tensor],
+                      op: ReduceOp = ReduceOp.AVERAGE,
+                      prescale_factor: float = 1.0,
+                      postscale_factor: float = 1.0,
+                      compression=None, name: Optional[str] = None,
+                      axis=None) -> List[torch.Tensor]:
+    """Allreduce a list of tensors as one fused buffer per dtype (reference:
+    ``FuseResponses``, ``controller.cc:686``); Adasum combines each tensor
+    with its own coefficients. In process mode each tensor is enqueued as
+    ``{name}.{i}`` in one grouped window and the core fuses them."""
+    return _backend("grouped_allreduce", axis).grouped_allreduce(
+        list(tensors), op, prescale_factor, postscale_factor, compression,
+        name, axis)
+
+
+def allgather(x: torch.Tensor, name: Optional[str] = None, axis=None,
+              hierarchical: Optional[Sequence[str]] = None
+              ) -> torch.Tensor:
+    """Concatenate every rank's tensor along dim 0; ranks may differ in dim
+    0 (reference: ``hvd.allgather``, ``mpi_ops.py:238``; a scalar counts as
+    one row). ``hierarchical=(inner_axis, outer_axis)`` gathers over the
+    inner axis, then the slabs over the outer one
+    (:func:`hierarchical_allgather`; JAX ``collectives.py:971-1000``).
+    Differentiable, but for the hierarchical form."""
+    if hierarchical is not None:
+        if len(hierarchical) != 2 or hierarchical[0] == "auto":
+            raise ValueError(
+                "allgather takes hierarchical=(inner_axis, outer_axis); "
+                "the (\"auto\", inner, outer) form applies to "
+                "allreduce_gradients/DistributedOptimizer only")
+        return hierarchical_allgather(x, *hierarchical, name=name)
+    return _backend("allgather", axis).allgather(x, name, axis)
+
+
+def broadcast(x: torch.Tensor, root_rank: int = 0,
+              name: Optional[str] = None, axis=None) -> torch.Tensor:
+    """Return ``root_rank``'s tensor on every rank (reference:
+    ``hvd.broadcast``, ``mpi_ops.py:387``); over a mesh axis, the root is
+    the axis's rank ``root_rank``. Differentiable."""
+    return _backend("broadcast", axis).broadcast(x, root_rank, name, axis)
+
+
+def broadcast_(x: torch.Tensor, root_rank: int = 0,
+               name: Optional[str] = None, axis=None) -> torch.Tensor:
+    """In-place broadcast (reference: ``hvd.broadcast_``). A dense tensor
+    (``channels_last`` included) is broadcast where it lies."""
+    return _backend("broadcast_", axis).broadcast_(x, root_rank, name, axis)
+
+
+def alltoall(x: torch.Tensor, splits=None, name: Optional[str] = None,
+             axis=None):
+    """Send dim-0 parts of ``x`` to every rank and concatenate what each
+    rank sent here, in rank order (reference: ``hvd.alltoall``,
+    ``operations.cc:1055-1116``). Without ``splits`` the parts are equal and
+    the output is returned alone; with ``splits`` (rows to each rank) it
+    returns ``(output, received_splits)``, the rows that came from each
+    rank as an int32 tensor on the CPU. Differentiable."""
+    return _backend("alltoall", axis).alltoall(x, splits, name, axis)
+
+
 def reducescatter(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
                   prescale_factor: float = 1.0,
                   postscale_factor: float = 1.0,
@@ -835,11 +1309,18 @@ def reducescatter(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
     part of dim 0, which the number of ranks divides (reference:
     ``hvd.reducescatter``, ``collectives.py:1032``); Average scales as
     ``allreduce`` does."""
-    group = runtime.group(axis)
-    _agree("reducescatter", x.shape, x.dtype, name, group, op=op)
-    return _launch_reduce(x.contiguous(), op, prescale_factor,
-                          postscale_factor, scatter=True,
-                          group=group).wait()
+    return _backend("reducescatter", axis).reducescatter(
+        x, op, prescale_factor, postscale_factor, name, axis)
+
+
+def join() -> int:
+    """Declare that this rank has no more data and wait until every rank
+    has: until then the others' collectives go on, and this rank gives
+    zeros to each (reference: ``hvd.join``, ``mpi_ops.py:633``; JAX
+    ``collectives.py:1039``). Returns the rank that joined last. Process
+    mode only: it needs the native core's view of every rank's
+    requests."""
+    return _backend("join").join()
 
 
 def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
@@ -856,6 +1337,7 @@ def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
     ``op=Adasum`` sums within the inner axis and runs Adasum across the
     outer one, with no division; Average divides by both sizes; Min, Max
     and Product reduce over the inner axis, then the outer one."""
+    runtime.require_spmd("hierarchical_allreduce")
     if inner_axis is None or outer_axis is None:
         raise ValueError("hierarchical_allreduce needs explicit inner_axis "
                          "and outer_axis")
@@ -874,6 +1356,7 @@ def hierarchical_allgather(x: torch.Tensor, inner_axis: Optional[str] = None,
     ``hierarchical_allgather_p``, ``collectives.py:404``; reference
     ``MPIHierarchicalAllgather``, ``mpi_operations.cc:236-240``). Ranks may
     differ in dim 0."""
+    runtime.require_spmd("hierarchical_allgather")
     if inner_axis is None or outer_axis is None:
         raise ValueError("hierarchical_allgather needs explicit inner_axis "
                          "and outer_axis")
@@ -886,19 +1369,19 @@ def hierarchical_allgather(x: torch.Tensor, inner_axis: Optional[str] = None,
 # async handles (reference: collectives.py:1061-1162)
 # ---------------------------------------------------------------------------
 
-_handles: Dict[int, _Pending] = {}
+_handles: Dict[int, object] = {}
 _handle_lock = threading.Lock()
 _handle_ids = itertools.count(1)
 
 
-def _register(pending: _Pending) -> int:
+def _register(pending) -> int:
     with _handle_lock:
         handle = next(_handle_ids)
         _handles[handle] = pending
     return handle
 
 
-def _take(handle: int) -> _Pending:
+def _take(handle: int):
     with _handle_lock:
         pending = _handles.pop(handle, None)
     if pending is None:
@@ -912,10 +1395,8 @@ def allreduce_async(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
                     name: Optional[str] = None, axis=None) -> int:
     """Start :func:`allreduce` and return its handle (reference:
     ``allreduce_async``, ``mpi_ops.py:132``)."""
-    group = runtime.group(axis)
-    _plan_allreduce(x, op, compression, name, group)
-    return _register(_launch_allreduce(x, op, prescale_factor,
-                                       postscale_factor, compression, group))
+    return _register(_backend("allreduce_async", axis).allreduce_async(
+        x, op, prescale_factor, postscale_factor, compression, name, axis))
 
 
 def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
@@ -926,35 +1407,31 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
                             name: Optional[str] = None, axis=None) -> int:
     """Start :func:`grouped_allreduce`; its handle synchronizes to the
     list."""
-    tensors = list(tensors)
-    group = runtime.group(axis)
-    _plan_grouped(tensors, op, compression, name, group)
-    return _register(_launch_grouped(tensors, op, prescale_factor,
-                                     postscale_factor, compression, group))
+    return _register(_backend(
+        "grouped_allreduce_async", axis).grouped_allreduce_async(
+            list(tensors), op, prescale_factor, postscale_factor,
+            compression, name, axis))
 
 
 def allgather_async(x: torch.Tensor, name: Optional[str] = None,
                     axis=None) -> int:
     """Start :func:`allgather` (the ranks' dim 0 are exchanged first)."""
-    group = runtime.group(axis)
-    return _register(_launch_allgather(x, _plan_allgather(x, name, group),
-                                       group))
+    return _register(_backend("allgather_async", axis).allgather_async(
+        x, name, axis))
 
 
 def broadcast_async(x: torch.Tensor, root_rank: int = 0,
                     name: Optional[str] = None, axis=None) -> int:
-    group = runtime.group(axis)
-    _agree("broadcast", x.shape, x.dtype, name, group, root=root_rank)
-    return _register(_launch_broadcast(x, root_rank, group=group))
+    return _register(_backend("broadcast_async", axis).broadcast_async(
+        x, root_rank, name, axis))
 
 
 def alltoall_async(x: torch.Tensor, splits=None,
                    name: Optional[str] = None, axis=None) -> int:
     """Start :func:`alltoall`. As in the reference, its handle
     synchronizes to the output alone, with or without ``splits``."""
-    group = runtime.group(axis)
-    send, recv, _ = _plan_alltoall(x, _splits_list(splits), name, group)
-    return _register(_launch_alltoall(x, send, recv, group))
+    return _register(_backend("alltoall_async", axis).alltoall_async(
+        x, splits, name, axis))
 
 
 def poll(handle: int) -> bool:
@@ -977,9 +1454,9 @@ def synchronize(handle: int):
 
 def release_handle(handle: int) -> None:
     """Drop a handle without its result; the exchange is waited for
-    first, so its tensors outlive it."""
-    for work in _take(handle).works:
-        work.wait()
+    first, so its tensors outlive it (a native op's result is drained from
+    the core)."""
+    _take(handle).release()
 
 
 # ---------------------------------------------------------------------------
@@ -997,6 +1474,7 @@ def send_recv(send: Optional[Dict[str, torch.Tensor]] = None,
     and ``src`` are ranks of mesh axis ``axis`` (or of ``group``), the
     data-parallel axis's by default. Either side may be left out; the tensors go in the
     order of their sorted names. Returns the received tensors, or None."""
+    runtime.require_spmd("send_recv")
     if group is None:
         group = runtime.group(axis)
     ops = []

@@ -53,6 +53,11 @@ from .. import runtime
 from . import collectives as C
 
 
+def _group(axis):
+    runtime.require_spmd("the in-step operators (ops/spmd.py)")
+    return runtime.group(axis)
+
+
 def _allreduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return C._launch_allreduce(x.contiguous(), C.ReduceOp.SUM, 1.0, 1.0,
                                group=group).wait()
@@ -82,13 +87,13 @@ class _Pvary(torch.autograd.Function):
 def psum(x: torch.Tensor, axis) -> torch.Tensor:
     """Sum over the ranks of ``axis``; the gradient passes through as it is
     (``lax.psum`` on a varying value)."""
-    return _Psum.apply(x, runtime.group(axis))
+    return _Psum.apply(x, _group(axis))
 
 
 def pvary(x: torch.Tensor, axis) -> torch.Tensor:
     """The identity; the gradient is summed over the ranks of ``axis`` (the
     transpose of JAX's implicit ``pvary``)."""
-    return _Pvary.apply(x, runtime.group(axis))
+    return _Pvary.apply(x, _group(axis))
 
 
 def _exchange(tensors: Sequence[torch.Tensor], group, dst, src
@@ -140,7 +145,7 @@ def ppermute(tensors: Sequence[torch.Tensor], axis,
     ``axis``) sends ``src``'s tensors to ``dst``; a rank that no pair
     sends to receives zeros. The gradients travel the reverse way."""
     perm = tuple((int(s), int(d)) for s, d in perm)
-    return _Ppermute.apply(runtime.group(axis), perm, *tensors)
+    return _Ppermute.apply(_group(axis), perm, *tensors)
 
 
 def _all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int
@@ -170,7 +175,7 @@ def all_to_all(x: torch.Tensor, axis, split_axis: int, concat_axis: int
     """``lax.all_to_all(tiled=True)``: dim ``split_axis`` is cut into n
     parts, part r goes to rank r of ``axis``, and the parts received are
     joined along ``concat_axis`` in rank order."""
-    return _AllToAll.apply(x, runtime.group(axis), split_axis, concat_axis)
+    return _AllToAll.apply(x, _group(axis), split_axis, concat_axis)
 
 
 class _BroadcastP(torch.autograd.Function):
@@ -189,7 +194,7 @@ def broadcast_p(x: torch.Tensor, root_rank: int, axis) -> torch.Tensor:
     it as a masked psum; one broadcast gives the same values. The gradient
     is each rank's own on the root and zeros elsewhere, unsummed: the
     cotangent of an invariant value is the same on every rank."""
-    return _BroadcastP.apply(x, root_rank, runtime.group(axis))
+    return _BroadcastP.apply(x, root_rank, _group(axis))
 
 
 def _replica_axes(spec: Sequence, axes: Iterable[str]) -> Tuple[str, ...]:
@@ -229,6 +234,6 @@ def sum_replica_grads(params: Mapping[str, torch.nn.Parameter],
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in ps]
         summed = C._launch_grouped(grads, C.ReduceOp.SUM, 1.0, 1.0,
-                                   group=runtime.group(over)).wait()
+                                   group=_group(over)).wait()
         for p, g in zip(ps, summed):
             p.grad = g

@@ -9,7 +9,8 @@ from .axes import (axis_bound, axis_index, axis_size,  # noqa: F401
 from .optimizer import (DistributedOptimizer,  # noqa: F401
                         allreduce_gradients, broadcast_optimizer_state,
                         broadcast_parameters)
-from .sharded_optimizer import ShardedDistributedOptimizer  # noqa: F401
+from .sharded_optimizer import (ShardedDistributedOptimizer,  # noqa: F401
+                                publish_optimizer_state_bytes)
 from .strategy import (autotune_hierarchical,  # noqa: F401
                        choose_hierarchical, clear_hierarchical_decisions,
                        load_hierarchical_decisions,

@@ -120,6 +120,7 @@ def adasum(x: torch.Tensor, axis=None, group=None,
     and shape. ``sizes``: the lengths of the tensors fused in ``x``, each
     combined with its own coefficients (default: ``x`` is one tensor). At
     one rank ``x`` is returned as it is (JAX ``adasum.py:61-62``)."""
+    runtime.require_spmd("adasum (the VHDD exchange)")
     if group is None:
         group = runtime.group(axis)
     n, idx = dist.get_world_size(group), dist.get_rank(group)

@@ -38,6 +38,16 @@ units, before any gradient moves: its hooks only count, and it launches
 the units itself. No later launch exchanges a descriptor, since a host
 round trip inside a backward hook would stall the card. An exchange's
 buffer stays referenced by its pending handle until ``synchronize()``.
+
+In process mode (``init(mode="process")``) a dense bucket is one op of the
+native core, named ``DistributedOptimizer.bucket.{k}`` on every rank (an
+Adasum bucket enqueues each gradient as ``.{i}`` of it); the hook copies
+the bucket into pinned host memory and waits for the stream before it
+enqueues, and ``synchronize()`` copies the result back. A quantizer's
+group takes the JAX package's eager process path
+(:func:`~horovod_tpu_torch.compression.reducers.
+compressed_grouped_allreduce`). ``broadcast_parameters`` and
+``broadcast_optimizer_state`` enqueue every tensor in one grouped window.
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ def _resolve(axis, hierarchical, op, nbytes: int):
     (JAX ``optimizer.py:111-122``)."""
     if hierarchical is None:
         return runtime.group(axis), None
+    runtime.require_spmd("hierarchical gradient reduction")
     if len(hierarchical) == 3 and hierarchical[0] == "auto":
         hier = tuple(hierarchical[1:])
         if op != C.ReduceOp.ADASUM and not choose_hierarchical(*hier,
@@ -87,14 +98,15 @@ def _resolve(axis, hierarchical, op, nbytes: int):
 
 
 def _launch_dense(buf: torch.Tensor, op, prescale: float, postscale: float,
-                  group, hier, sizes) -> "C._Pending":
+                  group, hier, sizes, name: Optional[str] = None):
     """Reduce a fused buffer of gradients whose lengths are ``sizes`` over
     ``group``, or hierarchically over the axes ``hier``. Adasum gets
-    ``sizes``: a coefficient per gradient."""
+    ``sizes``: a coefficient per gradient. ``name`` names the op for the
+    native core."""
     sizes = sizes if op == C.ReduceOp.ADASUM else None
     if hier is None:
         return C._launch_reduce(buf, op, prescale, postscale, inplace=True,
-                                group=group, sizes=sizes)
+                                group=group, sizes=sizes, name=name)
     return C._launch_hierarchical(buf, op, *hier, prescale, postscale,
                                   sizes=sizes)
 
@@ -147,10 +159,11 @@ class _Unit:
     """Gradients reduced in one call: a bucket of dense gradients (its
     ``compressor`` None or a wire compressor) or a quantizer's group."""
 
-    def __init__(self, params, compressor, quantized: bool):
+    def __init__(self, params, compressor, quantized: bool, name: str = ""):
         self.params = params
         self.compressor = compressor
         self.quantized = quantized
+        self.name = name      # a dense bucket's name for the native core
         self.ready = 0        # members whose countdown reached zero
         self.pending = None   # the launched reduction
         self.buffer = None    # a dense bucket's flat buffer
@@ -261,7 +274,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             nbytes = p.numel() * p.element_size()
             unit = open_bucket.get(key)
             if unit is None or filled[key] + nbytes > cap:
-                unit = open_bucket[key] = _Unit([], comp, False)
+                unit = open_bucket[key] = _Unit(
+                    [], comp, False,
+                    f"DistributedOptimizer.bucket.{len(buckets)}")
                 filled[key] = 0
                 buckets.append(unit)
             unit.params.append(p)
@@ -306,7 +321,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         torch.cat(flat, out=unit.buffer)
         unit.pending = _launch_dense(unit.buffer, self._op, self._prescale,
                                      self._postscale, self._group,
-                                     self._hier, [f.numel() for f in flat])
+                                     self._hier, [f.numel() for f in flat],
+                                     unit.name)
 
     def _reduce_compressed(self, params, grads, comp) -> List[torch.Tensor]:
         kwargs = dict(reduction=self._config.reduction, op=self._op,
@@ -514,11 +530,28 @@ def _tensors(params) -> List[torch.Tensor]:
     return out
 
 
+def _broadcast_grouped(tensors: List[torch.Tensor], root_rank: int,
+                       prefix: str) -> None:
+    """Process mode: every tensor enqueued as ``{prefix}.{i}`` in one
+    grouped window, one negotiation round for the whole tree (JAX
+    ``_broadcast_tree``, ``optimizer.py:401-420``), then written in
+    place."""
+    with C.grouped_enqueue():
+        handles = [C.broadcast_async(t, root_rank, name=f"{prefix}.{i}")
+                   for i, t in enumerate(tensors)]
+    for t, h in zip(tensors, handles):
+        t.copy_(C.synchronize(h))
+
+
 def broadcast_parameters(params: Union[dict, Iterable], root_rank: int = 0
                          ) -> None:
     """Broadcast parameters or buffers from ``root_rank`` in place
     (reference: ``horovod/torch/functions.py:30``). Takes a ``state_dict``,
     ``named_parameters()`` or a list of tensors."""
+    if runtime.mode() == "process":
+        _broadcast_grouped(_tensors(params), root_rank,
+                           "broadcast_parameters")
+        return
     for t in _tensors(params):
         C.broadcast_(t, root_rank)
 
@@ -532,6 +565,12 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
                               for g in optimizer.param_groups], root_rank)
     for group, values in zip(optimizer.param_groups, hyper):
         group.update(values)
+    if runtime.mode() == "process":
+        _broadcast_grouped(
+            [v for group in optimizer.param_groups for p in group["params"]
+             for v in optimizer.state.get(p, {}).values()
+             if torch.is_tensor(v)], root_rank, "broadcast_optimizer_state")
+        return
     dev = runtime.device()
     for group in optimizer.param_groups:
         for p in group["params"]:

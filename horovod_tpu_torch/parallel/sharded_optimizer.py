@@ -21,6 +21,13 @@ holds (the JAX ``publish_optimizer_state_bytes``, :73). The wrapped
 optimizer must be elementwise (SGD, momentum, Adam, AdamW, RMSprop, ...):
 it sees one flat shard, so a transform across parameters (global-norm
 clipping, per-layer scaling) belongs before :meth:`step`.
+
+In process mode (``init(mode="process")``) the two halves are the native
+core's reduce-scatter (``zero1.grads``; Average is the core's, as in the
+JAX package's ``_update_process``, :235) and allgather
+(``zero1.updates``), and each step publishes the state's bytes to the
+core's ``hvdtpu_optimizer_state_bytes`` gauge
+(:func:`publish_optimizer_state_bytes`, JAX :73).
 """
 
 from __future__ import annotations
@@ -32,6 +39,22 @@ import torch.distributed as dist
 
 from .. import runtime
 from ..ops import collectives as C
+
+
+def _state_nbytes(optimizer: torch.optim.Optimizer) -> int:
+    return sum(t.numel() * t.element_size()
+               for state in optimizer.state.values()
+               for t in state.values() if torch.is_tensor(t))
+
+
+def publish_optimizer_state_bytes(optimizer: torch.optim.Optimizer) -> int:
+    """The bytes of ``optimizer``'s state tensors, published to the native
+    core's ``hvdtpu_optimizer_state_bytes`` gauge in process mode (JAX
+    ``publish_optimizer_state_bytes``, ``sharded_optimizer.py:73``)."""
+    nbytes = _state_nbytes(optimizer)
+    if runtime.is_initialized() and runtime.mode() == "process":
+        runtime.core().set_optimizer_state_bytes(nbytes)
+    return nbytes
 
 
 class ShardedDistributedOptimizer:
@@ -109,17 +132,27 @@ class ShardedDistributedOptimizer:
         torch.cat([(p.grad if p.grad is not None else
                     torch.zeros_like(p)).reshape(-1).to(torch.float32)
                    for p in self._params], out=self._grads[:self._total])
-        g = C._launch_reduce(self._grads, C.ReduceOp.SUM, 1.0, 1.0,
-                             scatter=True, inplace=True,
-                             group=self._group).wait()
-        if self._op == C.ReduceOp.AVERAGE:
-            g.div_(self._n)
+        process = runtime.mode() == "process"
+        if process:
+            g = C._launch_reduce(self._grads, self._op, 1.0, 1.0,
+                                 scatter=True, name="zero1.grads").wait()
+        else:
+            g = C._launch_reduce(self._grads, C.ReduceOp.SUM, 1.0, 1.0,
+                                 scatter=True, inplace=True,
+                                 group=self._group).wait()
+            if self._op == C.ReduceOp.AVERAGE:
+                g.div_(self._n)
         self._load_shard()
         self.shard.grad = g
         self.optimizer.step()
         self.shard.grad = None
-        dist.all_gather_into_tensor(self._full, self.shard.detach(),
-                                    group=self._group)
+        if process:
+            publish_optimizer_state_bytes(self.optimizer)
+            self._full = C.allgather(self.shard.detach(),
+                                     name="zero1.updates")
+        else:
+            dist.all_gather_into_tensor(self._full, self.shard.detach(),
+                                        group=self._group)
         for p, part in zip(self._params,
                            self._full[:self._total].split(self._sizes)):
             p.copy_(part.view_as(p))
@@ -130,6 +163,4 @@ class ShardedDistributedOptimizer:
         of the wrapped optimizer, each of the shard's length
         (``ceil(n_params / n)`` elements) or a scalar such as Adam's step
         count."""
-        return sum(t.numel() * t.element_size()
-                   for state in self.optimizer.state.values()
-                   for t in state.values() if torch.is_tensor(t))
+        return _state_nbytes(self.optimizer)

@@ -161,6 +161,7 @@ def autotune_hierarchical(inner_axis: str, outer_axis: str,
     measures, then rank 0's timings are broadcast, so every rank records
     the same choices (reference: ``Controller::SynchronizeParameters``);
     with ``$HVDTPU_AUTOTUNE_LOG`` set, rank 0 saves the table."""
+    runtime.require_spmd("autotune_hierarchical")
     m = measure if measure is not None else _default_measure
     sizes_sorted = sorted(sizes)
     times = torch.tensor(

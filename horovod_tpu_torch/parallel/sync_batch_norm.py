@@ -99,6 +99,7 @@ class SyncBatchNorm(BatchNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        runtime.require_spmd("SyncBatchNorm")
         return _SyncBatchNormFn.apply(x, self.weight, self.bias,
                                       self.running_mean, self.running_var,
                                       self.momentum, self.eps,

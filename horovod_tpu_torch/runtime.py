@@ -23,6 +23,15 @@ ranks that share their coordinates on the other axes. The collectives take
 an ``axis=`` and run over that group; without one they run over the
 data-parallel axis (:func:`dp_axis`), as the JAX package's ``axis=None``
 does. An exchange that must span every rank asks for :func:`world_group`.
+
+``init(mode="process")`` is the JAX package's process mode
+(``horovod_tpu/runtime.py:355-500``): no ``torch.distributed`` group is
+created; each rank starts the native core (:mod:`horovod_tpu_torch.basics`),
+whose background thread negotiates every named collective with rank 0's
+controller, fuses them and moves their bytes over TCP or shared memory.
+The ranks meet at ``HVDTPU_CONTROLLER_ADDR``:``HVDTPU_CONTROLLER_PORT``.
+The mesh is one ``dp`` axis over every rank; tensors on the card are staged
+through pinned host memory (:mod:`horovod_tpu_torch.ops.collectives`).
 """
 
 from __future__ import annotations
@@ -60,6 +69,8 @@ class _RuntimeState:
     # A tuple of axis names, in mesh order -> its process group.
     groups: Dict[Tuple[str, ...], object] = dataclasses.field(
         default_factory=dict)
+    mode: str = "spmd"
+    core: object = None  # basics.NativeCore in process mode
 
 
 DP_AXIS = "dp"
@@ -150,9 +161,30 @@ def _build_groups(st: _RuntimeState) -> None:
                     st.groups[key] = g
 
 
+def _start_core(st: _RuntimeState) -> None:
+    """Create and start this rank's native core; a core that cannot be
+    built or loaded raises, as does a failed form-up, after the
+    half-joined core is shut down."""
+    from . import basics
+    try:
+        st.core = basics.NativeCore(
+            rank=st.rank, size=st.size, local_rank=st.local_rank,
+            local_size=st.local_size, cross_rank=st.cross_rank,
+            cross_size=st.cross_size)
+    except (OSError, RuntimeError) as exc:
+        raise NotInitializedError(
+            "process mode: the native core (horovod_tpu_torch/native, "
+            f"built with g++) could not be built or loaded: {exc}") from exc
+    try:
+        st.core.start()
+    except Exception:
+        st.core.shutdown()
+        raise
+
+
 def init(device: Union[str, torch.device, None] = None, mesh_shape=None,
-         axis_names: Sequence[str] = (DP_AXIS,), dp_axis: str = DP_AXIS
-         ) -> None:
+         axis_names: Sequence[str] = (DP_AXIS,), dp_axis: str = DP_AXIS,
+         mode: Optional[str] = None) -> None:
     """Initialize the runtime (reference: ``hvd.init()``,
     ``horovod/common/basics.py:34``; JAX ``init``,
     ``horovod_tpu/runtime.py:308``). A second call is a no-op.
@@ -168,12 +200,19 @@ def init(device: Union[str, torch.device, None] = None, mesh_shape=None,
       axis_names: names of a tuple ``mesh_shape``'s dims.
       dp_axis: the data-parallel axis (the first axis when the mesh has no
         axis of that name).
+      mode: ``None`` or ``"spmd"``, the ``torch.distributed`` world above;
+        ``"process"``, the native core's world (no process group; the mesh
+        is ``{"dp": size}`` and any other ``mesh_shape`` raises).
     """
     global _state
     with _lock:
         if _state.initialized:
             return
-        st = _RuntimeState()
+        mode = mode or "spmd"
+        if mode not in ("spmd", "process"):
+            raise ValueError(f"mode must be \"spmd\" or \"process\", got "
+                             f"{mode!r}")
+        st = _RuntimeState(mode=mode)
         st.rank = _env_int(ev.HVDTPU_RANK, ev.RANK, 0)
         st.size = _env_int(ev.HVDTPU_SIZE, ev.WORLD_SIZE, 1)
         st.local_rank = _env_int(ev.HVDTPU_LOCAL_RANK, ev.LOCAL_RANK, 0)
@@ -200,6 +239,25 @@ def init(device: Union[str, torch.device, None] = None, mesh_shape=None,
         else:
             raise ValueError(f"unsupported device {st.device}; use a CUDA "
                              "device or \"cpu\"")
+        if mode == "process":
+            if mesh_shape is not None and dict(mesh_shape) != {
+                    DP_AXIS: st.size}:
+                raise ValueError(
+                    f"process mode runs one \"dp\" axis over every rank, "
+                    f"{{\"dp\": {st.size}}}; got mesh_shape {mesh_shape!r}")
+            st.axis_names = (DP_AXIS,)
+            st.mesh_shape = {DP_AXIS: st.size}
+            st.dp_axis = DP_AXIS
+            _start_core(st)
+            sizes = st.core.collective(
+                "allgather", "hvd.init.local_size",
+                torch.tensor([st.local_size], dtype=torch.int64))
+            st.homogeneous = bool((sizes == st.local_size).all())
+            log.debug("init: process mode rank %d/%d on %s", st.rank,
+                      st.size, st.device)
+            st.initialized = True
+            _state = st
+            return
         names, dims = _mesh_dims(mesh_shape, axis_names, st.size)
         st.axis_names = names
         st.mesh_shape = dict(zip(names, dims))
@@ -227,7 +285,10 @@ def shutdown() -> None:
     with _lock:
         if not _state.initialized:
             return
-        dist.destroy_process_group()
+        if _state.core is not None:
+            _state.core.shutdown()
+        else:
+            dist.destroy_process_group()
         _state = _RuntimeState()
 
 
@@ -271,13 +332,26 @@ def is_homogeneous() -> bool:
     return _require_init().homogeneous
 
 
+def mode() -> str:
+    """``"spmd"`` (the ``torch.distributed`` world) or ``"process"`` (the
+    native core's)."""
+    return _require_init().mode
+
+
+def core():
+    """This rank's :class:`~horovod_tpu_torch.basics.NativeCore` in
+    process mode, else None."""
+    return _require_init().core
+
+
 def device() -> torch.device:
     """The device ``init`` chose for this rank."""
     return _require_init().device
 
 
 def mesh():
-    """The ranks' :class:`torch.distributed.device_mesh.DeviceMesh`."""
+    """The ranks' :class:`torch.distributed.device_mesh.DeviceMesh` (None
+    in process mode, which creates no process group)."""
     return _require_init().mesh
 
 
@@ -305,6 +379,11 @@ def group(axis=None):
     if axis is None:
         axis = st.dp_axis
     names = (axis,) if isinstance(axis, str) else tuple(axis)
+    if st.mode == "process":
+        if names != (DP_AXIS,):
+            raise ValueError(f"process mode runs over the \"dp\" axis of "
+                             f"every rank; got axis {axis!r}")
+        return None
     unknown = [a for a in names if a not in st.axis_names]
     if unknown or not names or len(set(names)) != len(names):
         raise ValueError(f"axis {axis!r} does not name axes of the mesh "
@@ -312,11 +391,23 @@ def group(axis=None):
     return st.groups[tuple(a for a in st.axis_names if a in names)]
 
 
+def require_spmd(what: str) -> None:
+    """Raise NotImplementedError in process mode for a part of the port
+    that runs over ``torch.distributed`` process groups, which process mode
+    does not create."""
+    if _state.initialized and _state.mode == "process":
+        raise NotImplementedError(
+            f"{what} runs over torch.distributed process groups, which "
+            "init(mode=\"process\") does not create; its process-mode "
+            "port is queued (ROADMAP A8)")
+
+
 def world_group():
     """The process group of every rank: for the exchanges that span the
     whole world whatever the mesh (the optimizer's layout check, the
     object collectives)."""
-    _require_init()
+    if _require_init().mode == "process":
+        return None
     return dist.group.WORLD
 
 
@@ -338,7 +429,8 @@ def gloo_built() -> bool:
 
 def gloo_enabled() -> bool:
     """The process group runs on gloo (``init(device="cpu")``)."""
-    return _state.initialized and dist.get_backend() == "gloo"
+    return _state.initialized and _state.mode == "spmd" and \
+        dist.get_backend() == "gloo"
 
 
 def mpi_built() -> bool:

@@ -70,6 +70,9 @@ def test_import_pulls_in_no_jax():
             "import horovod_tpu_torch.parallel.strategy\n"
             "import horovod_tpu_torch.parallel.sync_batch_norm\n"
             "import horovod_tpu_torch.parallel.ulysses\n"
+            "import horovod_tpu_torch.basics\n"
+            "import horovod_tpu_torch.ops.dispatch\n"
+            "import horovod_tpu_torch.utils.native_build\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -93,7 +96,8 @@ def test_sources_import_no_jax(path):
                 "compression/quantize.py", "compression/config.py",
                 "compression/reducers.py", "parallel/adasum.py",
                 "parallel/axes.py", "parallel/sharded_optimizer.py",
-                "parallel/strategy.py", "parallel/sync_batch_norm.py"
+                "parallel/strategy.py", "parallel/sync_batch_norm.py",
+                "basics.py", "ops/dispatch.py", "utils/native_build.py"
                 } <= names, names
     for f in files:
         with open(f) as fh:
@@ -112,6 +116,36 @@ def test_init_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         thvd.init()
     assert not thvd.is_initialized()
+
+
+def test_process_mode_without_its_core_raises(monkeypatch, tmp_path):
+    """init(mode="process") raises when the native core cannot be loaded,
+    and the runtime stays down: no world without the core, and no
+    torch.distributed group in its place."""
+    from horovod_tpu_torch import basics
+    monkeypatch.setattr(basics, "_lib", None)  # no library loaded yet
+    monkeypatch.setattr(basics, "_library_path",
+                        lambda: str(tmp_path / "missing.so"))
+    with pytest.raises(NotInitializedError, match="native core"):
+        thvd.init(mode="process", device="cpu")
+    assert not thvd.is_initialized()
+    assert not torch.distributed.is_initialized()
+
+
+def test_process_mode_whose_core_fails_to_build_raises(monkeypatch):
+    """As above, when the core's sources do not compile."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.utils import native_build
+
+    def fail():
+        raise RuntimeError("g++ failed on core.cpp")
+
+    monkeypatch.setattr(basics, "_lib", None)
+    monkeypatch.setattr(native_build, "build", fail)
+    with pytest.raises(NotInitializedError, match="g\\+\\+ failed"):
+        thvd.init(mode="process", device="cpu")
+    assert not thvd.is_initialized()
+    assert not torch.distributed.is_initialized()
 
 
 def test_topology_on_the_cpu():

@@ -26,8 +26,9 @@ just after:
 * GPT: the ``gpt_long_context_flash`` configuration of ``bench.py`` (6
   layers, d512, 8 heads of 64, MLP 2048, vocab 32000, 2 x 4096 tokens, bf16,
   ``remat="full"``) with flash attention (kernels B7, B8, B9, in bf16 on
-  the tensor cores), through the dense ``DistributedOptimizer`` (Average,
-  four buckets of at most 64 MiB) and SGD;
+  the tensor cores: B7 and B8 as ``wgmma``, B9 as ``mma.sync``), through
+  the dense ``DistributedOptimizer`` (Average, four buckets of at most 64
+  MiB) and SGD;
 * the collective API on the card: every async op bitwise against its
   sync twin, ``reducescatter``, ``alltoall`` with splits, ``allgather``,
   autograd through ``allreduce``, and agreement errors (a dtype mismatch
@@ -113,7 +114,7 @@ returns (the quantized group of a ResNet-50 phase, in the second pass with
 buckets of the GPT path). Each path takes 2 warm-up and 10 timed steps. The script checks that the
 loss is finite and falls, that the steps launched each kernel of the path
 as often as the path requires (and no other kernel; every B7, B8 and B9
-launch of the GPT path on the tensor-core route, every B5 launch on the
+launch of the GPT path on its tensor-core route, every B5 launch on the
 packed bisection route and every B2 launch on the packed route), and that
 the trained model of the first ResNet-50 path and of the GPT path agrees
 with a CPU copy of itself on a small input; every B3 and B4 launch of the
@@ -123,9 +124,11 @@ call that computes the same function, at the shapes of the path (the
 attention kernels and B4 in alternating rounds with that call; B2, B5, B3
 and B4 in alternating rounds with their packed route on an input that is
 not aligned, with the card's clocks read before and after).
-``--parent DIR``, a checkout of the parent commit, adds the parent's B3
-and B4 after ``unpack_bits`` (the design this tree's B3 and B4 replace)
-to those rounds. B7, B8 and B9 are held against their plain versions at
+``--parent DIR``, a checkout of the parent commit, adds the parent's B7
+and B8 (the ``mma.sync`` design this tree's ``wgmma`` kernels replace),
+built from its own sources, to the attention rounds, causal and
+non-causal, and holds them to the same bound of the plain versions. B7, B8
+and B9 are held against their plain versions at
 each shape the paths give them (the GPT path's, the encoder's non-causal
 one and the pipeline's micro-batch), and also timed non-causal at the
 encoder's shape (the GPT path's), beside ``scaled_dot_product_attention
@@ -153,6 +156,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import torch
 import torch.nn.functional as F
@@ -192,14 +196,19 @@ REPLACES = {
 SOURCES = {"maxmin": "horovod_tpu_torch/csrc/maxmin.cu",
            "norm": "horovod_tpu_torch/csrc/norm.cu",
            "flash": "horovod_tpu_torch/csrc/flash_attention.cu",
-           "flash_mma": "horovod_tpu_torch/csrc/flash_attention_mma.cu"}
+           "flash_mma": "horovod_tpu_torch/csrc/flash_attention_mma.cu",
+           "flash_wgmma": "horovod_tpu_torch/csrc/flash_attention_wgmma.cu"}
 # The kernel that runs each attention wrapper at the GPT path's shape (bf16,
 # on the tensor cores, as the route counts confirm).
 FLASH_KERNELS = {
-    "flash_fwd": ("flash_fwd_mma_kernel<64>", "flash_mma"),
-    "flash_dkdv": ("flash_dkdv_mma_kernel<64>", "flash_mma"),
+    "flash_fwd": ("flash_fwd_wgmma_kernel<64>", "flash_wgmma"),
+    "flash_dkdv": ("flash_dkdv_wgmma_kernel<64>", "flash_wgmma"),
     "flash_dq": ("flash_dq_mma_kernel<64>", "flash_mma"),
 }
+# The route of every bf16 launch of each attention kernel (every fp32
+# launch: "fp32").
+BF16_ROUTES = {"flash_fwd": "wgmma_bf16", "flash_dkdv": "wgmma_bf16",
+               "flash_dq": "mma_bf16"}
 # Launches a step of each path (the launch counts of every other kernel
 # must stay 0): the max-min reducer quantizes the rows and the reduced
 # chunk, decodes the rows for the residual and the gathered chunks, and
@@ -955,8 +964,10 @@ def check_flash(flash, dev):
     at_path_shape("pipeline", GPT_BATCH // PIPE_MICRO * heads, True,
                   seed + 1)
     # the 3 path shapes + 24 cases each
-    want = {"mma_bf16": 27, "fp32": 24}
     for name in flash.ROUTES:
+        want = {route: 27 if route == BF16_ROUTES[name] else 0
+                for route in flash.ROUTES[name]}
+        want["fp32"] = 24
         if flash.ROUTES[name] != want:
             raise AssertionError(f"{name} routes {flash.ROUTES[name]}, "
                                  f"expected {want}")
@@ -1510,10 +1521,12 @@ def train_gpt_zero(hvd):
 
 
 def check_flash_routes(path: str, launches) -> None:
-    """Every B7, B8 and B9 launch of the window on the tensor cores."""
+    """Every B7, B8 and B9 launch of the window on the tensor cores, on its
+    kernel's route (``BF16_ROUTES``)."""
     from horovod_tpu_torch.ops.flash_attention import ROUTES
     routes = {name: dict(counts) for name, counts in ROUTES.items()}
-    want = {name: {"mma_bf16": launches[name], "fp32": 0} for name in routes}
+    want = {name: {r: launches[name] if r == BF16_ROUTES[name] else 0
+                   for r in routes[name]} for name in routes}
     if routes != want:
         raise AssertionError(f"{path}: routes {routes}, expected {want}")
 
@@ -2132,7 +2145,7 @@ def train_gpt(hvd, dev):
 
 
 def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
-            rates, parent=None):
+            rates):
     """B1–B6 at the ResNet path's shape (4 bits, buckets of 512), and B5
     also with the 128-level table of 8 bits. Bound: each input read once
     and each output written once at the memory rate (B2 and B5 write their
@@ -2156,25 +2169,22 @@ def measure(kernels, norm_kernels, dev, n_values: int, launches, errors,
     bits), B3 and B4 are timed in ``FLASH_ROUNDS`` alternating rounds
     (medians) beside their packed route on an input that is not aligned
     (B2, B5: one value into its buffer, read one value at a time; B3, B4:
-    one byte, read one byte at a time), and B3 and B4 with ``parent``
-    beside the parent checkout's kernel after ``unpack_bits``: the design
-    they replace. All must give the same bytes. Every ``ms``,
-    ``plain_ms`` and ``library_ms`` is CUDA events around eager calls, as
-    for every other kernel; B3's and B4's rounds are also timed as CUDA
-    graphs of the calls (``time_ms(graph=True)``: device time without the
-    wrappers' host cost, which at 0.02-0.05 ms a kernel shows), in the
-    ``*_graph`` fields. Their calls cycle through ``ROTATE`` copies of the
-    inputs and keep ``ROTATE`` outputs alive (:func:`rotating`), so that
-    no reading is served from the L2."""
+    one byte, read one byte at a time). All must give the same bytes.
+    Every ``ms``, ``plain_ms`` and ``library_ms`` is CUDA events around
+    eager calls, as for every other kernel; B3's and B4's rounds are also
+    timed as CUDA graphs of the calls (``time_ms(graph=True)``: device
+    time without the wrappers' host cost, which at 0.02-0.05 ms a kernel
+    shows), in the ``*_graph`` fields. Their calls cycle through
+    ``ROTATE`` copies of the inputs and keep ``ROTATE`` outputs alive
+    (:func:`rotating`), so that no reading is served from the L2."""
     x = torch.randn(n_values, device=dev) * 1e-2
     shifted = at_offset(x, 1)
     work, inputs = kernel_work(kernels, norm_kernels, x, rates[1],
                                extra=True)
     packed = packed_rounds(kernels, norm_kernels, x, shifted,
                            inputs["tables"])
-    decoded, graphed = decode_rounds(
-        kernels, inputs["decode"], inputs["codes"],
-        parent_kernels(parent) if parent else {})
+    decoded, graphed = decode_rounds(kernels, inputs["decode"],
+                                     inputs["codes"])
     packed.update(decoded)
     library = {"maxmin_dequantize": (
         packed["maxmin_dequantize"], packed["addcmul"],
@@ -2407,19 +2417,18 @@ def rotating(fn, inputs):
     return call
 
 
-def decode_rounds(kernels, inputs, codes, old):
+def decode_rounds(kernels, inputs, codes):
     """B4 and B3 (one rank, and ``B3_RANKS`` ranks) on the packed payload,
     in ``FLASH_ROUNDS`` alternating rounds beside the same kernel on the
-    payload one byte into its buffer (read one byte at a time) and beside
-    the parent checkout's kernel after ``unpack_bits``, where ``old`` has
-    it; B4 also beside ``torch.addcmul`` on ``codes``, its unpacked uint8
-    codes. Each function cycles through the ``ROTATE`` copies of its
-    inputs (:func:`rotating`). The outputs on the first copy must be the
+    payload one byte into its buffer (read one byte at a time); B4 also
+    beside ``torch.addcmul`` on ``codes``, its unpacked uint8 codes. Each
+    function cycles through the ``ROTATE`` copies of its inputs
+    (:func:`rotating`). The outputs on the first copy must be the
     same bytes. The rounds run twice: with CUDA events around eager calls,
     and as CUDA graphs of the calls (device time only). Returns the eager
     medians of the packed route (by name) and of addcmul, and by name the
-    fields of the graph medians and of the parent's (``device_ms_graph``,
-    ``library_ms_graph``, ``parent_ms``, ``parent_ms_graph``)."""
+    fields of the graph medians (``device_ms_graph``,
+    ``library_ms_graph``)."""
     eager, graphed = {}, {}
     for name, copies in inputs.items():
         kernel = kernels.maxmin_dequantize if name == "maxmin_dequantize" \
@@ -2430,8 +2439,6 @@ def decode_rounds(kernels, inputs, codes, old):
         shifted = [(at_offset(q, 1), mn, unit) for q, mn, unit in copies]
         designs = {"packed": (decode, copies),
                    "packed_misaligned": (decode, shifted)}
-        if name in old:
-            designs["parent_and_unpack_bits"] = (old[name], copies)
         outs = {k: fn(*args[0]) for k, (fn, args) in designs.items()}
         if any(not bitwise(v, outs["packed"]) for v in outs.values()):
             raise AssertionError(f"{name}: the designs' outputs differ")
@@ -2448,24 +2455,20 @@ def decode_rounds(kernels, inputs, codes, old):
         if "addcmul" in med:
             eager["addcmul"] = med["addcmul"]
             fields["library_ms_graph"] = med_graph["addcmul"]
-        if name in old:
-            fields["parent_ms"] = med["parent_and_unpack_bits"]
-            fields["parent_ms_graph"] = med_graph["parent_and_unpack_bits"]
         graphed[name] = fields
     return eager, graphed
 
 
 def parent_kernels(parent: str):
-    """The parent checkout's B4 and B3, each after ``unpack_bits`` (the
-    design this tree's packed B3 and B4 replace), built from its own
-    sources by its own ``utils/cuda_build.py`` into its own tree, and
-    called through their C entry points, which take one byte a code: by
-    name, functions of a packed payload, ``min`` and ``unit`` as B3 and B4
-    take them."""
+    """The parent checkout's B7 and B8 (the ``mma.sync`` design this tree's
+    ``wgmma`` kernels replace), built from its own sources by its own
+    ``utils/cuda_build.py`` into its own tree and called through their C
+    entry points, which take the same arguments as this tree's: by name,
+    functions with the signatures of ``flash_fwd`` and ``flash_dkdv``.
+    Each raises if its launch fails or its library reports another route
+    than the parent's tensor-core one (1)."""
     import ctypes
     import importlib.util
-
-    from horovod_tpu_torch.compression.quantize import unpack_bits
 
     spec = importlib.util.spec_from_file_location(
         "parent_cuda_build",
@@ -2473,32 +2476,54 @@ def parent_kernels(parent: str):
     build = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(build)
     lib = ctypes.CDLL(str(build.build()))
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.hvd_maxmin_dequantize.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
-    lib.hvd_maxmin_dequantize_sum.argtypes = [ptr, ptr, ptr, i32, i64, i32,
-                                              ptr, ptr]
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    shape = [i32, i32, i32, f32, i32, i32, ptr]  # bh S D scale causal bf16
+    lib.hvd_flash_fwd.argtypes = [ptr] * 5 + shape
+    lib.hvd_flash_dkdv.argtypes = [ptr] * 8 + shape
+    lib.hvd_flash_fwd.restype = lib.hvd_flash_dkdv.restype = i32
+    lib.hvd_flash_last_route.argtypes = []
+    lib.hvd_flash_last_route.restype = i32
 
-    def decode(name):
-        def call(packed, mn, unit):
-            n_ranks, n_buckets = packed.shape[0], mn.shape[-1]
-            out = torch.empty((n_buckets, BUCKET), device=packed.device)
-            if name == "maxmin_dequantize":
-                fn, sizes = lib.hvd_maxmin_dequantize, (n_buckets, BUCKET)
-            else:
-                fn, sizes = lib.hvd_maxmin_dequantize_sum, (
-                    n_ranks, n_buckets, BUCKET)
-            codes = unpack_bits(packed, BITS, n_buckets * BUCKET)
-            err = fn(codes.data_ptr(), mn.data_ptr(), unit.data_ptr(),
-                     *sizes, out.data_ptr(),
-                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"parent kernel launch failed ({err})")
-            return out
-        return call
+    def launch(name, fn, q, *ptrs, scale, causal):
+        bh, s, d = q.shape
+        err = fn(q.data_ptr(), *ptrs, bh, s, d, scale, int(causal), 1,
+                 torch.cuda.current_stream().cuda_stream)
+        route = lib.hvd_flash_last_route()
+        if err or route != 1:
+            raise RuntimeError(f"parent {name}: error {err}, route {route}")
 
-    return {name: decode(name) for name in ("maxmin_dequantize",
-                                            "maxmin_dequantize_sum",
-                                            "maxmin_dequantize_sum_4_ranks")}
+    def flash_fwd(q, k, v, scale, causal):
+        o = torch.empty_like(q)
+        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+        launch("flash_fwd", lib.hvd_flash_fwd, q, k.data_ptr(),
+               v.data_ptr(), o.data_ptr(), lse.data_ptr(), scale=scale,
+               causal=causal)
+        return o, lse
+
+    def flash_dkdv(q, k, v, do, lse, delta, scale, causal):
+        dk, dv = torch.empty_like(q), torch.empty_like(q)
+        launch("flash_dkdv", lib.hvd_flash_dkdv, q, k.data_ptr(),
+               v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+               delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), scale=scale,
+               causal=causal)
+        return dk, dv
+
+    return {"flash_fwd": flash_fwd, "flash_dkdv": flash_dkdv}
+
+
+def check_parent(flash, dev, parent):
+    """The parent's B7 and B8 within the same bound of the plain versions
+    as this tree's, at the GPT path's shape (causal) and the encoder's
+    (non-causal); returns each one's largest error by causality."""
+    heads, d = GPT_CONFIG["num_heads"], GPT_CONFIG["head_dim"]
+    theirs = types.SimpleNamespace(**{**vars(flash), **parent})
+    errors = {}
+    for causal in (True, False):
+        errors[causal], ratios = flash_errors(theirs, *flash_inputs(
+            dev, GPT_BATCH * heads, GPT_SEQ, d, torch.bfloat16, 7), causal)
+        log(f"parent B7 and B8 (causal={causal}): within the bound, "
+            f"largest error over it {ratios}")
+    return errors
 
 
 def smi_clocks() -> str:
@@ -2520,11 +2545,24 @@ def paired_ms(fns, rounds: int = FLASH_ROUNDS, graph: bool = False):
     return {name: statistics.median(t) for name, t in times.items()}, times
 
 
-def measure_noncausal(flash, q, k, v, do, heads, sdpa_grad, rates):
+def parent_rounds(parent, q, k, v, args, causal: bool):
+    """The parent's B7 and B8 as functions for the timing rounds (none
+    without ``parent``)."""
+    if not parent:
+        return {}
+    scale = args[-2]
+    return {"parent_flash_fwd": lambda: parent["flash_fwd"](
+                q, k, v, scale, causal),
+            "parent_flash_dkdv": lambda: parent["flash_dkdv"](*args)}
+
+
+def measure_noncausal(flash, q, k, v, do, heads, sdpa_grad, rates,
+                      parent=None):
     """B7, B8 and B9 non-causal at the encoder's shape (BH 16, S 4096, D
     64, bf16): every one of the ``BH * S * S`` pairs, 2 D operations per
-    pair and product, beside SDPA (``is_causal=False``) in alternating
-    rounds, and their plain versions; ``noncausal_*`` fields by kernel."""
+    pair and product, beside SDPA (``is_causal=False``) and, with
+    ``parent``, the parent's B7 and B8 in alternating rounds, and their
+    plain versions; ``noncausal_*`` fields by kernel."""
     bandwidth, _, tensor = rates
     bh, s, d = q.shape
     scale = 1.0 / math.sqrt(d)
@@ -2539,7 +2577,8 @@ def measure_noncausal(flash, q, k, v, do, heads, sdpa_grad, rates):
         "flash_dkdv": lambda: flash.flash_dkdv(*args),
         "flash_dq": lambda: flash.flash_dq(*args),
         "sdpa_backward": lambda: torch.autograd.grad(
-            sdpa_out, heads, sdpa_grad, retain_graph=True)})
+            sdpa_out, heads, sdpa_grad, retain_graph=True),
+        **parent_rounds(parent, q, k, v, args, False)})
     log(f"flash timing, non-causal: {FLASH_ROUNDS} alternating rounds, ms "
         f"{json.dumps(readings)}")
     tensor_bytes = q.numel() * q.element_size()
@@ -2564,6 +2603,8 @@ def measure_noncausal(flash, q, k, v, do, heads, sdpa_grad, rates):
                      "noncausal_bound_by": "bytes" if byte_ms >= op_ms
                      else "operations",
                      "noncausal_library_ms": medians[lib]}
+        if "parent_" + name in medians:
+            out[name]["noncausal_parent_ms"] = medians["parent_" + name]
         log(f"kernel {name} non-causal: {medians[name]:.4f} ms (plain "
             f"{out[name]['noncausal_plain_ms']:.4f} ms, bound "
             f"{max(byte_ms, op_ms):.4f} ms, {ops} operations; SDPA "
@@ -2572,7 +2613,7 @@ def measure_noncausal(flash, q, k, v, do, heads, sdpa_grad, rates):
 
 
 def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
-                  noncausal_errors):
+                  noncausal_errors, parent=None):
     """B7, B8 and B9 at the GPT path's shape. Bound: the causal pairs this
     run computes, 2 D operations per pair and product (B7 2 products, B8 4,
     B9 3) at the bf16 tensor-core rate, against each input read once and
@@ -2581,7 +2622,10 @@ def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
     and dV together) for B8 and B9; and the port's whole backward (the
     delta pass, B8 and B9) against that backward, logged. Kernels and
     yardsticks are timed in ``FLASH_ROUNDS`` alternating rounds; the
-    medians are reported."""
+    medians are reported. With ``parent`` (:func:`parent_kernels`), the
+    parent's B7 and B8 run in the same rounds, causal and non-causal, after
+    :func:`check_parent` held them to the same bound: the ``parent_ms`` and
+    ``noncausal_parent_ms`` fields of their rows."""
     bandwidth, _, tensor = rates
     bh, s = GPT_BATCH * GPT_CONFIG["num_heads"], GPT_SEQ
     d = GPT_CONFIG["head_dim"]
@@ -2614,7 +2658,8 @@ def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
         "flash_dq": lambda: flash.flash_dq(*args),
         "sdpa_backward": lambda: torch.autograd.grad(
             sdpa_out, heads, sdpa_grad, retain_graph=True),
-        "port_backward": port_backward})
+        "port_backward": port_backward,
+        **parent_rounds(parent, q, k, v, args, True)})
     log(f"flash timing: clocks.sm, clocks.max.sm, power.draw after "
         f"{smi_clocks()}")
     log(f"flash timing: {FLASH_ROUNDS} alternating rounds, ms "
@@ -2638,7 +2683,7 @@ def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
             "its backward: dQ, dK and dV together"),
     }
     noncausal = measure_noncausal(flash, q, k, v, do, heads, sdpa_grad,
-                                  rates)
+                                  rates, parent)
     rows = []
     for name, (plain, nbytes, products, lib_ms, lib) in work.items():
         ops = 2 * d * products * pairs
@@ -2657,6 +2702,12 @@ def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
             "noncausal_launches": noncausal_launches[name],
             "noncausal_max_abs_err": noncausal_errors[name],
             **noncausal[name]}
+        if "parent_" + name in medians:
+            row["parent_ms"] = medians["parent_" + name]
+            log(f"kernel {name}: {ms:.4f} ms against the parent's "
+                f"{row['parent_ms']:.4f} ms causal, "
+                f"{row['noncausal_ms']:.4f} against "
+                f"{row['noncausal_parent_ms']:.4f} ms non-causal")
         rows.append(row)
         log(f"kernel {name} ({kernel}): {ms:.4f} ms (plain {plain_ms:.4f} "
             f"ms, bound {max(byte_ms, op_ms):.4f} ms, {ops} operations, "
@@ -3062,8 +3113,8 @@ def main() -> int:
         help="seed of the encoder phase's weights, tokens and mask")
     parser.add_argument(
         "--parent", default=None,
-        help="a checkout of the parent commit: time its B3 and B4 (after "
-             "unpack_bits) beside this tree's in alternating rounds")
+        help="a checkout of the parent commit: time its B7 and B8 beside "
+             "this tree's in alternating rounds")
     parser.add_argument(
         "--process-worker", default=None, metavar="DIR",
         help="run one rank of phase (k) (started by this script) and write "
@@ -3152,7 +3203,7 @@ def main() -> int:
                                  "resnet")
                     for name in PATH_LAUNCHES[path]}
         rows = measure(kernels, norm_kernels, dev, RESNET50_PARAMS,
-                       launches, errors, rates, args.parent)
+                       launches, errors, rates)
         measure_at(kernels, norm_kernels, dev, rows, errors, vision, rates)
         for row in rows:
             if row["name"] in AUTOTUNE_LAUNCHES:
@@ -3161,9 +3212,12 @@ def main() -> int:
                 row.update({"max_abs_err" + SHAPES[n // 4]:
                             errors[row["name"] + SHAPES[n // 4]]
                             for n in AUTOTUNE_SIZES})
+        parent = parent_kernels(args.parent) if args.parent else None
+        if parent:
+            check_parent(flash, dev, parent)
         rows += measure_flash(flash, dev, flash_launches, flash_err, rates,
                               model_parallel["encoder"]["launches"],
-                              noncausal_err)
+                              noncausal_err, parent)
         hvd.shutdown()
         free_memory()
         process = train_process(args.seed, process_ranks())

@@ -1,45 +1,37 @@
-// Tensor-core FlashAttention for bf16 on Hopper (sm_90a): mma.sync tiles
-// fed by cp.async. flash_attention.cu's C entry points launch these for
-// bf16 tensors; fp32 tensors keep that file's CUDA-core kernels.
+// Tensor-core FlashAttention dQ for bf16 on Hopper (sm_90a): mma.sync
+// tiles fed by cp.async. flash_attention.cu's C entry points launch it for
+// bf16 tensors; fp32 tensors keep that file's CUDA-core kernels, and bf16
+// B7 and B8 run flash_attention_wgmma.cu's wgmma kernels.
 //
-// They replace the three Pallas TPU kernels of
-// horovod_tpu/ops/flash_attention.py:
-//   B7 flash_fwd  <- _fwd_call (_fwd_kernel): o and the row logsumexp;
-//   B8 flash_dkdv <- _flash_bhsd_bwd's first pallas_call (_dkdv_kernel);
+// It replaces the Pallas TPU kernel of horovod_tpu/ops/flash_attention.py
 //   B9 flash_dq   <- _flash_bhsd_bwd's second pallas_call (_dq_kernel).
 //
-// What bounds them on an H100: operations. At the GPT path's shape (BH 16,
-// S 4096, D 64, causal) B7 does two products of 2 * D flops for each of
-// the 134M causal (query, key) pairs, 34.4 GFLOP in all, 0.0348 ms at the
-// card's 989 TFLOP/s of bf16; B8 does four, twice that; B9 three, 51.6
-// GFLOP or 0.0521 ms. Every byte they must move is some thousand flops
-// away, so the design keeps the logits in registers and the products on
-// the tensor cores:
-//   * a block of 4 warps owns a 64-row tile (queries in B7 and B9, keys in
-//     B8); each warp owns 16 of its rows and keeps them as mma A fragments
-//     in registers for the whole loop over the other operand's tiles;
+// What bounds it on an H100: operations. At the GPT path's shape (BH 16,
+// S 4096, D 64, causal) B9 does three products of 2 * D flops for each of
+// the 134M causal (query, key) pairs, 51.6 GFLOP or 0.0521 ms at the
+// card's 989 TFLOP/s of bf16. Every byte it must move is some thousand
+// flops away, so the design keeps the logits in registers and the products
+// on the tensor cores:
+//   * a block of 4 warps owns a 64-row query tile; each warp owns 16 of its
+//     rows and keeps them as mma A fragments in registers for the whole
+//     loop over the key tiles;
 //   * the loop's tiles stay bf16 in shared memory, loaded with 16-byte
 //     cp.async copies into a two-stage ring, so tile j + 1 is in flight
 //     while tile j computes; each row is padded by 16 bytes, which puts the
 //     eight rows an ldmatrix reads on distinct banks;
 //   * every product is mma.sync.m16n8k16 with fp32 accumulators. The
 //     accumulator of one product, rounded to bf16, is the A fragment of
-//     the next (flash_attention_mma.cuh), so P and dS never touch shared
+//     the next (flash_attention_mma.cuh), so dS never touches shared
 //     memory; the other operand comes through ldmatrix, transposed where
 //     the product contracts over its rows.
 //
-// Numerics against the fp32 plain versions: the products of bf16 inputs
+// Numerics against the fp32 plain version: the products of bf16 inputs
 // are exact in fp32; the scale is applied to the fp32 logits after the
-// product; P (B7, B8) and dS (B8, B9) are rounded to bf16 before they
-// enter a product, a relative error of at most 2^-8 each, which the
-// checks add to the bf16 bound as 4 * 2^-8 * sqrt(sum P^2 V^2) (o),
-// sqrt(sum P^2 dO^2) (dV), scale * sqrt(sum dS^2 Q^2) (dK) and
-// scale * sqrt(sum dS^2 K^2) (dQ): round to nearest errs both ways
-// (flash_attention.py, mma_rounding_terms). B7
-// takes exp2 of logits pre-scaled by log2(e) (P is rounded to bf16
-// anyway); lse stays fp32 in natural-log units. Masks, the -1e30 masked
-// logit and l = 0 read as 1 follow the TPU kernels and flash_attention.cu.
-// Do not build with --use_fast_math.
+// product; dS is rounded to bf16 before it enters a product, a relative
+// error of at most 2^-8, which the checks add to the bf16 bound as
+// 4 * 2^-8 * scale * sqrt(sum dS^2 K^2): round to nearest errs both ways
+// (flash_attention.py, mma_rounding_terms). Masks follow the TPU kernel
+// and flash_attention.cu. Do not build with --use_fast_math.
 //
 // Layout as flash_attention.cu: [BH, S, D] row-major, lse and delta fp32
 // [BH, S]. Rows past S and head-dim columns past D are zero-filled by the
@@ -58,9 +50,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kTile = 64;      // rows of a tile
 constexpr int kThreads = 128;  // 4 warps of 16 rows each
 constexpr int kTileN = kTile / 8;  // 8-column mma n-tiles across a tile
-constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // A tile's row in shared memory: DP bf16 and 16 bytes of padding.
 template <int DP>
@@ -153,335 +143,6 @@ __device__ __forceinline__ void product_ct(float out[DP / 8][4],
       ldmatrix_x4_trans(b, frag_rows<DP>(tile, 16 * kk, 16 * n, lane));
       mma_bf16(out[2 * n], a, b[0], b[1]);
       mma_bf16(out[2 * n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// B7: one block per (64-row query tile, bh), the longest causal rows
-// first. Each warp keeps its 16 query rows as A fragments and the online
-// softmax state of _fwd_kernel for its rows g and g + 8 (in log2 units):
-// m' = max(m, rowmax s), p = 2^(s - m'), l' = l 2^(m - m') + rowsum p,
-// acc' = acc 2^(m - m') + p v; then o = acc / l and lse = (m + log2 l) ln 2,
-// with l = 0 read as 1.
-template <int DP>
-__global__ void __launch_bounds__(kThreads, DP <= 64 ? 4 : 2)
-    flash_fwd_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                         float* __restrict__ lse, int S, int D, float scale,
-                         bool causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + tile_elems<DP>();      // two stages
-  bf16* sV = sK + 2 * tile_elems<DP>();  // two stages
-
-  const int n_tiles = (S + kTile - 1) / kTile;
-  const int qt = n_tiles - 1 - blockIdx.x;
-  const int q0 = qt * kTile;
-  const int64_t rows = static_cast<int64_t>(blockIdx.y) * S;
-  const bf16* qb = q + rows * D;
-  const bf16* kb = k + rows * D;
-  const bf16* vb = v + rows * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int last = causal ? qt : n_tiles - 1;
-
-  load_tile<DP>(sQ, qb, q0, S, D);
-  cp_async_commit();
-  load_tile<DP>(sK, kb, 0, S, D);
-  load_tile<DP>(sV, vb, 0, S, D);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < DP / 16; ++kc)
-    ldmatrix_x4(qf[kc], frag_rows<DP>(sQ, 16 * warp, 16 * kc, lane));
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.0f, 0.0f};
-  const float scale_log2 = scale * kLog2e;
-
-  for (int kt = 0; kt <= last; ++kt) {
-    const int stage = kt & 1;
-    if (kt < last) {
-      load_tile<DP>(sK + (stage ^ 1) * tile_elems<DP>(), kb, (kt + 1) * kTile,
-                    S, D);
-      load_tile<DP>(sV + (stage ^ 1) * tile_elems<DP>(), vb, (kt + 1) * kTile,
-                    S, D);
-    }
-    cp_async_commit();  // empty on the last tile: the wait stays uniform
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* tK = sK + stage * tile_elems<DP>();
-    const bf16* tV = sV + stage * tile_elems<DP>();
-
-    float s[kTileN][4];
-#pragma unroll
-    for (int j = 0; j < kTileN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-    product_abt<DP>(s, tK, lane, [&](int kc, uint32_t af[4]) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) af[i] = qf[kc][i];
-    });
-
-    // Scale (in log2 units), mask, and the online softmax of rows g and
-    // g + 8 (registers e / 2 = 0 and 1).
-    const int k0 = kt * kTile;
-    const bool need_mask = causal ? kt == qt : k0 + kTile > S;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kTileN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (need_mask) {
-          const int row = q0 + 16 * warp + g + 8 * (e >> 1);
-          const int col = k0 + 8 * j + 2 * t + (e & 1);
-          const bool keep = causal ? row >= col : col < S;
-          x = keep ? x : kNegInf;
-        }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-    }
-    float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < kTileN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-
-    product_ct<DP>(acc, s, tV, lane);  // acc += bf16(p) v
-    __syncthreads();  // this stage is refilled by the next iteration
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 16 * warp + g + 8 * r;
-    if (row >= S) continue;
-    const float safe = l[r] == 0.0f ? 1.0f : l[r];
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int d = 8 * n + 2 * t;
-      if (d < D)
-        *reinterpret_cast<uint32_t*>(o + (rows + row) * D + d) =
-            pack_bf16(acc[n][2 * r] / safe, acc[n][2 * r + 1] / safe);
-    }
-    if (t == 0) lse[rows + row] = (m[r] + log2f(safe)) * kLn2;
-  }
-}
-
-// One query tile of B8's ring: q and dO rows (bf16), lse and delta (fp32,
-// zeros past S), as cp.async copies of one group.
-template <int DP>
-__device__ __forceinline__ void load_query_tile(
-    bf16* tQ, bf16* tO, float* tL, float* tD, const bf16* qb, const bf16* ob,
-    const float* lb, const float* db, int q0, int S, int D) {
-  load_tile<DP>(tQ, qb, q0, S, D);
-  load_tile<DP>(tO, ob, q0, S, D);
-  const int r = threadIdx.x % kTile;  // threads 0..63 lse, 64..127 delta
-  const float* src = threadIdx.x < kTile ? lb : db;
-  float* dst = threadIdx.x < kTile ? tL : tD;
-  const bool in = q0 + r < S;
-  cp_async4(dst + r, in ? src + q0 + r : src, in ? 4 : 0);
-}
-
-// B8: one block per (64-row key tile, bh), the longest causal loop first;
-// it loops over the query tiles that see its keys (from the diagonal when
-// causal), as _dkdv_kernel's grid does, and no block writes what another
-// reads. Each warp holds its 16 key rows of K and V as A fragments (D <=
-// 64; at D 128 it reloads them from shared memory per product, to stay
-// within 255 registers) and works on the transposed tile, whose
-// accumulators are the A fragments of the next products:
-//   Sᵀ = K Qᵀ, Pᵀ = exp(Sᵀ scale - lse) (masked to 0),
-//   dV += Pᵀ dO, dPᵀ = V dOᵀ, dSᵀ = Pᵀ (dPᵀ - delta), dK += dSᵀ Q;
-// dK is multiplied by scale once at the end (_dkdv_kernel's q carries it).
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_dkdv_mma_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                          int D, float scale, bool causal) {
-  constexpr bool kHold = DP <= 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + tile_elems<DP>();
-  bf16* sQ = sV + tile_elems<DP>();       // two stages
-  bf16* sO = sQ + 2 * tile_elems<DP>();   // dO, two stages
-  float* sL = reinterpret_cast<float*>(sO + 2 * tile_elems<DP>());  // 2 x 64
-  float* sD = sL + 2 * kTile;                                        // 2 x 64
-
-  const int n_tiles = (S + kTile - 1) / kTile;
-  const int kt = blockIdx.x;
-  const int k0 = kt * kTile;
-  const int64_t rows = static_cast<int64_t>(blockIdx.y) * S;
-  const bf16* qb = q + rows * D;
-  const bf16* ob = dout + rows * D;
-  const float* lb = lse + rows;
-  const float* db = delta + rows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int first = causal ? kt : 0;
-
-  load_tile<DP>(sK, k + rows * D, k0, S, D);
-  load_tile<DP>(sV, v + rows * D, k0, S, D);
-  cp_async_commit();
-  load_query_tile<DP>(sQ, sO, sL, sD, qb, ob, lb, db, first * kTile, S, D);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t kf[kHold ? DP / 16 : 1][4], vf[kHold ? DP / 16 : 1][4];
-  if constexpr (kHold) {
-#pragma unroll
-    for (int kc = 0; kc < DP / 16; ++kc) {
-      ldmatrix_x4(kf[kc], frag_rows<DP>(sK, 16 * warp, 16 * kc, lane));
-      ldmatrix_x4(vf[kc], frag_rows<DP>(sV, 16 * warp, 16 * kc, lane));
-    }
-  }
-  auto k_frag = [&](int kc, uint32_t af[4]) {
-    if constexpr (kHold) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) af[i] = kf[kc][i];
-    } else {
-      ldmatrix_x4(af, frag_rows<DP>(sK, 16 * warp, 16 * kc, lane));
-    }
-  };
-  auto v_frag = [&](int kc, uint32_t af[4]) {
-    if constexpr (kHold) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) af[i] = vf[kc][i];
-    } else {
-      ldmatrix_x4(af, frag_rows<DP>(sV, 16 * warp, 16 * kc, lane));
-    }
-  };
-
-  float gk[DP / 8][4], gv[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gk[n][e] = gv[n][e] = 0.0f;
-  const float scale_log2 = scale * kLog2e;
-
-  for (int qt = first; qt < n_tiles; ++qt) {
-    const int stage = (qt - first) & 1;
-    if (qt + 1 < n_tiles) {
-      const int nxt = stage ^ 1;
-      load_query_tile<DP>(sQ + nxt * tile_elems<DP>(),
-                          sO + nxt * tile_elems<DP>(), sL + nxt * kTile,
-                          sD + nxt * kTile, qb, ob, lb, db, (qt + 1) * kTile,
-                          S, D);
-    }
-    cp_async_commit();  // empty on the last tile: the wait stays uniform
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* tQ = sQ + stage * tile_elems<DP>();
-    const bf16* tO = sO + stage * tile_elems<DP>();
-    const float* tL = sL + stage * kTile;
-    const float* tD = sD + stage * kTile;
-    const int q0 = qt * kTile;
-
-    // Sᵀ = K Qᵀ, then Pᵀ in place: rows are this warp's keys g and g + 8
-    // (registers e / 2), columns the tile's queries 8 j + 2 t + e % 2.
-    float st[kTileN][4];
-#pragma unroll
-    for (int j = 0; j < kTileN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = 0.0f;
-    product_abt<DP>(st, tQ, lane, k_frag);
-    const bool need_mask = (causal && qt == kt) || q0 + kTile > S;
-#pragma unroll
-    for (int j = 0; j < kTileN; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = 8 * j + 2 * t + c;
-        const float lse2 = tL[col] * kLog2e;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float p = exp2f(fmaf(st[j][2 * r + c], scale_log2, -lse2));
-          if (need_mask) {
-            const int key = k0 + 16 * warp + g + 8 * r;
-            const int query = q0 + col;
-            const bool keep = query < S && (!causal || query >= key);
-            p = keep ? p : 0.0f;
-          }
-          st[j][2 * r + c] = p;
-        }
-      }
-
-    product_ct<DP>(gv, st, tO, lane);  // dV += bf16(Pᵀ) dO
-
-    float dpt[kTileN][4];  // dPᵀ = V dOᵀ
-#pragma unroll
-    for (int j = 0; j < kTileN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dpt[j][e] = 0.0f;
-    product_abt<DP>(dpt, tO, lane, v_frag);
-#pragma unroll
-    for (int j = 0; j < kTileN; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float dl = tD[8 * j + 2 * t + c];
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          st[j][2 * r + c] *= dpt[j][2 * r + c] - dl;  // dSᵀ
-      }
-
-    product_ct<DP>(gk, st, tQ, lane);  // dK += bf16(dSᵀ) Q
-    __syncthreads();  // this stage is refilled by the next iteration
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = k0 + 16 * warp + g + 8 * r;
-    if (row >= S) continue;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int d = 8 * n + 2 * t;
-      if (d >= D) continue;
-      const int64_t at = (rows + row) * D + d;
-      *reinterpret_cast<uint32_t*>(dk + at) =
-          pack_bf16(gk[n][2 * r] * scale, gk[n][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + at) =
-          pack_bf16(gv[n][2 * r], gv[n][2 * r + 1]);
     }
   }
 }
@@ -643,51 +304,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <int DP>
-constexpr size_t fwd_smem() {
-  return 5 * tile_elems<DP>() * sizeof(bf16);  // Q, K x 2, V x 2
-}
-template <int DP>
-constexpr size_t dkdv_smem() {
-  return 6 * tile_elems<DP>() * sizeof(bf16) + 4 * kTile * sizeof(float);
-}
-template <int DP>
 constexpr size_t dq_smem() {
   return 6 * tile_elems<DP>() * sizeof(bf16);  // Q, dO, K x 2, V x 2
-}
-
-template <int DP>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
-                float* lse, int bh, int S, int D, float scale, bool causal,
-                cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem<DP>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kTile - 1) / kTile, bh);
-  flash_fwd_mma_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, D, scale,
-      causal);
-  return cudaGetLastError();
-}
-
-template <int DP>
-cudaError_t dkdv(const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, const float* delta,
-                 void* dk, void* dv, int bh, int S, int D, float scale,
-                 bool causal, cudaStream_t stream) {
-  constexpr size_t smem = dkdv_smem<DP>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_dkdv_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kTile - 1) / kTile, bh);
-  flash_dkdv_mma_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, D, scale, causal);
-  return cudaGetLastError();
 }
 
 template <int DP>
@@ -715,21 +333,6 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
    : (D) <= 32 ? fn<32>(__VA_ARGS__)              \
    : (D) <= 64 ? fn<64>(__VA_ARGS__)              \
                : fn<128>(__VA_ARGS__))
-
-cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int bh, int S, int D, float scale,
-                     bool causal, cudaStream_t stream) {
-  return HVD_MMA_DISPATCH(fwd, D, q, k, v, o, lse, bh, S, D, scale, causal,
-                          stream);
-}
-
-cudaError_t dkdv_bf16(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dk, void* dv, int bh, int S, int D, float scale,
-                      bool causal, cudaStream_t stream) {
-  return HVD_MMA_DISPATCH(dkdv, D, q, k, v, dout, lse, delta, dk, dv, bh, S,
-                          D, scale, causal, stream);
-}
 
 cudaError_t dq_bf16(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,

@@ -1,6 +1,7 @@
-// Tensor-core building blocks of the bf16 attention kernels
-// (flash_attention_mma.cu), and the launchers that flash_attention.cu's C
-// entry points dispatch bf16 calls to.
+// Tensor-core building blocks of the bf16 dQ kernel (flash_attention_mma.cu),
+// and the launcher that flash_attention.cu's C entry point dispatches bf16
+// dQ calls to. smem_u32 and pack_bf16 also serve the wgmma kernels
+// (flash_attention_wgmma.cuh).
 //
 // Fragment layouts of mma.sync.m16n8k16 (bf16 in, fp32 accumulate), for
 // lane = 4 * g + t (g = lane / 4 in 0..7, t = lane % 4):
@@ -29,17 +30,10 @@
 
 namespace hvd_flash_mma {
 
-// Launchers (defined in flash_attention_mma.cu). Tensors are bf16
+// The launcher (defined in flash_attention_mma.cu). Tensors are bf16
 // [BH, S, D] with D a multiple of 8 up to 128 and 16-byte aligned
-// pointers; lse and delta are fp32 [BH, S]. Each launches on `stream` and
+// pointers; lse and delta are fp32 [BH, S]. It launches on `stream` and
 // returns the launch's error code.
-cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int bh, int S, int D, float scale,
-                     bool causal, cudaStream_t stream);
-cudaError_t dkdv_bf16(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dk, void* dv, int bh, int S, int D, float scale,
-                      bool causal, cudaStream_t stream);
 cudaError_t dq_bf16(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dq, int bh, int S, int D, float scale, bool causal,
@@ -54,15 +48,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-// 4 bytes, read only when `bytes` is 4 (zero-filled when 0).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(bytes)
                : "memory");

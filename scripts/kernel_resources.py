@@ -10,8 +10,11 @@ nothing is compiled again when it exists) and reads it with ``cuobjdump``:
 ``-res-usage`` gives each kernel's registers per thread and its stack
 frame in bytes (where spilled registers go: a kernel without local arrays
 spills when it is not 0); ``-sass`` gives the count of its instructions
-(``total``), of tensor-core products (``HMMA``), fp32 FMAs (``FFMA``),
-``ldmatrix`` loads (``LDSM``), asynchronous copies (``LDGSTS``), integer
+(``total``), of tensor-core products (``HMMA`` for ``mma.sync``,
+``HGMMA`` for ``wgmma``), fp32 FMAs (``FFMA``), ``ldmatrix`` loads
+(``LDSM``), asynchronous copies (``LDGSTS``), TMA loads (``UTMALDG`` for a
+tensor map's box, ``UBLKCP`` for a bulk copy), ``mbarrier`` operations
+(``SYNCS``), integer
 multiply-adds (``IMAD``, every form), three-input logic (``LOP3``), the
 special-function unit (``MUFU``), shared-memory loads (``LDS``) and
 conversions (``I2F``, ``I2FP``: Hopper's integer-to-float, ``F2I``,
@@ -38,8 +41,9 @@ sys.path.insert(0, str(ROOT))
 
 from horovod_tpu_torch.utils import cuda_build  # noqa: E402
 
-OPCODES = ("HMMA", "FFMA", "LDSM", "LDGSTS", "IMAD", "LOP3", "MUFU", "LDS",
-           "I2F", "I2FP", "F2I", "FRND")
+OPCODES = ("HMMA", "HGMMA", "FFMA", "LDSM", "LDGSTS", "UTMALDG", "UBLKCP",
+           "SYNCS", "IMAD", "LOP3", "MUFU", "LDS", "I2F", "I2FP", "F2I",
+           "FRND")
 MEMORY = ("LDG", "STG")
 
 

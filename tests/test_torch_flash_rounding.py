@@ -1,13 +1,14 @@
 """The bound that holds bf16 B7, B8 and B9 on the tensor cores to their
 plain versions, checked on the CPU against an emulation of that route.
 
-The route (``horovod_tpu_torch/csrc/flash_attention_mma.cu``) multiplies
-bf16 operands exactly with fp32 sums, applies the scale to the fp32 logits
+The route (``horovod_tpu_torch/csrc/flash_attention_wgmma.cu`` for B7 and
+B8, ``flash_attention_mma.cu`` for B9) multiplies bf16 operands exactly
+with fp32 sums, applies the scale to the fp32 logits
 after the product, and rounds two intermediates to bf16 before they enter a
 product: P (before ``P V`` and ``Pᵀ dO``) and dS (before ``dSᵀ Q`` and
 ``dS K``). The emulation below does just that in plain PyTorch, over whole
-rows instead of 64-key tiles: a rounding to bf16 is relative, so the bound
-does not depend on the running maximum the kernel rounds against.
+rows instead of the kernels' tiles: a rounding to bf16 is relative, so the
+bound does not depend on the running maximum the kernel rounds against.
 
 The bound, element by element, is the one of every bf16 output of the
 attention kernels, ``2^-7 |ref| + 2^-8 mean|ref| + 2^-14``, plus
@@ -41,9 +42,19 @@ top: both sides round their outputs to bf16 on their own.
 
 Inputs: B 1, H 2, S 256 (the planted-error case S 1024), D 64, unit normals
 from a numpy seed, rounded to bf16, causal and bidirectional.
+
+The forward on the card (``flash_attention_wgmma.cu``) rounds P against a
+running maximum, one 128-key tile at a time, not against the row's
+maximum. ``emulate_fwd_tiled`` follows its order of operations exactly
+(the head dimension zero-padded to 64 or 128, the maximum of the fp32
+logits times ``scale log2 e``, ``exp2`` of ``x scale log2 e - m`` in one
+rounding, P rounded to bf16 against the running maximum, the accumulator
+rescaled once a tile), and is held to the same bound at S 200 and 256, D
+16 and 64, causal and bidirectional.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -103,6 +114,53 @@ def emulate_fwd(q, k, v, causal: bool):
     denom = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(_rounded(p), v.float()) / denom
     return o.bfloat16(), (m + torch.log(denom))[..., 0]
+
+
+KEY_TILE = 128  # keys of a K/V tile of the forward on the card
+LOG2E = 1.4426950408889634
+
+
+def emulate_fwd_tiled(q, k, v, scale: float, causal: bool):
+    """B7 on the wgmma route, in its order of operations: the head
+    dimension zero-padded to DP (64 up to D 64, else 128); for each
+    128-key tile, the fp32 logits ``x`` (a masked one, causal: key after
+    query, bidirectional: key past S, takes no part), ``m' = max(m,
+    rowmax(x) c)`` with ``c = fp32(scale log2 e)``, ``p = 2^(x c - m')``
+    with ``x c - m'`` rounded once (the kernel's FMA) and masked p 0,
+    ``l' = l 2^(m - m') + rowsum p`` (fp32 p) and ``acc' = acc 2^(m - m')
+    + bf16(p) v``; then ``o = acc / l`` (l = 0 read as 1) and ``lse = (m
+    + log2 l) ln 2``. A causal query tile stops at the diagonal tile, as
+    the kernel does."""
+    bh, s, d = q.shape
+    dp = 64 if d <= 64 else 128
+    pad = [0, dp - d]
+    qp, kp, vp = (torch.nn.functional.pad(x.float(), pad) for x in (q, k, v))
+    c = float(np.float32(scale) * np.float32(LOG2E))
+    rows = torch.arange(s)[:, None]
+    m = torch.full((bh, s, 1), flash.NEG_INF)
+    l = torch.zeros(bh, s, 1)
+    acc = torch.zeros(bh, s, dp)
+    n_tiles = -(-s // KEY_TILE)
+    for kt in range(n_tiles):
+        cols = torch.arange(kt * KEY_TILE, min(s, (kt + 1) * KEY_TILE))
+        x = torch.matmul(qp, kp[:, cols].transpose(-1, -2))
+        keep = rows >= cols[None, :] if causal else cols[None, :] < s
+        # The query tiles past this key tile's diagonal never load it.
+        seen = (rows // KEY_TILE >= kt) if causal else torch.ones_like(
+            rows, dtype=torch.bool)
+        x = x.masked_fill(~keep, -math.inf)
+        row_max = (x.amax(-1, keepdim=True) * c).float()
+        m_new = torch.where(seen, torch.maximum(m, row_max), m)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2((x.double() * c - m_new.double()).float())
+        p = p.masked_fill(~keep, 0.0)
+        l = torch.where(seen, l * alpha + p.sum(-1, keepdim=True), l)
+        acc = torch.where(seen, acc * alpha + torch.matmul(
+            _rounded(p), vp[:, cols]), acc)
+        m = m_new
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = (acc / safe)[..., :d]
+    return o.bfloat16(), ((m + torch.log2(safe)) * math.log(2.0))[..., 0]
 
 
 def emulate_dkdv(q, k, v, do, lse, delta, causal: bool):
@@ -257,3 +315,59 @@ def test_terms_are_zero_without_rounding():
         assert float(terms[name].abs().max()) == 0.0
     terms = flash.mma_rounding_terms(q, k, v, w, lse, delta, SCALE, True)
     assert all(float(terms[n].min()) >= 0.0 for n in OUTPUTS)
+
+
+def _tiled_inputs(s: int, d: int):
+    """q, k, v and a cotangent ``[1, s, 2, d]`` (numpy, values bf16
+    holds) and the same as bf16 ``[2, s, d]``."""
+    rng = np.random.RandomState(s + d)
+    arrays = [np.asarray(torch.from_numpy(rng.randn(1, s, 2, d).astype(
+        np.float32)).bfloat16().float()) for _ in range(4)]
+    bhsd = [torch.from_numpy(x).transpose(1, 2).reshape(2, s, d)
+            .contiguous().bfloat16() for x in arrays]
+    return arrays, bhsd
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_case(s: int, d: int, causal: bool):
+    """The tiled emulation's ``o`` and ``lse``, the plain ones, the
+    rounding term of ``o`` and the JAX package's ``o`` (numpy ``[1, s, 2,
+    d]``)."""
+    (q_np, k_np, v_np, w_np), (q, k, v, w) = _tiled_inputs(s, d)
+    scale = 1.0 / d ** 0.5
+    o, lse = emulate_fwd_tiled(q, k, v, scale, causal)
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, scale, causal)
+    delta = (w.float() * o_ref.float()).sum(dim=-1)
+    term = flash.mma_rounding_terms(q, k, v, w, lse_ref, delta, scale,
+                                    causal)["o"]
+    jax_o = jax_flash.flash_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q_np, k_np, v_np)),
+        causal=causal)
+    return o, lse, o_ref, lse_ref, term, np.array(jax_o.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("s", [200, 256])
+def test_tiled_forward_within_bound_of_plain(s, d, causal):
+    """The forward's tiled order (128-key tiles, P rounded against the
+    running maximum, D zero-padded to 64) stays within the unchanged bound
+    of the plain version; lse within its fp32 bound."""
+    o, lse, o_ref, lse_ref, term, _ = _tiled_case(s, d, causal)
+    assert o.dtype == torch.bfloat16 and o.shape == o_ref.shape
+    assert _beyond(o, o_ref, term) == 0
+    assert float((lse - lse_ref).abs().max()) <= 1e-4 * max(
+        1.0, float(lse_ref.abs().max()))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("s", [200, 256])
+def test_tiled_forward_within_bound_of_jax(s, d, causal):
+    """The same against the JAX package's ``flash_attention`` (Pallas in
+    interpret mode) on the same bf16 inputs, with the extra bf16 step of
+    two sides that round on their own."""
+    o, _, _, _, term, want = _tiled_case(s, d, causal)
+    got = o.float().reshape(1, 2, s, d).transpose(1, 2)
+    term = term.reshape(1, 2, s, d).transpose(1, 2)
+    assert _beyond(got, want, term, extra_step=True) == 0

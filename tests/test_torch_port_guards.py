@@ -419,12 +419,19 @@ def test_cuda_flash_matches_plain(s, d, causal, dtype):
         _close(got, want, bwd_tol, what, terms.get(what))
 
 
+_FLASH = ("flash_fwd", "flash_dkdv", "flash_dq")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,route", [("bfloat16", "mma_bf16"),
-                                         ("float32", "fp32")])
-def test_cuda_flash_route_follows_type(dtype, route):
-    """A bf16 call of B7, B8 and B9 counts on the tensor-core route, an
-    fp32 call on the CUDA-core one, and nothing else moves."""
+@pytest.mark.parametrize("dtype,routes", [
+    ("bfloat16", {"flash_fwd": "wgmma_bf16", "flash_dkdv": "wgmma_bf16",
+                  "flash_dq": "mma_bf16"}),
+    ("float32", dict.fromkeys(_FLASH, "fp32"))],
+    ids=["bfloat16", "float32"])
+def test_cuda_flash_route_follows_type(dtype, routes):
+    """A bf16 call of B7 and B8 counts on the wgmma route and of B9 on the
+    mma.sync one, an fp32 call of each on the CUDA-core one, and nothing
+    else moves."""
     dev = _cuda()
     x = torch.randn(2, 100, 64, generator=torch.Generator().manual_seed(0)
                     ).to(dev, getattr(torch, dtype))
@@ -434,12 +441,62 @@ def test_cuda_flash_route_follows_type(dtype, route):
     flash.flash_dkdv(x, x, x, x, stats, stats, 0.125, True)
     flash.flash_dq(x, x, x, x, stats, stats, 0.125, True)
     torch.cuda.synchronize()
-    other = "fp32" if route == "mma_bf16" else "mma_bf16"
-    assert flash.ROUTES == {name: {route: 1, other: 0}
-                            for name in ("flash_fwd", "flash_dkdv",
-                                         "flash_dq")}
+    assert flash.ROUTES == {
+        name: {r: int(r == routes[name]) for r in flash.ROUTES[name]}
+        for name in _FLASH}
     assert flash.LAUNCHES == {"flash_fwd": 1, "flash_dkdv": 1,
                               "flash_dq": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_writes_only_its_heads(causal, monkeypatch):
+    """bf16 B7 and B8 at BH 3, S 200 (a ragged last tile) and D 72 (72
+    columns padded to 128) write every element of their outputs and nothing
+    around them: each output the wrappers allocate lies between two guards
+    filled with a sentinel, which stay as they were, no sentinel is left
+    inside, and every head's rows are within the bound of the plain
+    version. The kernels' tensor maps are 3-D, {D, S, BH}: a 2-D map over
+    ``[BH S, D]`` would read the next head's rows into the ragged tile."""
+    dev = _cuda()
+    bh, s, d, guard, sentinel = 3, 200, 72, 64, -4096.0
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(bh, s, d, generator=g).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    scale = 1.0 / d ** 0.5
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, scale, causal)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    dk_ref, dv_ref = flash.flash_dkdv_plain(q, k, v, do, lse_ref, delta,
+                                            scale, causal)
+    terms = flash.mma_rounding_terms(q, k, v, do, lse_ref, delta, scale,
+                                     causal)
+    empty = torch.empty
+    buffers = []
+
+    def guarded(shape, dtype):
+        n = int(np.prod(shape))
+        buf = empty(n + 2 * guard, dtype=dtype, device=dev).fill_(sentinel)
+        buffers.append((buf, n))
+        return buf[guard:guard + n].view(tuple(shape))
+
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda t, **kw: guarded(t.shape, t.dtype))
+    monkeypatch.setattr(torch, "empty",
+                        lambda shape, dtype=None, device=None:
+                        guarded(shape, dtype))
+    o, lse = flash.flash_fwd(q, k, v, scale, causal)
+    dk, dv = flash.flash_dkdv(q, k, v, do, lse_ref, delta, scale, causal)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert len(buffers) == 4
+    for buf, n in buffers:
+        assert bool((buf[:guard] == sentinel).all())
+        assert bool((buf[guard + n:] == sentinel).all())
+        assert not bool((buf[guard:guard + n] == sentinel).any())
+    _close(o, o_ref, 1e-4, "o", terms["o"])
+    _close(lse, lse_ref, 1e-4, "lse")
+    _close(dk, dk_ref, 5e-4, "dk", terms["dk"])
+    _close(dv, dv_ref, 5e-4, "dv", terms["dv"])
 
 
 @pytest.mark.cuda
@@ -500,7 +557,8 @@ def test_library_key_covers_headers(tmp_path):
         if src.suffix in (".cu", ".cuh"):
             (csrc / src.name).write_bytes(src.read_bytes())
     assert {p.name for p in csrc.iterdir()} >= {
-        p.name for p in cuda_build.SOURCES} | {"flash_attention_mma.cuh"}
+        p.name for p in cuda_build.SOURCES} | {"flash_attention_mma.cuh",
+                                               "flash_attention_wgmma.cuh"}
     before = cuda_build.source_key(csrc)
     assert before == cuda_build.source_key()
     header = csrc / "flash_attention_mma.cuh"

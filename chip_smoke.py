@@ -26,7 +26,7 @@ just after:
 * GPT: the ``gpt_long_context_flash`` configuration of ``bench.py`` (6
   layers, d512, 8 heads of 64, MLP 2048, vocab 32000, 2 x 4096 tokens, bf16,
   ``remat="full"``) with flash attention (kernels B7, B8, B9, in bf16 on
-  the tensor cores: B7 and B8 as ``wgmma``, B9 as ``mma.sync``), through
+  the tensor cores as ``wgmma`` fed by TMA and a producer warp), through
   the dense ``DistributedOptimizer`` (Average, four buckets of at most 64
   MiB) and SGD;
 * the collective API on the card: every async op bitwise against its
@@ -124,10 +124,11 @@ call that computes the same function, at the shapes of the path (the
 attention kernels and B4 in alternating rounds with that call; B2, B5, B3
 and B4 in alternating rounds with their packed route on an input that is
 not aligned, with the card's clocks read before and after).
-``--parent DIR``, a checkout of the parent commit, adds the parent's B7
-and B8 (the ``mma.sync`` design this tree's ``wgmma`` kernels replace),
-built from its own sources, to the attention rounds, causal and
-non-causal, and holds them to the same bound of the plain versions. B7, B8
+``--parent DIR``, a checkout of the parent commit, adds the parent's B9
+(the ``mma.sync`` design this tree's ``wgmma`` kernel replaces), built
+from its own sources, to the attention rounds, causal and non-causal,
+beside this tree's B9 and SDPA's backward, and holds it to the same bound
+of the plain version. B7, B8
 and B9 are held against their plain versions at
 each shape the paths give them (the GPT path's, the encoder's non-causal
 one and the pipeline's micro-batch), and also timed non-causal at the
@@ -196,19 +197,18 @@ REPLACES = {
 SOURCES = {"maxmin": "horovod_tpu_torch/csrc/maxmin.cu",
            "norm": "horovod_tpu_torch/csrc/norm.cu",
            "flash": "horovod_tpu_torch/csrc/flash_attention.cu",
-           "flash_mma": "horovod_tpu_torch/csrc/flash_attention_mma.cu",
            "flash_wgmma": "horovod_tpu_torch/csrc/flash_attention_wgmma.cu"}
 # The kernel that runs each attention wrapper at the GPT path's shape (bf16,
 # on the tensor cores, as the route counts confirm).
 FLASH_KERNELS = {
     "flash_fwd": ("flash_fwd_wgmma_kernel<64>", "flash_wgmma"),
     "flash_dkdv": ("flash_dkdv_wgmma_kernel<64>", "flash_wgmma"),
-    "flash_dq": ("flash_dq_mma_kernel<64>", "flash_mma"),
+    "flash_dq": ("flash_dq_wgmma_kernel<64>", "flash_wgmma"),
 }
 # The route of every bf16 launch of each attention kernel (every fp32
 # launch: "fp32").
-BF16_ROUTES = {"flash_fwd": "wgmma_bf16", "flash_dkdv": "wgmma_bf16",
-               "flash_dq": "mma_bf16"}
+BF16_ROUTES = dict.fromkeys(("flash_fwd", "flash_dkdv", "flash_dq"),
+                           "wgmma_bf16")
 # Launches a step of each path (the launch counts of every other kernel
 # must stay 0): the max-min reducer quantizes the rows and the reduced
 # chunk, decodes the rows for the residual and the gathered chunks, and
@@ -2460,13 +2460,13 @@ def decode_rounds(kernels, inputs, codes):
 
 
 def parent_kernels(parent: str):
-    """The parent checkout's B7 and B8 (the ``mma.sync`` design this tree's
-    ``wgmma`` kernels replace), built from its own sources by its own
-    ``utils/cuda_build.py`` into its own tree and called through their C
-    entry points, which take the same arguments as this tree's: by name,
-    functions with the signatures of ``flash_fwd`` and ``flash_dkdv``.
-    Each raises if its launch fails or its library reports another route
-    than the parent's tensor-core one (1)."""
+    """The parent checkout's B9 (the ``mma.sync`` design this tree's
+    ``wgmma`` kernel replaces), built from its own sources by its own
+    ``utils/cuda_build.py`` into its own tree and called through its C
+    entry point, which takes the same arguments as this tree's: by name, a
+    function with the signature of ``flash_dq``. It raises if its launch
+    fails or its library reports another route than the parent's
+    ``mma.sync`` one (1)."""
     import ctypes
     import importlib.util
 
@@ -2478,51 +2478,38 @@ def parent_kernels(parent: str):
     lib = ctypes.CDLL(str(build.build()))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     shape = [i32, i32, i32, f32, i32, i32, ptr]  # bh S D scale causal bf16
-    lib.hvd_flash_fwd.argtypes = [ptr] * 5 + shape
-    lib.hvd_flash_dkdv.argtypes = [ptr] * 8 + shape
-    lib.hvd_flash_fwd.restype = lib.hvd_flash_dkdv.restype = i32
+    lib.hvd_flash_dq.argtypes = [ptr] * 7 + shape
+    lib.hvd_flash_dq.restype = i32
     lib.hvd_flash_last_route.argtypes = []
     lib.hvd_flash_last_route.restype = i32
 
-    def launch(name, fn, q, *ptrs, scale, causal):
+    def flash_dq(q, k, v, do, lse, delta, scale, causal):
+        dq = torch.empty_like(q)
         bh, s, d = q.shape
-        err = fn(q.data_ptr(), *ptrs, bh, s, d, scale, int(causal), 1,
-                 torch.cuda.current_stream().cuda_stream)
+        err = lib.hvd_flash_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d, scale,
+            int(causal), 1, torch.cuda.current_stream().cuda_stream)
         route = lib.hvd_flash_last_route()
         if err or route != 1:
-            raise RuntimeError(f"parent {name}: error {err}, route {route}")
+            raise RuntimeError(f"parent flash_dq: error {err}, route {route}")
+        return dq
 
-    def flash_fwd(q, k, v, scale, causal):
-        o = torch.empty_like(q)
-        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-        launch("flash_fwd", lib.hvd_flash_fwd, q, k.data_ptr(),
-               v.data_ptr(), o.data_ptr(), lse.data_ptr(), scale=scale,
-               causal=causal)
-        return o, lse
-
-    def flash_dkdv(q, k, v, do, lse, delta, scale, causal):
-        dk, dv = torch.empty_like(q), torch.empty_like(q)
-        launch("flash_dkdv", lib.hvd_flash_dkdv, q, k.data_ptr(),
-               v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-               delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), scale=scale,
-               causal=causal)
-        return dk, dv
-
-    return {"flash_fwd": flash_fwd, "flash_dkdv": flash_dkdv}
+    return {"flash_dq": flash_dq}
 
 
 def check_parent(flash, dev, parent):
-    """The parent's B7 and B8 within the same bound of the plain versions
-    as this tree's, at the GPT path's shape (causal) and the encoder's
-    (non-causal); returns each one's largest error by causality."""
+    """The parent's B9 within the same bound of the plain version as this
+    tree's, at the GPT path's shape (causal) and the encoder's
+    (non-causal); returns its largest error by causality."""
     heads, d = GPT_CONFIG["num_heads"], GPT_CONFIG["head_dim"]
     theirs = types.SimpleNamespace(**{**vars(flash), **parent})
     errors = {}
     for causal in (True, False):
         errors[causal], ratios = flash_errors(theirs, *flash_inputs(
             dev, GPT_BATCH * heads, GPT_SEQ, d, torch.bfloat16, 7), causal)
-        log(f"parent B7 and B8 (causal={causal}): within the bound, "
-            f"largest error over it {ratios}")
+        log(f"parent B9 (causal={causal}): within the bound, largest "
+            f"error over it {ratios['dq']}")
     return errors
 
 
@@ -2545,15 +2532,12 @@ def paired_ms(fns, rounds: int = FLASH_ROUNDS, graph: bool = False):
     return {name: statistics.median(t) for name, t in times.items()}, times
 
 
-def parent_rounds(parent, q, k, v, args, causal: bool):
-    """The parent's B7 and B8 as functions for the timing rounds (none
-    without ``parent``)."""
+def parent_rounds(parent, args):
+    """The parent's B9 as a function for the timing rounds (none without
+    ``parent``)."""
     if not parent:
         return {}
-    scale = args[-2]
-    return {"parent_flash_fwd": lambda: parent["flash_fwd"](
-                q, k, v, scale, causal),
-            "parent_flash_dkdv": lambda: parent["flash_dkdv"](*args)}
+    return {"parent_flash_dq": lambda: parent["flash_dq"](*args)}
 
 
 def measure_noncausal(flash, q, k, v, do, heads, sdpa_grad, rates,
@@ -2561,8 +2545,8 @@ def measure_noncausal(flash, q, k, v, do, heads, sdpa_grad, rates,
     """B7, B8 and B9 non-causal at the encoder's shape (BH 16, S 4096, D
     64, bf16): every one of the ``BH * S * S`` pairs, 2 D operations per
     pair and product, beside SDPA (``is_causal=False``) and, with
-    ``parent``, the parent's B7 and B8 in alternating rounds, and their
-    plain versions; ``noncausal_*`` fields by kernel."""
+    ``parent``, the parent's B9 in alternating rounds, and their plain
+    versions; ``noncausal_*`` fields by kernel."""
     bandwidth, _, tensor = rates
     bh, s, d = q.shape
     scale = 1.0 / math.sqrt(d)
@@ -2578,7 +2562,7 @@ def measure_noncausal(flash, q, k, v, do, heads, sdpa_grad, rates,
         "flash_dq": lambda: flash.flash_dq(*args),
         "sdpa_backward": lambda: torch.autograd.grad(
             sdpa_out, heads, sdpa_grad, retain_graph=True),
-        **parent_rounds(parent, q, k, v, args, False)})
+        **parent_rounds(parent, args)})
     log(f"flash timing, non-causal: {FLASH_ROUNDS} alternating rounds, ms "
         f"{json.dumps(readings)}")
     tensor_bytes = q.numel() * q.element_size()
@@ -2623,9 +2607,9 @@ def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
     delta pass, B8 and B9) against that backward, logged. Kernels and
     yardsticks are timed in ``FLASH_ROUNDS`` alternating rounds; the
     medians are reported. With ``parent`` (:func:`parent_kernels`), the
-    parent's B7 and B8 run in the same rounds, causal and non-causal, after
-    :func:`check_parent` held them to the same bound: the ``parent_ms`` and
-    ``noncausal_parent_ms`` fields of their rows."""
+    parent's B9 runs in the same rounds, causal and non-causal, after
+    :func:`check_parent` held it to the same bound: the ``parent_ms`` and
+    ``noncausal_parent_ms`` fields of its row."""
     bandwidth, _, tensor = rates
     bh, s = GPT_BATCH * GPT_CONFIG["num_heads"], GPT_SEQ
     d = GPT_CONFIG["head_dim"]
@@ -2659,7 +2643,7 @@ def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
         "sdpa_backward": lambda: torch.autograd.grad(
             sdpa_out, heads, sdpa_grad, retain_graph=True),
         "port_backward": port_backward,
-        **parent_rounds(parent, q, k, v, args, True)})
+        **parent_rounds(parent, args)})
     log(f"flash timing: clocks.sm, clocks.max.sm, power.draw after "
         f"{smi_clocks()}")
     log(f"flash timing: {FLASH_ROUNDS} alternating rounds, ms "
@@ -3113,7 +3097,7 @@ def main() -> int:
         help="seed of the encoder phase's weights, tokens and mask")
     parser.add_argument(
         "--parent", default=None,
-        help="a checkout of the parent commit: time its B7 and B8 beside "
+        help="a checkout of the parent commit: time its B9 beside "
              "this tree's in alternating rounds")
     parser.add_argument(
         "--process-worker", default=None, metavar="DIR",

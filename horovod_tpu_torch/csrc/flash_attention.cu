@@ -10,11 +10,9 @@
 // fp32; lse and delta = rowsum(dO * O) are fp32 [BH, S]. scale = 1/sqrt(D).
 //
 // Routes, chosen by type in the C entry points, never by a failed launch:
-// bf16 B7 and B8 run the tensor-core kernels of flash_attention_wgmma.cu
-// (wgmma fed by TMA and a producer warp), bf16 B9 the one of
-// flash_attention_mma.cu (mma.sync tiles fed by cp.async); see the notes
-// there. fp32 runs the
-// CUDA-core kernels of this file: tensor cores would take fp32 operands
+// bf16 B7, B8 and B9 run the tensor-core kernels of flash_attention_wgmma.cu
+// (wgmma fed by TMA and a producer warp); see the notes there. fp32 runs
+// the CUDA-core kernels of this file: tensor cores would take fp32 operands
 // only as TF32, which misses the fp32 bound, and fp32 reaches these
 // kernels only in checks.
 //
@@ -53,7 +51,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_attention_mma.cuh"
 #include "flash_attention_wgmma.cuh"
 
 namespace {
@@ -497,10 +494,9 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
 // `is_bf16` selects bf16 tensors and the tensor-core kernels, else fp32
 // tensors and the CUDA-core ones. hvd_flash_last_route reads the route the
 // calling thread's last B7, B8 or B9 launch took, recorded in the branch
-// that launched it: 1 the mma.sync kernel (bf16 B9), 2 the CUDA-core ones,
-// 3 the wgmma kernels (bf16 B7 and B8).
+// that launched it: 2 the CUDA-core kernels (fp32), 3 the wgmma ones
+// (bf16).
 namespace {
-constexpr int kRouteMma = 1;
 constexpr int kRouteCudaCore = 2;
 constexpr int kRouteWgmma = 3;
 thread_local int g_last_route = 0;
@@ -552,9 +548,9 @@ int hvd_flash_dq(const void* q, const void* k, const void* v,
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_bf16) {
-    err = hvd_flash_mma::dq_bf16(q, k, v, dout, lse, delta, dq_out, bh, S, D,
-                                 scale, causal != 0, st);
-    g_last_route = kRouteMma;
+    err = hvd_flash_wgmma::dq_bf16(q, k, v, dout, lse, delta, dq_out, bh, S,
+                                   D, scale, causal != 0, st);
+    g_last_route = kRouteWgmma;
   } else {
     err = HVD_FLASH_DISPATCH(dq, D, q, k, v, dout, lse, delta, dq_out, bh, S,
                              D, scale, causal != 0, st);

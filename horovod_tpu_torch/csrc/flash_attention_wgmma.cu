@@ -1,37 +1,37 @@
-// FlashAttention forward (B7) and dK/dV (B8) for bf16 on Hopper (sm_90a):
-// warpgroup products (wgmma) fed by TMA through an mbarrier ring, one
-// producer warp and two consumer warpgroups a block.
-// flash_attention.cu's C entry points launch these for bf16 tensors; dQ
-// (B9) stays on flash_attention_mma.cu's mma.sync kernel, and fp32 on
-// flash_attention.cu's CUDA-core kernels.
+// FlashAttention forward (B7), dK/dV (B8) and dQ (B9) for bf16 on Hopper
+// (sm_90a): warpgroup products (wgmma) fed by TMA through an mbarrier
+// ring, one producer warp and two consumer warpgroups a block.
+// flash_attention.cu's C entry points launch these for bf16 tensors, and
+// that file's CUDA-core kernels for fp32.
 //
-// They replace two Pallas TPU kernels of horovod_tpu/ops/flash_attention.py:
+// They replace three Pallas TPU kernels of horovod_tpu/ops/flash_attention.py:
 //   B7 flash_fwd  <- _fwd_call (_fwd_kernel): o and the row logsumexp;
-//   B8 flash_dkdv <- _flash_bhsd_bwd's first pallas_call (_dkdv_kernel).
+//   B8 flash_dkdv <- _flash_bhsd_bwd's first pallas_call (_dkdv_kernel);
+//   B9 flash_dq   <- _flash_bhsd_bwd's second pallas_call (_dq_kernel).
 //
 // What bounds them on an H100: operations. At the GPT path's shape (BH 16,
 // S 4096, D 64, causal) B7 does two products of 2 D flops for each of the
 // 134M causal (query, key) pairs, 34.4 GFLOP, 0.0348 ms at the card's 989
-// TFLOP/s of bf16; B8 does four. Hopper reaches that rate only through
-// wgmma, whose operands come from shared memory (or A from registers) and
-// whose tiles are 64 rows deep, so the design is:
+// TFLOP/s of bf16; B9 does three and B8 four. Hopper reaches that rate
+// only through wgmma, whose operands come from shared memory (or A from
+// registers) and whose tiles are 64 rows deep, so the design is:
 //   * a block of 384 threads: warpgroups 0 and 1 consume, 64 rows each
-//     (queries in B7, keys in B8), and warpgroup 2 produces. Its first warp
-//     issues the TMA loads of the block's own tile once and of the streamed
-//     tiles into a ring (three stages in B7, two in B8), with a full and an
-//     empty mbarrier a stage; it keeps 24 registers (setmaxnreg) so that
-//     the consumers can hold 240;
+//     (queries in B7 and B9, keys in B8), and warpgroup 2 produces. Its
+//     first warp issues the TMA loads of the block's own tiles once and of
+//     the streamed tiles into a ring (three stages in B7, two in B8 and
+//     B9), with a full and an empty mbarrier a stage; it keeps 24
+//     registers (setmaxnreg) so that the consumers can hold 240;
 //   * tiles land in shared memory in the 128-byte swizzle that wgmma reads
 //     without bank conflicts (flash_attention_wgmma.cuh). Tensor maps are
 //     3-D, {D, S, BH}: a box never crosses into the next head, and TMA
 //     fills rows past S and columns past D with zeros, so D is padded to DP
 //     64 or 128 in shared memory only;
-//   * each product is wgmma with fp32 accumulators. The logits' product
-//     takes both operands from shared memory; the accumulator of one
+//   * each product is wgmma with fp32 accumulators. The logits' products
+//     take both operands from shared memory; the accumulator of one
 //     product, rounded to bf16, is the register A operand of the next
-//     (P V in B7, Pᵀ dO and dSᵀ Q in B8), whose B operand is read
-//     transposed (MN-major) from the same tiles, so nothing is transposed
-//     in memory.
+//     (P V in B7, Pᵀ dO and dSᵀ Q in B8, dS K in B9), whose B operand is
+//     read transposed (MN-major) from the same tiles, so nothing is
+//     transposed in memory.
 // B7: a block owns 128 query rows and streams 128-key tiles of K and V;
 // the longest causal rows go first, key tiles past the diagonal are never
 // loaded, and only the diagonal tile (causal) or the ragged last tile
@@ -41,16 +41,20 @@
 // 64-query tiles of Q and dO from the diagonal (causal), with their lse
 // and delta brought by the producer warp's 4-byte cp.async copies on the
 // same full barrier (a row of lse starts at an offset of 4 S bytes, not
-// 16-byte aligned for every S, so a bulk copy cannot take it); no block
-// writes what another reads, and the result is deterministic.
+// 16-byte aligned for every S, so a bulk copy cannot take it). B9: a block
+// owns 128 query rows, loads their Q and dO once, reads their lse and
+// delta into registers, and streams 128-key tiles of K and V as B7 does;
+// each consumer issues S = Q Kᵀ and dP = dO Vᵀ together and computes P
+// while dP is in flight. No block writes what another reads, and the
+// results are deterministic.
 //
 // Numerics, the same as the mma.sync kernels they replace: the products
 // of bf16 operands are exact in fp32; the scale is applied to the fp32
-// logits after the product; P (B7, B8) and dS (B8) are rounded to bf16
-// once, before they enter a product (flash_attention.py,
-// mma_rounding_terms). Both take 2^(s scale log2 e - m) with the scaled
+// logits after the product; P (B7, B8) and dS (B8, B9) are rounded to
+// bf16 once, before they enter a product (flash_attention.py,
+// mma_rounding_terms). All take 2^(s scale log2 e - m) with the scaled
 // logit and its shift in one FMA and the SM's ex2.approx (m the running
-// maximum in B7, lse log2 e in B8); B7 rounds P against the running
+// maximum in B7, lse log2 e in B8 and B9); B7 rounds P against the running
 // maximum and rescales the accumulator once a key tile; lse stays fp32 in
 // natural-log units. Masks, the -1e30 initial maximum and l = 0 read as 1
 // follow the TPU kernels; a masked logit gives p = 0. Do not build with
@@ -71,8 +75,9 @@ constexpr int kThreads = 384;
 constexpr int kBlockRows = 128;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 2 x 128 x 240 + 128 x 24 = 168 x 384
-constexpr int kKeyTile = 128;     // B7: keys of a streamed K/V tile
+constexpr int kKeyTile = 128;     // B7, B9: keys of a streamed K/V tile
 constexpr int kFwdStages = 3;     // B7's ring of K/V tiles
+constexpr int kDqStages = 2;      // B9's ring of K/V tiles
 constexpr int kQueryTile = 64;    // B8: queries of a streamed Q/dO tile
 constexpr int kDkdvStages = 2;    // B8's ring of Q/dO tiles
 constexpr int kColBlock = 64;     // head-dim columns of a swizzled block
@@ -129,11 +134,12 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
-// S = Q Kᵀ for a consumer's 64 rows and a 128-key tile, contracting over
-// DP, as one committed group.
+// S = A Bᵀ for a consumer's 64 rows of a 128-row tile A (Q; or dO in B9)
+// and a 128-key tile B (K; or V in B9), contracting over DP, as one
+// committed group.
 template <int DP>
-__device__ __forceinline__ void fwd_logits(float (&s)[64], uint32_t q_addr,
-                                           uint32_t k_addr) {
+__device__ __forceinline__ void tile_logits(float (&s)[64], uint32_t q_addr,
+                                            uint32_t k_addr) {
   wgmma_fence();
   fence_regs<64>(s);
 #pragma unroll
@@ -339,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     mbar_wait(q_full, 0);
     mbar_wait(&full[0], 0);
-    fwd_logits<DP>(s, q_addr, k_base);
+    tile_logits<DP>(s, q_addr, k_base);
     wgmma_wait<0>();
     fence_regs<64>(s);
     fwd_softmax(s, m, l, alpha, 0, row0, qd, S, scale_log2, causal,
@@ -354,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         phase ^= 1;
       }
       mbar_wait(&full[stage], phase);
-      fwd_logits<DP>(s, q_addr, k_base + stage * kTile);
+      tile_logits<DP>(s, q_addr, k_base + stage * kTile);
       fwd_pv<DP>(acc, pa, v_base + prev * kTile);
       wgmma_wait<1>();  // S of tile kt
       fence_regs<64>(s);
@@ -655,6 +661,210 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- B9 ------------------------------------------------------------------
+
+template <int DP>
+constexpr size_t dq_smem() {
+  return 1024 + 2 * tile_bytes(kBlockRows, DP) +
+         2 * kDqStages * tile_bytes(kKeyTile, DP) + 8 * (1 + 2 * kDqStages);
+}
+
+// B9: one block per (bh, 128-row query tile), blockIdx.x the head and the
+// longest causal rows first, as B7. The producer warp loads the block's Q
+// and dO once and streams 128-key tiles of K and V (up to the block's
+// diagonal tile when causal) through a two-stage ring; each consumer
+// warpgroup owns 64 query rows, holds their lse (log2 units) and delta in
+// registers, and per key tile computes
+//   S = Q Kᵀ and dP = dO Vᵀ, issued together as two groups,
+//   P = 2^(S scale log2 e - lse log2 e) (masked to 0) while dP is in
+//   flight,
+//   dS = P (dP - delta) in fp32,
+//   dQ += bf16(dS) K, K read MN-major from the same tile.
+// Key tiles and query blocks are both 128 rows, so the last tile a causal
+// block loads is its diagonal one, and each consumer has a row at or after
+// that tile's first key: no consumer skips a tile. dQ is multiplied by
+// scale once at the end (_dq_kernel's dS carries it); each block writes
+// only its own rows.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                          __grid_constant__ const CUtensorMap tk,
+                          __grid_constant__ const CUtensorMap tv,
+                          __grid_constant__ const CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int S, int D, float scale,
+                          bool causal) {
+  static_assert(kKeyTile == kBlockRows,
+                "a causal block's last key tile is its diagonal one");
+  constexpr int kBlocks = DP / kColBlock;
+  constexpr int kTile = tile_bytes(kBlockRows, DP);  // Q, dO, K or V
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sO = sQ + kTile;                // dO
+  uint8_t* sK = sO + kTile;                // kDqStages tiles
+  uint8_t* sV = sK + kDqStages * kTile;    // kDqStages tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kDqStages * kTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kDqStages;
+
+  const int n_tiles = (S + kBlockRows - 1) / kBlockRows;
+  const int qt = n_tiles - 1 - blockIdx.y;
+  const int q0 = qt * kBlockRows;
+  const int bh = blockIdx.x;
+  const int last = causal ? qt : n_tiles - 1;  // key tiles 0 .. last
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_full, 2 * kTile);
+      for (int b = 0; b < kBlocks; ++b) {
+        tma_load_3d(sQ + b * block_bytes(kBlockRows), &tq, q_full,
+                    b * kColBlock, q0, bh);
+        tma_load_3d(sO + b * block_bytes(kBlockRows), &tdo, q_full,
+                    b * kColBlock, q0, bh);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt <= last; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], 2 * kTile);
+        uint8_t* tK = sK + stage * kTile;
+        uint8_t* tV = sV + stage * kTile;
+        for (int b = 0; b < kBlocks; ++b) {
+          tma_load_3d(tK + b * block_bytes(kKeyTile), &tk, &full[stage],
+                      b * kColBlock, kt * kKeyTile, bh);
+          tma_load_3d(tV + b * block_bytes(kKeyTile), &tv, &full[stage],
+                      b * kColBlock, kt * kKeyTile, bh);
+        }
+        if (++stage == kDqStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int t = threadIdx.x % 128;
+    const int qd = t % 4;
+    const int first_row = q0 + 64 * wg;  // this warpgroup's 64 rows
+    const int row0 = first_row + 16 * (t / 32) + (t % 32) / 4;  // and + 8
+    // This warpgroup's 64 rows in each column block of Q and dO.
+    const uint32_t q_addr = smem_u32(sQ) + 64 * wg * (kColBlock * 2);
+    const uint32_t o_addr = smem_u32(sO) + 64 * wg * (kColBlock * 2);
+    const float scale_log2 = scale * kLog2e;
+
+    // Rows past S read 0 for both: their Q and dO are zeros, so dS is 0.
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const int64_t at = static_cast<int64_t>(bh) * S + row;
+      lse2[r] = row < S ? lse[at] * kLog2e : 0.0f;
+      dl[r] = row < S ? delta[at] : 0.0f;
+    }
+
+    float gq[kBlocks][32];
+    float s[64], dp[64];
+#pragma unroll
+    for (int b = 0; b < kBlocks; ++b)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) gq[b][i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = dp[i] = 0.0f;
+
+    mbar_wait(q_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt <= last; ++kt) {
+      const int k0 = kt * kKeyTile;
+      const uint32_t k_addr = smem_u32(sK + stage * kTile);
+      const uint32_t v_addr = smem_u32(sV + stage * kTile);
+      mbar_wait(&full[stage], phase);
+      tile_logits<DP>(s, q_addr, k_addr);
+      tile_logits<DP>(dp, o_addr, v_addr);
+      wgmma_wait<1>();  // S
+      fence_regs<64>(s);
+
+      // P in place: rows row0 and row0 + 8 (accumulators e / 2), columns
+      // the tile's keys k0 + 8 j + 2 qd + e % 2. Only the tiles that cross
+      // this warpgroup's diagonal (causal) or S are masked.
+      const bool need_mask =
+          (causal && k0 + kKeyTile - 1 > first_row) || k0 + kKeyTile > S;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2_ftz(fmaf(s[4 * j + e], scale_log2, -lse2[e >> 1]));
+          if (need_mask) {
+            const int row = row0 + 8 * (e >> 1);
+            const int key = k0 + 8 * j + 2 * qd + (e & 1);
+            const bool keep = key < S && (!causal || row >= key);
+            p = keep ? p : 0.0f;
+          }
+          s[4 * j + e] = p;
+        }
+
+      wgmma_wait<0>();  // dP
+      fence_regs<64>(dp);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] *= dp[i] - dl[(i >> 1) & 1];  // dS
+      uint32_t da[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) a_from_acc(da[kk], s, kk);
+
+      // dQ += bf16(dS) K, contracting over the tile's keys (its rows).
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < kBlocks; ++b) fence_regs<32>(gq[b]);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int b = 0; b < kBlocks; ++b)
+          wgmma_m64n64k16_rs(
+              gq[b], da[kk],
+              make_desc(k_addr + b * block_bytes(kKeyTile) + kk * 2048));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < kBlocks; ++b) fence_regs<32>(gq[b]);
+      if (t == 0) mbar_arrive(&empty[stage]);
+      if (++stage == kDqStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= S) continue;
+      bf16* out = dq + (static_cast<int64_t>(bh) * S + row) * D;
+#pragma unroll
+      for (int b = 0; b < kBlocks; ++b)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int d = b * kColBlock + 8 * j + 2 * qd;
+          if (d < D)
+            *reinterpret_cast<uint32_t*>(out + d) =
+                pack_bf16(gq[b][4 * j + 2 * r] * scale,
+                          gq[b][4 * j + 2 * r + 1] * scale);
+        }
+    }
+  }
+}
+
 // ---- host side ----------------------------------------------------------
 
 // cuTensorMapEncodeTiled, a driver-API function, reached through the
@@ -755,6 +965,31 @@ cudaError_t dkdv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq_out, int bh,
+               int S, int D, float scale, bool causal, cudaStream_t stream) {
+  EncodeTiled encode;
+  cudaError_t err = encoder(&encode);
+  CUtensorMap tq, tk, tv, tdo;
+  if (err == cudaSuccess) err = make_map(encode, &tq, q, bh, S, D, kBlockRows);
+  if (err == cudaSuccess) err = make_map(encode, &tk, k, bh, S, D, kKeyTile);
+  if (err == cudaSuccess) err = make_map(encode, &tv, v, bh, S, D, kKeyTile);
+  if (err == cudaSuccess)
+    err = make_map(encode, &tdo, dout, bh, S, D, kBlockRows);
+  constexpr size_t smem = dq_smem<DP>();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_dq_wgmma_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (S + kBlockRows - 1) / kBlockRows);
+  flash_dq_wgmma_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq_out), S, D, scale,
+      causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The head dimension padded to 64 or 128 columns in shared memory.
@@ -773,6 +1008,16 @@ cudaError_t dkdv_bf16(const void* q, const void* k, const void* v,
                             scale, causal, stream)
                  : dkdv<128>(q, k, v, dout, lse, delta, dk, dv, bh, S, D,
                              scale, causal, stream);
+}
+
+cudaError_t dq_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq_out, int bh, int S, int D, float scale,
+                    bool causal, cudaStream_t stream) {
+  return D <= 64 ? dq<64>(q, k, v, dout, lse, delta, dq_out, bh, S, D, scale,
+                          causal, stream)
+                 : dq<128>(q, k, v, dout, lse, delta, dq_out, bh, S, D,
+                           scale, causal, stream);
 }
 
 }  // namespace hvd_flash_wgmma

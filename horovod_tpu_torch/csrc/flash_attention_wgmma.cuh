@@ -1,8 +1,8 @@
-// Hopper building blocks of the bf16 attention kernels B7 and B8
+// Hopper building blocks of the bf16 attention kernels B7, B8 and B9
 // (flash_attention_wgmma.cu): tensor maps and TMA loads, mbarriers,
 // register reallocation (setmaxnreg) and warpgroup products (wgmma), and
 // the launchers that flash_attention.cu's C entry points dispatch bf16
-// forward and dK/dV calls to.
+// forward, dK/dV and dQ calls to.
 //
 // Shared-memory tiles. A tile of R rows of a [BH, S, D] bf16 tensor is
 // stored as DP / 64 column blocks of 64 head-dim columns each, R rows of
@@ -39,12 +39,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_attention_mma.cuh"
-
 namespace hvd_flash_wgmma {
-
-using hvd_flash_mma::pack_bf16;
-using hvd_flash_mma::smem_u32;
 
 // Launchers (defined in flash_attention_wgmma.cu). Tensors are bf16
 // [BH, S, D] with D a multiple of 8 up to 128 and 16-byte aligned
@@ -58,6 +53,20 @@ cudaError_t dkdv_bf16(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dk, void* dv, int bh, int S, int D, float scale,
                       bool causal, cudaStream_t stream);
+cudaError_t dq_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dq, int bh, int S, int D, float scale, bool causal,
+                    cudaStream_t stream);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two fp32 values rounded to nearest-even bf16, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // ---- mbarriers ----------------------------------------------------------
 

@@ -13,11 +13,10 @@ for Hopper in ``horovod_tpu_torch/csrc/``:
 The kernels take ``[BH, S, D]`` tensors in bf16 or fp32 and keep ``lse``
 as fp32 ``[BH, S]``; nothing is padded (the TPU's lane-replicated
 ``[BH, S, 128]`` statistics and the padding of S to 128 are not carried
-over). The type chooses the route: bf16 runs on the tensor cores, B7 and
-B8 as ``wgmma`` fed by TMA and a producer warp
-(``flash_attention_wgmma.cu``), B9 as ``mma.sync`` tiles fed by
-``cp.async`` (``flash_attention_mma.cu``), each with P and dS rounded to
-bf16 before their products (see :func:`mma_rounding_terms`); fp32 runs the
+over). The type chooses the route: bf16 runs on the tensor cores, B7, B8
+and B9 as ``wgmma`` fed by TMA and a producer warp
+(``flash_attention_wgmma.cu``), each with P and dS rounded to bf16 before
+their products (see :func:`mma_rounding_terms`); fp32 runs the
 CUDA-core kernels of ``flash_attention.cu``. Each wrapper takes the plain
 PyTorch version beside it for tensors on the CPU, launches its kernel for
 CUDA tensors, and raises for any other device: there is no fallback.
@@ -40,11 +39,11 @@ NEG_INF = -1e30  # the TPU kernels' masked logit: exp never sees inf - inf
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0}
 # Launches of B7, B8 and B9 by route, as ``hvd_flash_last_route`` reports
-# the branch the C entry point launched from: bf16 B7 and B8 on the wgmma
-# kernels, bf16 B9 on the mma.sync one, fp32 on the CUDA-core ones.
+# the branch the C entry point launched from: bf16 on the wgmma kernels,
+# fp32 on the CUDA-core ones.
 ROUTES: Dict[str, Dict[str, int]] = {
-    name: {"wgmma_bf16": 0, "mma_bf16": 0, "fp32": 0} for name in LAUNCHES}
-_ROUTE_NAMES = {1: "mma_bf16", 2: "fp32", 3: "wgmma_bf16"}
+    name: {"wgmma_bf16": 0, "fp32": 0} for name in LAUNCHES}
+_ROUTE_NAMES = {2: "fp32", 3: "wgmma_bf16"}
 
 
 def reset_launches() -> None:
@@ -128,9 +127,10 @@ def _check_device(first: torch.Tensor, *others: torch.Tensor) -> bool:
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
-    """The tensor-core kernels (bf16) copy rows with TMA or 16-byte
-    ``cp.async``: each bf16 input must be 16-byte aligned (a view that
-    starts inside an allocation may not be). The CUDA-core kernels (fp32)
+    """The tensor-core kernels (bf16) load their tiles with TMA, whose
+    tensor maps take only 16-byte aligned addresses: each bf16 input must
+    be 16-byte aligned (a view that starts inside an allocation may not
+    be). The CUDA-core kernels (fp32)
     load one element at a time and need no check."""
     for t in tensors:
         if t.data_ptr() % 16:

@@ -28,7 +28,6 @@ CSRC = _PKG_DIR / "csrc"
 SOURCES = (CSRC / "maxmin.cu",
            CSRC / "norm.cu",
            CSRC / "flash_attention.cu",
-           CSRC / "flash_attention_mma.cu",
            CSRC / "flash_attention_wgmma.cu")
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,8 +1,8 @@
 """The bound that holds bf16 B7, B8 and B9 on the tensor cores to their
 plain versions, checked on the CPU against an emulation of that route.
 
-The route (``horovod_tpu_torch/csrc/flash_attention_wgmma.cu`` for B7 and
-B8, ``flash_attention_mma.cu`` for B9) multiplies bf16 operands exactly
+The route (``horovod_tpu_torch/csrc/flash_attention_wgmma.cu`` for B7, B8
+and B9) multiplies bf16 operands exactly
 with fp32 sums, applies the scale to the fp32 logits
 after the product, and rounds two intermediates to bf16 before they enter a
 product: P (before ``P V`` and ``Pᵀ dO``) and dS (before ``dSᵀ Q`` and
@@ -51,6 +51,13 @@ logits times ``scale log2 e``, ``exp2`` of ``x scale log2 e - m`` in one
 rounding, P rounded to bf16 against the running maximum, the accumulator
 rescaled once a tile), and is held to the same bound at S 200 and 256, D
 16 and 64, causal and bidirectional.
+
+dQ on the card sums ``bf16(dS) K`` one 128-key tile at a time and takes
+P as ``exp2`` of the logit times ``scale log2 e`` less ``lse log2 e`` in
+one rounding. ``emulate_dq_tiled`` follows that order and is held to the
+bound of the plain version and of the JAX package's gradient at the same
+shapes; a 2% error planted in its last quarter of queries fails the bound
+at S 1024.
 """
 
 import functools
@@ -116,7 +123,7 @@ def emulate_fwd(q, k, v, causal: bool):
     return o.bfloat16(), (m + torch.log(denom))[..., 0]
 
 
-KEY_TILE = 128  # keys of a K/V tile of the forward on the card
+KEY_TILE = 128  # keys of a K/V tile of the forward and of dQ on the card
 LOG2E = 1.4426950408889634
 
 
@@ -371,3 +378,105 @@ def test_tiled_forward_within_bound_of_jax(s, d, causal):
     got = o.float().reshape(1, 2, s, d).transpose(1, 2)
     term = term.reshape(1, 2, s, d).transpose(1, 2)
     assert _beyond(got, want, term, extra_step=True) == 0
+
+
+def emulate_dq_tiled(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """B9 on the wgmma route, in its order of operations: the head
+    dimension zero-padded to DP (64 up to D 64, else 128); for each
+    128-key tile, the fp32 logits ``x`` and ``dP = dO
+    Vᵀ``, ``p = 2^(x c - lse2)`` with ``c = fp32(scale log2 e)``, ``lse2 =
+    fp32(lse log2 e)`` and ``x c - lse2`` rounded once (the kernel's FMA),
+    a masked p 0 (causal: key after query; bidirectional: key past S),
+    ``dS = p (dP - delta)`` in fp32 and ``acc += bf16(dS) K``; then ``dQ =
+    bf16(acc scale)``. The tiles past a causal block's diagonal, which the
+    kernel never loads, add exact zeros here."""
+    bh, s, d = q.shape
+    dp_ = 64 if d <= 64 else 128
+    pad = [0, dp_ - d]
+    qp, kp, vp, op = (torch.nn.functional.pad(x.float(), pad)
+                      for x in (q, k, v, do))
+    c = float(np.float32(scale) * np.float32(LOG2E))
+    lse2 = (lse.float() * np.float32(LOG2E)).float()[..., None].double()
+    rows = torch.arange(s)[:, None]
+    acc = torch.zeros(bh, s, dp_)
+    for k0 in range(0, s, KEY_TILE):
+        cols = torch.arange(k0, min(s, k0 + KEY_TILE))
+        x = torch.matmul(qp, kp[:, cols].transpose(-1, -2))
+        keep = rows >= cols[None, :] if causal else cols[None, :] < s
+        p = torch.exp2((x.double() * c - lse2).float())
+        p = p.masked_fill(~keep, 0.0)
+        dp = torch.matmul(op, vp[:, cols].transpose(-1, -2))
+        ds = p * (dp - delta.float()[..., None])
+        acc = acc + torch.matmul(_rounded(ds), kp[:, cols])
+    return (acc * np.float32(scale))[..., :d].bfloat16()
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_dq_case(s: int, d: int, causal: bool):
+    """The tiled dQ emulation on the plain ``lse`` and ``delta`` (as the
+    card's checks feed the kernel), the plain dQ, its rounding term and
+    the JAX package's dQ of ``sum(o * w)`` (numpy ``[1, s, 2, d]``)."""
+    (q_np, k_np, v_np, w_np), (q, k, v, w) = _tiled_inputs(s, d)
+    scale = 1.0 / d ** 0.5
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, scale, causal)
+    delta = (w.float() * o_ref.float()).sum(dim=-1)
+    dq = emulate_dq_tiled(q, k, v, w, lse_ref, delta, scale, causal)
+    dq_ref = flash.flash_dq_plain(q, k, v, w, lse_ref, delta, scale, causal)
+    term = flash.mma_rounding_terms(q, k, v, w, lse_ref, delta, scale,
+                                    causal)["dq"]
+
+    def loss(q, k, v):
+        o = jax_flash.flash_attention(q, k, v, causal=causal)
+        return jnp.sum(o.astype(jnp.float32) * w_np)
+
+    jax_dq = jax.grad(loss)(*(jnp.asarray(x, jnp.bfloat16)
+                              for x in (q_np, k_np, v_np)))
+    return dq, dq_ref, term, np.array(jax_dq.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("s", [200, 256])
+def test_tiled_dq_within_bound_of_plain(s, d, causal):
+    """dQ's tiled order (128-key tiles, P by one FMA and exp2, D
+    zero-padded to 64) stays within the unchanged bound of the plain
+    version."""
+    dq, dq_ref, term, _ = _tiled_dq_case(s, d, causal)
+    assert dq.dtype == torch.bfloat16 and dq.shape == dq_ref.shape
+    assert _beyond(dq, dq_ref, term) == 0
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("s", [200, 256])
+def test_tiled_dq_within_bound_of_jax(s, d, causal):
+    """The same against the JAX package's ``flash_attention`` gradient
+    (Pallas in interpret mode) on the same bf16 inputs, with the extra
+    bf16 step of two sides that round on their own. The emulation takes
+    the plain ``lse`` and ``delta``: fed the tiled forward's instead, the
+    bf16 rounding of that forward's ``o`` enters ``delta``, which the dQ
+    term does not cover (at S 256, D 64, causal, 11 elements of query 3
+    reach 1.67 of the bound)."""
+    dq, _, term, want = _tiled_dq_case(s, d, causal)
+    got = dq.float().reshape(1, 2, s, d).transpose(1, 2)
+    term = term.reshape(1, 2, s, d).transpose(1, 2)
+    assert _beyond(got, want, term, extra_step=True) == 0
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+def test_tiled_dq_planted_error_fails_the_bound(causal):
+    """At S 1024, D 64 the tiled dQ stays within the bound, and the same
+    dQ made 2% larger in its last quarter of queries does not."""
+    s, d = 1024, 64
+    _, (q, k, v, w) = _tiled_inputs(s, d)
+    scale = 1.0 / d ** 0.5
+    o_ref, lse = flash.flash_fwd_plain(q, k, v, scale, causal)
+    delta = (w.float() * o_ref.float()).sum(dim=-1)
+    dq = emulate_dq_tiled(q, k, v, w, lse, delta, scale, causal)
+    want = flash.flash_dq_plain(q, k, v, w, lse, delta, scale, causal)
+    term = flash.mma_rounding_terms(q, k, v, w, lse, delta, scale,
+                                    causal)["dq"]
+    assert _beyond(dq, want, term) == 0
+    planted = dq.float().clone()
+    planted[:, 3 * s // 4:] *= 1.02
+    assert _beyond(planted, want, term) > 0

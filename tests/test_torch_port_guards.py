@@ -424,14 +424,12 @@ _FLASH = ("flash_fwd", "flash_dkdv", "flash_dq")
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,routes", [
-    ("bfloat16", {"flash_fwd": "wgmma_bf16", "flash_dkdv": "wgmma_bf16",
-                  "flash_dq": "mma_bf16"}),
+    ("bfloat16", dict.fromkeys(_FLASH, "wgmma_bf16")),
     ("float32", dict.fromkeys(_FLASH, "fp32"))],
     ids=["bfloat16", "float32"])
 def test_cuda_flash_route_follows_type(dtype, routes):
-    """A bf16 call of B7 and B8 counts on the wgmma route and of B9 on the
-    mma.sync one, an fp32 call of each on the CUDA-core one, and nothing
-    else moves."""
+    """A bf16 call of B7, B8 and B9 counts on the wgmma route, an fp32
+    call of each on the CUDA-core one, and nothing else moves."""
     dev = _cuda()
     x = torch.randn(2, 100, 64, generator=torch.Generator().manual_seed(0)
                     ).to(dev, getattr(torch, dtype))
@@ -451,7 +449,7 @@ def test_cuda_flash_route_follows_type(dtype, routes):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_writes_only_its_heads(causal, monkeypatch):
-    """bf16 B7 and B8 at BH 3, S 200 (a ragged last tile) and D 72 (72
+    """bf16 B7, B8 and B9 at BH 3, S 200 (a ragged last tile) and D 72 (72
     columns padded to 128) write every element of their outputs and nothing
     around them: each output the wrappers allocate lies between two guards
     filled with a sentinel, which stay as they were, no sentinel is left
@@ -468,6 +466,7 @@ def test_cuda_flash_writes_only_its_heads(causal, monkeypatch):
     delta = (do.float() * o_ref.float()).sum(-1)
     dk_ref, dv_ref = flash.flash_dkdv_plain(q, k, v, do, lse_ref, delta,
                                             scale, causal)
+    dq_ref = flash.flash_dq_plain(q, k, v, do, lse_ref, delta, scale, causal)
     terms = flash.mma_rounding_terms(q, k, v, do, lse_ref, delta, scale,
                                      causal)
     empty = torch.empty
@@ -486,9 +485,10 @@ def test_cuda_flash_writes_only_its_heads(causal, monkeypatch):
                         guarded(shape, dtype))
     o, lse = flash.flash_fwd(q, k, v, scale, causal)
     dk, dv = flash.flash_dkdv(q, k, v, do, lse_ref, delta, scale, causal)
+    dq = flash.flash_dq(q, k, v, do, lse_ref, delta, scale, causal)
     monkeypatch.undo()
     torch.cuda.synchronize()
-    assert len(buffers) == 4
+    assert len(buffers) == 5
     for buf, n in buffers:
         assert bool((buf[:guard] == sentinel).all())
         assert bool((buf[guard + n:] == sentinel).all())
@@ -497,14 +497,15 @@ def test_cuda_flash_writes_only_its_heads(causal, monkeypatch):
     _close(lse, lse_ref, 1e-4, "lse")
     _close(dk, dk_ref, 5e-4, "dk", terms["dk"])
     _close(dv, dv_ref, 5e-4, "dv", terms["dv"])
+    _close(dq, dq_ref, 5e-4, "dq", terms["dq"])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_dkdv", "flash_dq"])
 def test_cuda_flash_refuses_misaligned_pointers(name):
     """A contiguous view that starts one element into its allocation is not
-    16-byte aligned: the bf16 B7, B8 and B9 wrappers, whose kernels copy
-    rows with 16-byte ``cp.async``, raise and launch nothing."""
+    16-byte aligned: the bf16 B7, B8 and B9 wrappers, whose kernels load
+    their tiles with TMA, raise and launch nothing."""
     dev = _cuda()
     flat = torch.zeros(2 * 64 * 16 + 1, device=dev, dtype=torch.bfloat16)
     bad = flat[1:].view(2, 64, 16)
@@ -557,11 +558,11 @@ def test_library_key_covers_headers(tmp_path):
         if src.suffix in (".cu", ".cuh"):
             (csrc / src.name).write_bytes(src.read_bytes())
     assert {p.name for p in csrc.iterdir()} >= {
-        p.name for p in cuda_build.SOURCES} | {"flash_attention_mma.cuh",
+        p.name for p in cuda_build.SOURCES} | {"bucket_groups.cuh",
                                                "flash_attention_wgmma.cuh"}
     before = cuda_build.source_key(csrc)
     assert before == cuda_build.source_key()
-    header = csrc / "flash_attention_mma.cuh"
+    header = csrc / "flash_attention_wgmma.cuh"
     header.write_text(header.read_text() + "// edited\n")
     edited = cuda_build.source_key(csrc)
     assert edited != before

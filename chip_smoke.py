@@ -80,9 +80,10 @@ just after:
   crosses a link, so the table names no real winner). B1, B3 and B4 are
   also held bitwise at VGG-16's 138,357,544 values, B5 and B6 at
   Inception's 23,834,568, and timed there.
-* phase (k), the process-mode native core: the script starts itself
-  twice (``--process-worker``, with the ``HVDTPU_*`` topology variables a
-  launcher exports), two ranks of ``hvd.init(mode="process",
+* phase (k), the process-mode native core: the port's static launcher
+  (``python -m horovod_tpu_torch.runner.launch -np 2 -H localhost:2``)
+  starts the script twice (``--process-worker``, with the ``HVDTPU_*``
+  topology variables it exports, which each rank checks), two ranks of ``hvd.init(mode="process",
   device="cuda:0")`` sharing the card (one rank if its compute mode allows
   one context), the core built from ``horovod_tpu_torch/native`` by the
   parent beside the kernels. On tensors on the card, staged through pinned
@@ -106,6 +107,32 @@ just after:
   bitwise equal; the Adam state of the shard, published to the core's
   gauge), and (k4) the core's int4 wire on a world of its own (2 + 3
   steps; fewer bytes sent than raw).
+
+* phase (l), elastic training: the port's elastic launcher
+  (``python -m horovod_tpu_torch.runner.launch -np 2 --min-np 2 --max-np
+  3 --host-discovery-script S``) runs this script's ``--elastic-worker``:
+  ``hvd.init(device="cuda:0")`` in process mode under the driver,
+  full-width ResNet-50 (batch 64 a rank, bf16 autocast, synthetic data
+  from ``--seed``, the batch and the rank) through 4-bit max-min with
+  error feedback (B1, B4), an ``hvd.elastic.TorchState`` committed every
+  batch, for 12 batches. ``S`` prints ``localhost:2``; after its commit of
+  batch 3 rank 0 adds ``127.0.0.1:1``, the ranks commit until the
+  driver's new round interrupts them, and the world of 3 syncs from rank
+  0; the worker of ``127.0.0.1`` dies (``os._exit(7)``) before its step of
+  batch 6; the survivors get ``HvdTpuInternalError``, restore their
+  commit and go on as a world of 2, the driver having blacklisted
+  ``127.0.0.1``. Checked: the launcher exits 0, the two finishers are on
+  ``localhost`` at batch 12 with the same weights, every sync leaves
+  every rank the same weights, each survivor's weights after the restore
+  are its commit of batch 6, every step launched B1 once and B4 size + 1
+  times, and no segment is left in ``/dev/shm``. Logged: the median step
+  ms at each world size, the scale-up seconds (hosts file rewritten ->
+  first step at size 3), and the recovery seconds as
+  ``hvdtpu_recovery_seconds`` records them and as the driver sees them
+  (failure -> world of 2 formed). Where the card allows one context only,
+  its ``solo`` form runs instead: one worker, commits also on disk, the
+  worker dies before batch 5 and the one that replaces it resumes from
+  the disk with the committed weights, bitwise.
 
 ``DistributedOptimizer`` reduces from gradient hooks: every timed step of
 a training phase must launch its reductions before ``loss.backward()``
@@ -379,6 +406,12 @@ BF16_TOL = (2**-7, 2**-8, 2**-14)  # of |value|, of mean |value|, absolute
 # timed steps a sub-phase, the int4 wire world PROCESS_WIRE_STEPS; the
 # ranks must finish within PROCESS_TIMEOUT seconds.
 PROCESS_RANKS, PROCESS_WIRE_STEPS, PROCESS_TIMEOUT = 2, 3, 420
+# Phase (l): batches of the elastic job, the batch whose commit adds the
+# third worker and the one before which it dies (the solo form's death),
+# how long the ranks wait for the driver's new round, and the whole job's
+# limit in seconds.
+ELASTIC_BATCHES, ELASTIC_GROW_AT, ELASTIC_DIE_AT = 12, 3, 6
+ELASTIC_SOLO_DIE_AT, ELASTIC_GROW_WAIT, ELASTIC_TIMEOUT = 5, 60, 300
 
 
 def log(msg: str) -> None:
@@ -2944,9 +2977,13 @@ def process_worker(out_dir: str, seed: int, device: str = "cuda:0") -> None:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.compression import (CompressionConfig,
                                                MaxMinQuantizer)
+    from horovod_tpu_torch.utils import envvars as ev
     hvd.init(mode="process", device=device)
     dev, r, n = hvd.device(), hvd.rank(), hvd.size()
-    res = {"rank": r, "size": n, "device": str(dev)}
+    res = {"rank": r, "size": n, "device": str(dev), "launcher": {
+        "rank": r, "size": n, "local_rank": hvd.local_rank(),
+        "local_size": hvd.local_size(),
+        "hostname": ev.get_str(ev.HVDTPU_HOSTNAME)}}
     res["menu_checked"] = process_menu(hvd, dev, r, n)
     log(f"(k1) rank {r}: {res['menu_checked']} results exact")
 
@@ -3041,53 +3078,363 @@ def process_ranks() -> int:
     return ranks
 
 
+def run_launcher(argv, what: str, timeout: float, env=None) -> str:
+    """``python -m horovod_tpu_torch.runner.launch argv`` from the
+    checkout: its output (the workers' too), after it exited 0. Past
+    ``timeout`` it gets SIGTERM, on which it stops its workers' process
+    groups, and the phase fails."""
+    import signal
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *argv],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out = proc.communicate(timeout=30)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out = proc.communicate()[0]
+        for line in out.splitlines():
+            log(f"[{what}] {line}")
+        raise AssertionError(f"{what}: the launcher did not end within "
+                             f"{timeout} s")
+    for line in out.splitlines():
+        log(f"[{what}] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: the launcher exited "
+                             f"{proc.returncode}")
+    return out
+
+
 def train_process(seed: int, ranks: int):
     """Phase (k): ``ranks`` processes of this script
-    (``--process-worker``), each ``hvd.init(mode="process",
-    device="cuda:0")`` with the topology variables a launcher exports;
-    their logs, then the results every rank wrote."""
-    import socket
+    (``--process-worker``), started by the port's static launcher
+    (``-np ranks -H localhost:ranks``), each ``hvd.init(mode="process",
+    device="cuda:0")`` with the topology variables the launcher exported;
+    the results every rank wrote."""
     import tempfile
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_process_")
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    procs = []
-    for r in range(ranks):
-        env = dict(os.environ, HVDTPU_RANK=str(r), HVDTPU_SIZE=str(ranks),
-                   HVDTPU_LOCAL_RANK=str(r), HVDTPU_LOCAL_SIZE=str(ranks),
-                   HVDTPU_CONTROLLER_ADDR="127.0.0.1",
-                   HVDTPU_CONTROLLER_PORT=str(port))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--process-worker",
-             out_dir, "--seed", str(seed)], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    deadline = time.monotonic() + PROCESS_TIMEOUT
-    outputs = []
-    try:
-        for p in procs:
-            outputs.append(p.communicate(
-                timeout=max(1.0, deadline - time.monotonic()))[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, out in enumerate(outputs):
-        for line in out.splitlines():
-            log(f"[rank {r}] {line}")
-    if any(p.returncode != 0 for p in procs):
-        raise AssertionError(f"(k): ranks exited "
-                             f"{[p.returncode for p in procs]}")
+    run_launcher(["-np", str(ranks), "-H", f"localhost:{ranks}",
+                  sys.executable, os.path.abspath(__file__),
+                  "--process-worker", out_dir, "--seed", str(seed)],
+                 "(k)", PROCESS_TIMEOUT)
     results = []
     for r in range(ranks):
         with open(os.path.join(out_dir, f"{r}.json")) as f:
             results.append(json.load(f))
+    if [res["launcher"] for res in results] != [
+            {"rank": r, "size": ranks, "local_rank": r, "local_size": ranks,
+             "hostname": "localhost"} for r in range(ranks)]:
+        raise AssertionError(f"(k) the launcher's topology "
+                             f"{[res['launcher'] for res in results]}")
     for key in ("dense", "maxmin", "zero1"):
         if len({res[key]["digest"] for res in results}) != 1:
             raise AssertionError(f"(k) {key}: weights differ across ranks")
     return results
+
+
+# ---------------------------------------------------------------------------
+# (l) elastic ResNet-50 through the port's elastic launcher
+# ---------------------------------------------------------------------------
+
+def elastic_batch(dev, seed: int, batch: int, rank: int):
+    """Rank ``rank``'s synthetic batch ``batch`` of (l), from the seed."""
+    gen = torch.Generator(device=dev).manual_seed(
+        seed * 1_000_003 + 1_000 * batch + rank)
+    images = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    return images, labels
+
+
+def recovery_metric(hvd):
+    """(count, sum) of the core's ``hvdtpu_recovery_seconds``."""
+    import re
+    got = dict(re.findall(
+        r"^hvdtpu_recovery_seconds_(sum|count)(?:\{[^}]*\})? (\S+)$",
+        hvd.runtime.core().metrics_dump(), re.M))
+    return float(got.get("count", 0)), float(got.get("sum", 0))
+
+
+def elastic_worker(out_dir: str, form: str, seed: int) -> None:
+    """One worker of phase (l), started by the elastic driver: ResNet-50
+    through 4-bit max-min with error feedback (the process path: B1 and
+    B4) under ``hvd.elastic.run``, a ``TorchState`` committed every
+    batch. ``grow``: at the commit of batch ``ELASTIC_GROW_AT`` rank 0 of
+    the world of 2 adds ``127.0.0.1:1`` to the hosts file and the ranks
+    commit until the driver's new round interrupts them; the worker of
+    ``127.0.0.1`` dies before its step of batch ``ELASTIC_DIE_AT``.
+    ``solo``: one worker, its commits also on disk; the worker of
+    ``127.0.0.1`` dies before batch ``ELASTIC_SOLO_DIE_AT`` and the one
+    that replaces it resumes from the disk. Each worker writes what it
+    saw into ``out_dir/record.<worker id>.json``."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.compression import (CompressionConfig,
+                                               MaxMinQuantizer)
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.utils import envvars as ev
+    wid = ev.get_str(ev.HVDTPU_WORKER_ID)
+    solo = form == "solo"
+    die_at = ELASTIC_SOLO_DIE_AT if solo else ELASTIC_DIE_AT
+    record = {"worker": wid, "steps": [], "commits": {}, "syncs": []}
+    path = os.path.join(out_dir, f"record.{wid}.json")
+
+    def write_record():
+        with open(path, "w") as f:
+            json.dump(record, f)
+
+    hvd.init(device="cuda:0")
+    record["init_done"] = time.time()
+    dev = hvd.device()
+    torch.manual_seed(seed)
+    model = ResNet50(num_classes=1000).to(dev,
+                                          memory_format=torch.channels_last)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=LR, momentum=0.9),
+        named_parameters=model.named_parameters(),
+        compression=CompressionConfig(
+            MaxMinQuantizer(bits=BITS, bucket_size=BUCKET),
+            reduction="scatter_allgather", error_feedback=True))
+
+    class State(hvd.elastic.TorchState):
+        def sync(self):
+            start = time.time()
+            super().sync()
+            digest = weights_digest(model)
+            if len(set(hvd.allgather_object(digest))) != 1:
+                raise AssertionError(f"(l) {wid}: the ranks' weights differ "
+                                     f"after the sync at batch {self.batch}")
+            count, total = recovery_metric(hvd)
+            record["syncs"].append({
+                "batch": self.batch, "size": hvd.size(),
+                "rank": hvd.rank(), "digest": digest, "start": start,
+                "time": time.time(), "recoveries": count,
+                "recovery_s": total})
+
+    state = State(model, opt, batch=0, grown=False,
+                  checkpoint_dir=os.path.join(out_dir, "checkpoints")
+                  if solo else None, checkpoint_keep=2)
+    record["state_built"] = time.time()
+    if solo and state.load_from_checkpoint():
+        record["resumed"] = {"batch": state.batch,
+                             "digest": weights_digest(model)}
+
+    @hvd.elastic.run
+    def train(state):
+        while state.batch < ELASTIC_BATCHES:
+            size, rank = hvd.size(), hvd.rank()
+            if wid.startswith("127.0.0.1") and state.batch == die_at:
+                record["died"] = {"batch": state.batch, "time": time.time()}
+                write_record()
+                with open(os.path.join(out_dir, "died.marker"), "w") as f:
+                    f.write(f"{wid} {state.batch}\n")
+                os._exit(7)
+            images, labels = elastic_batch(dev, seed, state.batch, rank)
+            reset_launches()
+            t0 = time.perf_counter()
+            forward_backward(model, opt, images, labels)
+            opt.step()
+            torch.cuda.synchronize()
+            record["steps"].append({
+                "batch": state.batch, "size": size, "rank": rank,
+                "ms": (time.perf_counter() - t0) * 1e3, "time": time.time(),
+                "launches": read_launches()})
+            state.batch += 1
+            state.commit()
+            if size == 3 or solo:
+                record["commits"][str(state.batch)] = weights_digest(model)
+                write_record()
+            if not solo and size == 2 and not state.grown and \
+                    state.batch == ELASTIC_GROW_AT:
+                if rank == 0:
+                    with open(os.path.join(out_dir, "hosts.txt"), "w") as f:
+                        f.write("localhost:2\n127.0.0.1:1\n")
+                    record["grown"] = time.time()
+                state.grown = True
+                deadline = time.monotonic() + ELASTIC_GROW_WAIT
+                while time.monotonic() < deadline:
+                    time.sleep(0.2)
+                    state.commit()  # the driver's new round interrupts it
+                raise AssertionError("(l) the driver added no worker within "
+                                     f"{ELASTIC_GROW_WAIT} s")
+        return hvd.size()
+
+    record["final_size"] = train(state)
+    record["final"] = {"batch": state.batch, "rank": hvd.rank(),
+                       "digest": weights_digest(model)}
+    write_record()
+    hvd.join()
+    hvd.shutdown()
+
+
+def driver_events(out: str):
+    """(time.time(), message) of each line the elastic driver logged."""
+    import datetime
+    import re
+    return [(datetime.datetime.strptime(stamp, "%Y-%m-%d %H:%M:%S,%f")
+             .timestamp(), msg)
+            for stamp, msg in re.findall(
+                r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) \[\w+\] "
+                r"(elastic: .*)", out)]
+
+
+def shm_segments():
+    """The native core's shared-memory segments of this user."""
+    return sorted(n for n in os.listdir("/dev/shm")
+                  if n.startswith(f"hvdtpu_{os.getuid()}_"))
+
+
+def train_elastic(seed: int, ranks: int):
+    """Phase (l): the port's elastic launcher
+    (``--host-discovery-script``) runs ``elastic_worker``: the ``grow``
+    form (2 -> 3 -> 2 workers) when two contexts may share the card, else
+    the ``solo`` form. Checks the job's outcome and returns its numbers:
+    step ms at each world size, the scale-up and recovery seconds, and
+    the launches of B1 and B4."""
+    import re
+    import statistics
+    import tempfile
+    form = "grow" if ranks >= 2 else "solo"
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    with open(os.path.join(work, "hosts.txt"), "w") as f:
+        f.write("localhost:2\n" if form == "grow" else
+                "127.0.0.1:1\nlocalhost:1\n")
+    script = os.path.join(work, "discover.sh")
+    with open(script, "w") as f:
+        f.write(f"#!/bin/sh\ncat {os.path.join(work, 'hosts.txt')}\n")
+    os.chmod(script, 0o755)
+    min_np, max_np = (2, 3) if form == "grow" else (1, 1)
+    shm_before = shm_segments()
+    log(f"(l) form {form}: workers {min_np}..{max_np}; /dev/shm before: "
+        f"{shm_before}")
+    t0 = time.monotonic()
+    out = run_launcher(
+        ["-np", str(min_np), "--min-np", str(min_np), "--max-np",
+         str(max_np), "--host-discovery-script", script,
+         "--elastic-timeout", "120", sys.executable,
+         os.path.abspath(__file__), "--elastic-worker", work,
+         "--elastic-form", form, "--seed", str(seed)], "(l)",
+        ELASTIC_TIMEOUT, env=dict(os.environ, HVDTPU_LOG_LEVEL="info"))
+    seconds = time.monotonic() - t0
+    shm_after = shm_segments()
+    log(f"(l) the job took {seconds:.3f} s; /dev/shm after: {shm_after}")
+    if set(shm_after) - set(shm_before):
+        raise AssertionError(f"(l) segments left in /dev/shm: "
+                             f"{sorted(set(shm_after) - set(shm_before))}")
+    if not os.path.exists(os.path.join(work, "died.marker")):
+        raise AssertionError("(l) no worker died")
+    records = {}
+    for name in os.listdir(work):
+        if name.startswith("record."):
+            with open(os.path.join(work, name)) as f:
+                rec = json.load(f)
+            records[rec["worker"]] = rec
+    finishers = {w: r for w, r in records.items() if "final" in r}
+    want = {"localhost:0", "localhost:1"} if form == "grow" else \
+        {"localhost:0"}
+    if set(finishers) != want or any(
+            r["final_size"] != len(want) or
+            r["final"]["batch"] != ELASTIC_BATCHES
+            for r in finishers.values()):
+        raise AssertionError(f"(l) finishers {sorted(finishers)}, expected "
+                             f"{sorted(want)} at size {len(want)} and batch "
+                             f"{ELASTIC_BATCHES}: "
+                             f"{[r.get('final') for r in records.values()]}")
+    if len({r["final"]["digest"] for r in finishers.values()}) != 1:
+        raise AssertionError("(l) the finishers' weights differ")
+    dead = next(r for w, r in records.items() if w.startswith("127.0.0.1"))
+    die_at = dead["died"]["batch"]
+    # Every completed step launched B1 once and B4 size + 1 times.
+    launches = collections.Counter()
+    for rec in records.values():
+        for step in rec["steps"]:
+            want_launches = {name: process_launches(step["size"]).get(name, 0)
+                             for name in step["launches"]}
+            if step["launches"] != want_launches:
+                raise AssertionError(
+                    f"(l) {rec['worker']} batch {step['batch']} at size "
+                    f"{step['size']}: launches {step['launches']}, expected "
+                    f"{want_launches}")
+            launches.update(step["launches"])
+    res = {"form": form, "seconds": seconds, "died_at": die_at,
+           "launches": dict(launches)}
+    if form == "grow":
+        # The survivors' weights after their restore and sync are the
+        # digest they committed before the failure; the joiner synced to
+        # rank 0's (checked in the worker: every sync's digests agree).
+        for w, rec in finishers.items():
+            after = [s for s in rec["syncs"] if s["size"] == 2 and
+                     s["batch"] == die_at]
+            if not after or after[0]["digest"] != rec["commits"][
+                    str(die_at)]:
+                raise AssertionError(f"(l) {w}: weights after the restore "
+                                     f"{after} are not the commit of batch "
+                                     f"{die_at}")
+        if not any(s["size"] == 3 for s in dead["syncs"]):
+            raise AssertionError("(l) the joiner never synced in a world "
+                                 "of 3")
+        rank0 = finishers["localhost:0"]
+        first3 = min(s["time"] for s in rank0["steps"] if s["size"] == 3)
+        res["scale_up_s"] = first3 - rank0["grown"]
+        recovered = [s for s in rank0["syncs"] if s["recoveries"] > 0]
+        res["recovery_s_metric"] = recovered[0]["recovery_s"] \
+            if recovered else None
+    else:
+        resumed = finishers["localhost:0"].get("resumed")
+        if resumed is None or resumed["batch"] != die_at or \
+                resumed["digest"] != dead["commits"][str(die_at)]:
+            raise AssertionError(f"(l) the replacement resumed {resumed}, "
+                                 f"not the commit of batch {die_at}")
+        res["recovery_s_metric"] = None
+    # The driver's log: when it saw the failure, started each round and
+    # saw each round formed (every worker claimed it).
+    events = driver_events(out)
+    formed = re.findall(r"elastic: epoch (\d+) \((.*?)\) formed: (\d+) "
+                        r"workers claimed it ([0-9.]+) s", out)
+    res["rounds"] = [(int(e), why, int(n), float(s))
+                     for e, why, n, s in formed]
+    failed = [t for t, msg in events
+              if re.match(r"elastic: worker 127\.0\.0\.1:0 failed", msg)]
+    recovered = [t for t, msg in events if re.match(
+        r"elastic: epoch \d+ \(worker 127\.0\.0\.1:0 failed\) formed",
+        msg)]
+    res["recovery_s_driver"] = recovered[0] - failed[0] \
+        if failed and recovered else None
+    rank0 = finishers["localhost:0"]
+    if form == "grow":
+        # The scale-up's parts: discovery (the file rewritten -> the
+        # round), the joiner's start (-> every worker claimed it), its
+        # core's form-up (-> init returned), its model, optimizer and
+        # state, its first sync, and rank 0's first step at size 3.
+        started = [t for t, msg in events if re.match(
+            r"elastic: rendezvous epoch \d+ \(host set changed\)", msg)]
+        grown = [t for t, msg in events if re.match(
+            r"elastic: epoch \d+ \(host set changed\) formed", msg)]
+        sync = dead["syncs"][0]
+        step3 = min((s for s in rank0["steps"] if s["size"] == 3),
+                    key=lambda s: s["time"])
+        res["scale_up_parts_s"] = {
+            "discovery": started[0] - rank0["grown"],
+            "joiner_start": grown[0] - started[0],
+            "joiner_init": dead["init_done"] - grown[0],
+            "joiner_model": dead["state_built"] - dead["init_done"],
+            "sync": sync["time"] - sync["start"],
+            "first_step": step3["time"] - sync["time"]}
+    res["step_ms"] = {
+        size: statistics.median(s["ms"] for s in rank0["steps"]
+                                if s["size"] == size)
+        for size in sorted({s["size"] for s in rank0["steps"]})}
+    log(f"(l) {form}: {len(records)} workers, rounds {res['rounds']}; "
+        f"finishers {sorted(finishers)} at batch {ELASTIC_BATCHES}, weights "
+        f"bitwise equal; median step ms by world size {res['step_ms']}; "
+        f"scale-up {res.get('scale_up_s')} s (hosts file rewritten -> "
+        f"first step at size 3; parts {res.get('scale_up_parts_s')}); "
+        f"recovery {res['recovery_s_metric']} s "
+        f"(hvdtpu_recovery_seconds) and {res['recovery_s_driver']} s (the "
+        f"driver: failure -> world formed); launches {res['launches']}")
+    return res
 
 
 def main() -> int:
@@ -3101,11 +3448,21 @@ def main() -> int:
              "this tree's in alternating rounds")
     parser.add_argument(
         "--process-worker", default=None, metavar="DIR",
-        help="run one rank of phase (k) (started by this script) and write "
+        help="run one rank of phase (k) (started by the launcher) and write "
              "its results into DIR")
+    parser.add_argument(
+        "--elastic-worker", default=None, metavar="DIR",
+        help="run one worker of phase (l) (started by the elastic driver) "
+             "and write what it saw into DIR")
+    parser.add_argument("--elastic-form", default="grow",
+                        choices=("grow", "solo"),
+                        help="phase (l)'s schedule (with --elastic-worker)")
     args = parser.parse_args()
     if args.process_worker:
         process_worker(args.process_worker, args.seed)
+        return 0
+    if args.elastic_worker:
+        elastic_worker(args.elastic_worker, args.elastic_form, args.seed)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3204,11 +3561,14 @@ def main() -> int:
                               noncausal_err, parent)
         hvd.shutdown()
         free_memory()
-        process = train_process(args.seed, process_ranks())
+        ranks = process_ranks()
+        process = train_process(args.seed, ranks)
+        elastic = train_elastic(args.seed, ranks)
         for row in rows:
             if row["name"] in process_launches(1):
                 row["launches_process_maxmin"] = \
                     process[0]["maxmin"]["launches"][row["name"]]
+                row["launches_elastic"] = elastic["launches"][row["name"]]
         dense, zero1 = process[0]["dense"], process[0]["zero1"]
         log(f"(k) {len(process)} ranks: (k1) {process[0]['menu_checked']} "
             f"exact results; (k2) dense {dense['step_ms']:.3f} ms a step, "
@@ -3219,6 +3579,11 @@ def main() -> int:
             f"{process[0]['wire_int4']['wire_raw_bytes_a_step']} bytes a "
             f"step; weights bitwise equal across the ranks in (k2), (k3) "
             f"and (k6)")
+        log(f"(l) {elastic['form']} form in {elastic['seconds']:.3f} s: "
+            f"median step ms by world size {elastic['step_ms']}; scale-up "
+            f"{elastic.get('scale_up_s')} s; recovery "
+            f"{elastic['recovery_s_metric']} s (hvdtpu_recovery_seconds), "
+            f"{elastic['recovery_s_driver']} s (driver); on {smi}")
     finally:
         hvd.shutdown()
     print(json.dumps({"kernels": rows}), flush=True)

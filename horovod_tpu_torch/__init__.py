@@ -27,6 +27,13 @@ Usage::
                                    backward_passes_per_step=1)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     handle = hvd.allreduce_async(t)  # ... hvd.synchronize(handle)
+
+Launch with ``hvdrun-torch -np 4 python train.py`` (or ``python -m
+horovod_tpu_torch.runner.launch``). An elastic job
+(``hvdrun-torch --host-discovery-script S --min-np 2 --max-np 4 ...``)
+wraps its loop in ``hvd.elastic.run`` over an ``hvd.elastic.TorchState``
+that it commits; ``hvd.run(fn, np=2)`` runs a function on workers and
+returns their results.
 """
 
 from .checkpoint import (checkpoint_metadata,  # noqa: F401
@@ -39,8 +46,9 @@ from .compression import (Compression, PowerSGDOptimizer,  # noqa: F401
                           set_quantization_levels)
 from .models import MLP, VGG, VGG16, VGG19, InceptionV3  # noqa: F401
 from .exceptions import (DuplicateNameError,  # noqa: F401
-                         HvdTpuInternalError, NotInitializedError,
-                         TensorDtypeMismatchError, TensorShapeMismatchError)
+                         HostsUpdatedInterrupt, HvdTpuInternalError,
+                         NotInitializedError, TensorDtypeMismatchError,
+                         TensorShapeMismatchError)
 from .functions import allgather_object, broadcast_object  # noqa: F401
 from .ops.collectives import (Adasum, Average, Max, Min,  # noqa: F401
                               Product, ReduceOp, Sum, allgather,
@@ -63,4 +71,6 @@ from .runtime import (axis_names, ccl_built, cross_rank,  # noqa: F401
                       gloo_built, gloo_enabled, init, is_homogeneous,
                       is_initialized, local_rank, local_size, mesh,
                       mode, mpi_built, mpi_enabled, mpi_threads_supported,
-                      nccl_built, rank, rocm_built, shutdown, size)
+                      nccl_built, rank, reinit, rocm_built, shutdown, size)
+from . import elastic  # noqa: F401,E402
+from .runner import run  # noqa: F401,E402

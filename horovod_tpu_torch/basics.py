@@ -674,6 +674,7 @@ class NativeCore:
         memory through PyTorch's caching host allocator, so a
         ``non_blocking`` copy to the card may read it after it is
         dropped."""
+        self._require_core()
         err = ctypes.create_string_buffer(2048)
         rc = self._lib.hvdtpu_wait(self._core, handle, err, len(err))
         self._inflight.pop(handle, None)
@@ -700,7 +701,15 @@ class NativeCore:
         return out
 
     def poll(self, handle: int) -> bool:
+        self._require_core()
         return bool(self._lib.hvdtpu_poll(self._core, handle))
+
+    def _require_core(self) -> None:
+        """A handle of a core that was shut down (a world an elastic reset
+        left behind) is an error, not a call on a freed core."""
+        if not self._core:
+            raise HvdTpuInternalError(
+                "the native core this collective ran on was shut down")
 
     def collective(self, kind: str, name: str, tensor: torch.Tensor,
                    op: int = 1, prescale: float = 1.0,

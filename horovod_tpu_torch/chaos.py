@@ -11,9 +11,10 @@ plane (``hvdtpu_set_chaos``)::
              hop=<N>  the N-th pairwise exchange this rank runs
 
 ``rank<R>:`` arms it on global rank R alone. With ``HVDTPU_CHAOS_MARKER``
-naming a file, the spec arms only in the first process that creates the
-file. (The JAX package also claims the marker through the elastic
-rendezvous's key-value store, which comes with the runner.)
+set, the spec arms only in the first process that claims the marker:
+under the elastic driver through its key-value store (``_claim_marker_kv``,
+JAX ``chaos.py:126-150``), which every host sees, else by creating the
+file it names.
 """
 
 from __future__ import annotations
@@ -87,13 +88,41 @@ def parse_chaos(spec: str, rank: int) -> Optional[ChaosSpec]:
         peer=int(arg) if (action == "drop" and arg is not None) else -1)
 
 
+def _claim_marker_kv(marker: str, rank: int) -> Optional[bool]:
+    """Claim the one-shot marker in the elastic driver's store: True when
+    this process claimed it, False when another did, None outside an
+    elastic job or when the store cannot be reached (the caller falls back
+    to the file). The worker that replaces a dead one may run on another
+    host, where a file marker does not exist, so the claim must be the
+    store's. A GET then a PUT is enough: two claims are a detection and a
+    new rendezvous apart, never at once."""
+    addr = ev.get_str(ev.HVDTPU_RENDEZVOUS_ADDR)
+    if not addr:
+        return None
+    from .runner.http_kv import KVStoreClient
+    client = KVStoreClient(addr, ev.get_int(ev.HVDTPU_RENDEZVOUS_PORT, 0),
+                           secret=ev.get_str(ev.HVDTPU_SECRET))
+    key = "/chaos/marker/" + os.path.basename(marker)
+    try:
+        if client.get(key):
+            return False
+        client.put(key, f"armed rank={rank} "
+                        f"spec={ev.get_str(ev.HVDTPU_CHAOS)}\n".encode())
+    except OSError:
+        return None
+    return True
+
+
 def armed_chaos(rank: int) -> Optional[ChaosSpec]:
-    """The fault this process arms at init, once per marker file."""
+    """The fault this process arms at init, once per marker."""
     spec = parse_chaos(ev.get_str(ev.HVDTPU_CHAOS, "") or "", rank)
     if spec is None:
         return None
     marker = ev.get_str(ev.HVDTPU_CHAOS_MARKER)
     if marker:
+        claimed = _claim_marker_kv(marker, rank)
+        if claimed is not None:
+            return spec if claimed else None
         try:
             fd = os.open(marker, os.O_CREAT | os.O_EXCL | os.O_WRONLY, 0o644)
         except FileExistsError:

@@ -14,6 +14,17 @@ class HvdTpuInternalError(RuntimeError):
     messages are those of ``horovod_tpu/native/core.cpp:2501-2600``)."""
 
 
+class HostsUpdatedInterrupt(Exception):
+    """The elastic driver reported a change of the host set (JAX
+    ``exceptions.py:20``; reference: ``horovod/common/elastic.py:73-93``).
+    Raised at ``state.commit()`` on every rank together; ``skip_sync``
+    tells the retry loop that no rank needs the state broadcast again."""
+
+    def __init__(self, skip_sync: bool = False):
+        super().__init__("hosts updated")
+        self.skip_sync = skip_sync
+
+
 class TensorShapeMismatchError(ValueError):
     """The ranks passed different shapes for one named collective (JAX
     ``exceptions.py:33``; reference: ``controller.cc:380-657``). Raised by

@@ -35,7 +35,9 @@ pass:
 every exchange), waits, and writes the reduced gradients into ``p.grad``.
 The first ``synchronize()`` checks once that every rank built the same
 units, before any gradient moves: its hooks only count, and it launches
-the units itself. No later launch exchanges a descriptor, since a host
+the units itself. So does the first one after the runtime was initialized
+anew (``runtime.epoch()``: an elastic reset), since the world's ranks may
+have changed. No later launch exchanges a descriptor, since a host
 round trip inside a backward hook would stall the card. An exchange's
 buffer stays referenced by its pending handle until ``synchronize()``.
 
@@ -65,6 +67,7 @@ from ..compression import (CompressionConfig, Compressor, MaxMinQuantizer,
                            NormalizedQuantizer, TopKCompressor,
                            init_error_feedback)
 from ..compression.reducers import compressed_grouped_allreduce
+from ..exceptions import HvdTpuInternalError
 from ..functions import broadcast_object
 from ..ops import collectives as C
 from ..utils import envvars as ev
@@ -223,7 +226,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._unit_of = {p: u for u in self._units for p in u.params}
         self._delay = {p: backward_passes_per_step for p in self._unit_of}
         self._fired = set()  # parameters whose hook fired in this window
-        self._checked = False
+        # The runtime epoch whose world checked the layout: a world made
+        # anew (an elastic reset) checks it again, every rank together.
+        self._checked_epoch = None
         self._synchronized = False
         self._should_synchronize = True
         # Reductions the hooks launched since the last synchronize().
@@ -298,7 +303,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             return
         unit = self._unit_of[p]
         unit.ready += 1
-        if unit.ready == len(unit.params) and self._checked:
+        if unit.ready == len(unit.params) and \
+                self._checked_epoch == runtime.epoch():
             self._launch(unit)
             self.hook_launches += 1
 
@@ -378,9 +384,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         gradient, a parameter's partial sum where it is still
         accumulating), wait for them all, and write the reduced gradients
         into ``p.grad`` (reference: ``horovod/torch/optimizer.py:198-221``)."""
-        if not self._checked:
+        if self._checked_epoch != runtime.epoch():
             self._check_layout()
-            self._checked = True
+            self._checked_epoch = runtime.epoch()
         for unit in self._units:
             if unit.pending is None:
                 self._launch(unit)
@@ -409,7 +415,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         before the reload would put the ranks out of step."""
         for unit in self._units:
             if unit.pending is not None and not unit.quantized:
-                unit.pending.wait()
+                try:
+                    unit.pending.wait()
+                except HvdTpuInternalError:
+                    pass  # it failed with its world; it is dropped anyway
             unit.pending = None
             unit.ready = 0
         self._new_window()

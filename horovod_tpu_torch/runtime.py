@@ -32,14 +32,25 @@ controller, fuses them and moves their bytes over TCP or shared memory.
 The ranks meet at ``HVDTPU_CONTROLLER_ADDR``:``HVDTPU_CONTROLLER_PORT``.
 The mesh is one ``dp`` axis over every rank; tensors on the card are staged
 through pinned host memory (:mod:`horovod_tpu_torch.ops.collectives`).
+
+Under the elastic driver (``hvdrun-torch --host-discovery-script``, which
+exports ``HVDTPU_RENDEZVOUS_ADDR`` and no ``HVDTPU_SIZE``), ``init()``
+takes process mode, as the JAX package's ``_detect_mode`` does
+(``horovod_tpu/runtime.py:139-142``), and reads this worker's rank, size
+and controller from the driver's rendezvous (:func:`_elastic_assignment`);
+``mode="spmd"`` there raises. :func:`reinit` starts the runtime again with
+the last ``init``'s arguments, as ``hvd.elastic.run`` does after a reset.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import math
+import sys
 import threading
+import time
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -71,11 +82,86 @@ class _RuntimeState:
         default_factory=dict)
     mode: str = "spmd"
     core: object = None  # basics.NativeCore in process mode
+    # Grows by one at every init: what was built against one world (an
+    # optimizer's layout check) can tell that the world was made anew.
+    epoch: int = 0
 
 
 DP_AXIS = "dp"
 _state = _RuntimeState()
 _lock = threading.RLock()
+# The arguments of the last init, for reinit.
+_init_kwargs: dict = {}
+
+# The last rendezvous epoch this process initialized with (elastic): a new
+# init takes only a newer one, so a worker never joins the world that just
+# failed.
+_elastic_last_epoch = 0
+# When the elastic retry loop saw a peer fail (time.monotonic()); the next
+# init records the time from it to the world's re-formation in the new
+# core (hvdtpu_recovery_seconds).
+_failure_detected_at: Optional[float] = None
+
+
+def note_failure_detected() -> None:
+    """Mark the moment a peer failure was seen (JAX ``runtime.py:156``);
+    the first mark of an outage counts until an init succeeds."""
+    global _failure_detected_at
+    if _failure_detected_at is None:
+        _failure_detected_at = time.monotonic()
+
+
+def _elastic_assignment() -> Optional[dict]:
+    """This worker's assignment from the elastic driver's store (JAX
+    ``runtime.py:165-223``; keys in
+    :mod:`horovod_tpu_torch.runner.elastic.driver`), or None outside an
+    elastic job: wait for an epoch newer than the last one this process
+    took, read the assignment of ``HVDTPU_WORKER_ID`` in it and claim it
+    (``/rendezvous/{epoch}/ready/{id}``, which the driver's settle
+    watchdog waits for). A worker that a newer epoch leaves out for 5 s
+    was scaled away and exits with code 0. TimeoutError after
+    ``HVDTPU_ELASTIC_TIMEOUT`` seconds."""
+    global _elastic_last_epoch
+    addr = ev.get_str(ev.HVDTPU_RENDEZVOUS_ADDR)
+    if not addr:
+        return None
+    from .runner.http_kv import KVStoreClient
+    worker_id = ev.get_str(ev.HVDTPU_WORKER_ID)
+    client = KVStoreClient(addr, ev.get_int(ev.HVDTPU_RENDEZVOUS_PORT, 0),
+                           secret=ev.get_str(ev.HVDTPU_SECRET))
+    deadline = time.monotonic() + ev.get_float(ev.HVDTPU_ELASTIC_TIMEOUT,
+                                               600.0)
+    missing_since = None
+    while time.monotonic() < deadline:
+        try:
+            raw = client.get("/rendezvous/epoch")
+        except OSError:
+            # The driver's store is briefly unreachable: a worker that
+            # exited now would get its healthy host blacklisted.
+            raw = None
+        epoch = int(raw) if raw else 0
+        if epoch > _elastic_last_epoch:
+            try:
+                assignment = client.get(
+                    f"/rendezvous/{epoch}/assignment/{worker_id}")
+            except OSError:
+                assignment = None
+            if assignment:
+                _elastic_last_epoch = epoch
+                try:
+                    client.put(f"/rendezvous/{epoch}/ready/{worker_id}",
+                               b"1")
+                except OSError:
+                    pass  # the claim is advisory: the watchdog respawns us
+                return json.loads(assignment)
+            if missing_since is None:
+                missing_since = time.monotonic()
+            elif time.monotonic() - missing_since > 5.0:
+                log.info("elastic: worker %s removed from epoch %d; "
+                         "exiting cleanly", worker_id, epoch)
+                sys.exit(0)
+        time.sleep(0.25)
+    raise TimeoutError("elastic rendezvous timed out")
 
 
 def _env_int(hvd_name: str, torch_name: Optional[str], default: int) -> int:
@@ -161,16 +247,20 @@ def _build_groups(st: _RuntimeState) -> None:
                     st.groups[key] = g
 
 
-def _start_core(st: _RuntimeState) -> None:
-    """Create and start this rank's native core; a core that cannot be
-    built or loaded raises, as does a failed form-up, after the
-    half-joined core is shut down."""
+def _start_core(st: _RuntimeState, controller=(None, None)) -> None:
+    """Create and start this rank's native core, whose controller is at
+    ``controller`` (address, port; None: the ``HVDTPU_CONTROLLER_*``
+    variables); a core that cannot be built or loaded raises, as does a
+    failed form-up, after the half-joined core is shut down. A start that
+    follows a detected failure records the time the recovery took."""
+    global _failure_detected_at
     from . import basics
     try:
         st.core = basics.NativeCore(
             rank=st.rank, size=st.size, local_rank=st.local_rank,
             local_size=st.local_size, cross_rank=st.cross_rank,
-            cross_size=st.cross_size)
+            cross_size=st.cross_size, coord_host=controller[0],
+            coord_port=controller[1])
     except (OSError, RuntimeError) as exc:
         raise NotInitializedError(
             "process mode: the native core (horovod_tpu_torch/native, "
@@ -180,6 +270,9 @@ def _start_core(st: _RuntimeState) -> None:
     except Exception:
         st.core.shutdown()
         raise
+    if _failure_detected_at is not None:
+        st.core.observe_recovery(time.monotonic() - _failure_detected_at)
+        _failure_detected_at = None
 
 
 def init(device: Union[str, torch.device, None] = None, mesh_shape=None,
@@ -202,24 +295,45 @@ def init(device: Union[str, torch.device, None] = None, mesh_shape=None,
         axis of that name).
       mode: ``None`` or ``"spmd"``, the ``torch.distributed`` world above;
         ``"process"``, the native core's world (no process group; the mesh
-        is ``{"dp": size}`` and any other ``mesh_shape`` raises).
+        is ``{"dp": size}`` and any other ``mesh_shape`` raises). ``None``
+        under the elastic driver is ``"process"``, and ``"spmd"`` there
+        raises.
     """
-    global _state
+    global _state, _init_kwargs
     with _lock:
         if _state.initialized:
             return
-        mode = mode or "spmd"
+        elastic = bool(ev.get_str(ev.HVDTPU_RENDEZVOUS_ADDR))
+        if mode is None:
+            mode = "process" if elastic else "spmd"
         if mode not in ("spmd", "process"):
             raise ValueError(f"mode must be \"spmd\" or \"process\", got "
                              f"{mode!r}")
-        st = _RuntimeState(mode=mode)
-        st.rank = _env_int(ev.HVDTPU_RANK, ev.RANK, 0)
-        st.size = _env_int(ev.HVDTPU_SIZE, ev.WORLD_SIZE, 1)
-        st.local_rank = _env_int(ev.HVDTPU_LOCAL_RANK, ev.LOCAL_RANK, 0)
-        st.local_size = _env_int(ev.HVDTPU_LOCAL_SIZE, ev.LOCAL_WORLD_SIZE,
-                                 1)
-        st.cross_rank = _env_int(ev.HVDTPU_CROSS_RANK, None, st.rank)
-        st.cross_size = _env_int(ev.HVDTPU_CROSS_SIZE, None, st.size)
+        if elastic and mode != "process":
+            raise ValueError(
+                "an elastic worker (HVDTPU_RENDEZVOUS_ADDR is set) runs in "
+                "process mode, whose native core re-forms the world at each "
+                "rendezvous; call init() or init(mode=\"process\")")
+        _init_kwargs = dict(device=device, mesh_shape=mesh_shape,
+                            axis_names=axis_names, dp_axis=dp_axis,
+                            mode=mode)
+        st = _RuntimeState(mode=mode, epoch=_state.epoch + 1)
+        assignment = _elastic_assignment() if elastic else None
+        if assignment is not None:
+            for key in ("rank", "size", "local_rank", "local_size",
+                        "cross_rank", "cross_size"):
+                setattr(st, key, assignment[key])
+            controller = (assignment["controller_addr"],
+                          assignment["controller_port"])
+        else:
+            st.rank = _env_int(ev.HVDTPU_RANK, ev.RANK, 0)
+            st.size = _env_int(ev.HVDTPU_SIZE, ev.WORLD_SIZE, 1)
+            st.local_rank = _env_int(ev.HVDTPU_LOCAL_RANK, ev.LOCAL_RANK, 0)
+            st.local_size = _env_int(ev.HVDTPU_LOCAL_SIZE,
+                                     ev.LOCAL_WORLD_SIZE, 1)
+            st.cross_rank = _env_int(ev.HVDTPU_CROSS_RANK, None, st.rank)
+            st.cross_size = _env_int(ev.HVDTPU_CROSS_SIZE, None, st.size)
+            controller = (None, None)
         if not 0 <= st.rank < st.size:
             raise ValueError(f"rank {st.rank} is outside a world of "
                              f"{st.size}")
@@ -248,7 +362,7 @@ def init(device: Union[str, torch.device, None] = None, mesh_shape=None,
             st.axis_names = (DP_AXIS,)
             st.mesh_shape = {DP_AXIS: st.size}
             st.dp_axis = DP_AXIS
-            _start_core(st)
+            _start_core(st, controller)
             sizes = st.core.collective(
                 "allgather", "hvd.init.local_size",
                 torch.tensor([st.local_size], dtype=torch.int64))
@@ -289,7 +403,16 @@ def shutdown() -> None:
             _state.core.shutdown()
         else:
             dist.destroy_process_group()
-        _state = _RuntimeState()
+        _state = _RuntimeState(epoch=_state.epoch)
+
+
+def reinit() -> None:
+    """Shut down and start again with the last ``init``'s arguments, the
+    device included (JAX ``runtime.py:534``); the elastic retry loop's
+    reset."""
+    kwargs = dict(_init_kwargs)
+    shutdown()
+    init(**kwargs)
 
 
 def is_initialized() -> bool:
@@ -330,6 +453,12 @@ def is_homogeneous() -> bool:
     """True when every node runs the same number of ranks (reference:
     ``horovod_is_homogeneous``); exchanged once, at ``init``."""
     return _require_init().homogeneous
+
+
+def epoch() -> int:
+    """How many times this process has initialized the runtime: a new
+    value means a new world."""
+    return _require_init().epoch
 
 
 def mode() -> str:

@@ -31,6 +31,33 @@ HVDTPU_CROSS_SIZE = "HVDTPU_CROSS_SIZE"
 HVDTPU_CONTROLLER_ADDR = "HVDTPU_CONTROLLER_ADDR"
 HVDTPU_CONTROLLER_PORT = "HVDTPU_CONTROLLER_PORT"
 
+# The launcher and the elastic driver (horovod_tpu/utils/envvars.py:31-39,
+# :326, :377-392): the address other hosts reach this one on, the elastic
+# driver's key-value store and a worker's stable identity there, how long
+# a worker waits for its assignment, the store that carries ``run()``'s
+# function and results, and the connectivity probe's parameters.
+HVDTPU_ADVERTISE_ADDR = "HVDTPU_ADVERTISE_ADDR"
+HVDTPU_RENDEZVOUS_ADDR = "HVDTPU_RENDEZVOUS_ADDR"
+HVDTPU_RENDEZVOUS_PORT = "HVDTPU_RENDEZVOUS_PORT"
+HVDTPU_WORKER_ID = "HVDTPU_WORKER_ID"
+HVDTPU_ELASTIC_TIMEOUT = "HVDTPU_ELASTIC_TIMEOUT"
+HVDTPU_RUN_KV_ADDR = "HVDTPU_RUN_KV_ADDR"
+HVDTPU_RUN_KV_PORT = "HVDTPU_RUN_KV_PORT"
+# The device run()'s workers initialize on (unset: the card).
+HVDTPU_RUN_DEVICE = "HVDTPU_RUN_DEVICE"
+HVDTPU_PREFLIGHT_KV_ADDR = "HVDTPU_PREFLIGHT_KV_ADDR"
+HVDTPU_PREFLIGHT_KV_PORT = "HVDTPU_PREFLIGHT_KV_PORT"
+HVDTPU_PREFLIGHT_HOST = "HVDTPU_PREFLIGHT_HOST"
+HVDTPU_PREFLIGHT_ROLE = "HVDTPU_PREFLIGHT_ROLE"
+HVDTPU_PREFLIGHT_CONTROLLER = "HVDTPU_PREFLIGHT_CONTROLLER"
+HVDTPU_PREFLIGHT_TIMEOUT = "HVDTPU_PREFLIGHT_TIMEOUT"
+# The live-metrics endpoints' base port and the driver's scrape period
+# (:256-257). The launcher reads the port to refuse the endpoints, which
+# come with observability (ROADMAP A9), and forwards the period as the
+# JAX launcher does.
+HVDTPU_METRICS_PORT = "HVDTPU_METRICS_PORT"
+HVDTPU_METRICS_INTERVAL = "HVDTPU_METRICS_INTERVAL"
+
 # torchrun's names, read when the hvdrun ones are absent.
 RANK = "RANK"
 WORLD_SIZE = "WORLD_SIZE"
@@ -221,3 +248,9 @@ def get_str(name: str, default: Optional[str] = None) -> Optional[str]:
     if v is None or v == "":
         return default
     return v
+
+
+def get_required(name: str) -> str:
+    """A variable the launcher must have set (the probe's and the task
+    runner's parameters); KeyError when it is absent."""
+    return os.environ[name]

@@ -73,6 +73,20 @@ def test_import_pulls_in_no_jax():
             "import horovod_tpu_torch.basics\n"
             "import horovod_tpu_torch.ops.dispatch\n"
             "import horovod_tpu_torch.utils.native_build\n"
+            "import horovod_tpu_torch.runner\n"
+            "import horovod_tpu_torch.runner.hosts\n"
+            "import horovod_tpu_torch.runner.safe_exec\n"
+            "import horovod_tpu_torch.runner.http_kv\n"
+            "import horovod_tpu_torch.runner.preflight\n"
+            "import horovod_tpu_torch.runner.launch\n"
+            "import horovod_tpu_torch.runner.task_runner\n"
+            "import horovod_tpu_torch.runner.elastic\n"
+            "import horovod_tpu_torch.runner.elastic.discovery\n"
+            "import horovod_tpu_torch.runner.elastic.registration\n"
+            "import horovod_tpu_torch.runner.elastic.driver\n"
+            "import horovod_tpu_torch.elastic\n"
+            "import horovod_tpu_torch.elastic.state\n"
+            "import horovod_tpu_torch.elastic.torch_state\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -97,8 +111,14 @@ def test_sources_import_no_jax(path):
                 "compression/reducers.py", "parallel/adasum.py",
                 "parallel/axes.py", "parallel/sharded_optimizer.py",
                 "parallel/strategy.py", "parallel/sync_batch_norm.py",
-                "basics.py", "ops/dispatch.py", "utils/native_build.py"
-                } <= names, names
+                "basics.py", "ops/dispatch.py", "utils/native_build.py",
+                "runner/hosts.py", "runner/safe_exec.py",
+                "runner/http_kv.py", "runner/preflight.py",
+                "runner/launch.py", "runner/task_runner.py",
+                "runner/elastic/discovery.py",
+                "runner/elastic/registration.py",
+                "runner/elastic/driver.py", "elastic/state.py",
+                "elastic/torch_state.py"} <= names, names
     for f in files:
         with open(f) as fh:
             tree = ast.parse(fh.read())

@@ -134,6 +134,30 @@ just after:
   worker dies before batch 5 and the one that replaces it resumes from
   the disk with the committed weights, bitwise.
 
+* phase (m), observability: (m1) at a world of one, the max-min
+  ResNet-50 path's 3 steps after 2 warm-up ones between
+  ``hvd.start_timeline`` and ``hvd.stop_timeline`` (``torch.profiler``
+  over the host and the device): the trace's device events must name B1's,
+  B3's and B4's kernels (``TRACE_KERNELS``) as often as ``PATH_LAUNCHES``
+  gives for 3 steps; logged are the device's busy share of the traced
+  window and the step time with and without the timeline in alternating
+  rounds. (m2) (k3)'s path (``--observe-worker``: 2 + 5 steps, then a dense
+  reduction of the last gradients through the core's int8 wire, which
+  compresses nothing else) at 2 ranks under ``hvdrun-torch`` with every
+  observability flag (a free ``--metrics-port`` base, ``--trace DIR
+  --trace-sample 1``, ``--perf-profile``, ``--grad-profile``,
+  ``--profile``, ``--postmortem``), in alternating rounds with plain runs:
+  while it runs every rank's ``/metrics``, ``/healthz``, ``/debugz``,
+  ``/perfz`` and ``/gradz`` answer the job's secret; after it, the trace's
+  report names the step's ops and a critical path, the perf and gradient
+  profiles merged both ranks, every compressed key has an SNR, the folded
+  profile has samples, and the verdict of the ranks' on-demand flight
+  dumps names no dead or hung rank. Its ranks end with ``hvd.shutdown()``
+  alone (no ``join()``). (m3) phase (l) runs with ``--metrics-port``:
+  the driver must read rank 0's ``hvdtpu_dead_ranks`` in the round the
+  failure started, and rank 0's ``/metrics`` must count its recovery
+  (``hvdtpu_recovery_seconds``).
+
 ``DistributedOptimizer`` reduces from gradient hooks: every timed step of
 a training phase must launch its reductions before ``loss.backward()``
 returns (the quantized group of a ResNet-50 phase, in the second pass with
@@ -412,6 +436,26 @@ PROCESS_RANKS, PROCESS_WIRE_STEPS, PROCESS_TIMEOUT = 2, 3, 420
 # limit in seconds.
 ELASTIC_BATCHES, ELASTIC_GROW_AT, ELASTIC_DIE_AT = 12, 3, 6
 ELASTIC_SOLO_DIE_AT, ELASTIC_GROW_WAIT, ELASTIC_TIMEOUT = 5, 60, 300
+# Phase (m), observability: (m1) traces OBS_STEPS steps of the max-min
+# ResNet-50 path after MESH_WARMUP, then times OBS_ROUNDS pairs of rounds
+# of OBS_STEPS steps with and without the timeline; (m2) runs (k3)'s path
+# under the launcher's observability flags, in alternating rounds with
+# and without them (OBS_ROUNDS pairs), and scrapes ENDPOINTS of every rank
+# while it runs.
+OBS_STEPS, OBS_ROUNDS = 3, 2
+ENDPOINTS = ("/metrics", "/healthz", "/debugz", "/perfz", "/gradz")
+# The launcher's observability flags, as observe_flags names them.
+OBS_FLAGS = ("metrics", "trace", "perf", "grad", "profile", "postmortem")
+# The CUDA kernel of each max-min wrapper, as the device events of
+# torch.profiler's trace name it: B3 and B4 are one template, summing or
+# not.
+TRACE_KERNELS = {
+    "maxmin_quantize": ("maxmin_quantize_kernel",),
+    "maxmin_dequantize_sum": ("maxmin_decode_packed_kernel<true",
+                              "maxmin_decode_generic_kernel<true"),
+    "maxmin_dequantize": ("maxmin_decode_packed_kernel<false",
+                          "maxmin_decode_generic_kernel<false"),
+}
 
 
 def log(msg: str) -> None:
@@ -3149,13 +3193,23 @@ def elastic_batch(dev, seed: int, batch: int, rank: int):
     return images, labels
 
 
-def recovery_metric(hvd):
-    """(count, sum) of the core's ``hvdtpu_recovery_seconds``."""
+def recovery_metric(text: str):
+    """(count, sum) of ``hvdtpu_recovery_seconds`` in a core's metrics
+    text."""
     import re
     got = dict(re.findall(
         r"^hvdtpu_recovery_seconds_(sum|count)(?:\{[^}]*\})? (\S+)$",
-        hvd.runtime.core().metrics_dump(), re.M))
+        text, re.M))
     return float(got.get("count", 0)), float(got.get("sum", 0))
+
+
+def served_metrics(hvd) -> str:
+    """This rank's ``/metrics`` as its endpoint serves it (the launcher's
+    ``--metrics-port`` base + rank, with the job's secret)."""
+    from horovod_tpu_torch.observability import scrape
+    from horovod_tpu_torch.utils import envvars as ev
+    return scrape("127.0.0.1", ev.get_int(ev.HVDTPU_METRICS_PORT, 0) +
+                  hvd.rank(), secret=ev.get_str(ev.HVDTPU_SECRET))
 
 
 def elastic_worker(out_dir: str, form: str, seed: int) -> None:
@@ -3206,12 +3260,13 @@ def elastic_worker(out_dir: str, form: str, seed: int) -> None:
             if len(set(hvd.allgather_object(digest))) != 1:
                 raise AssertionError(f"(l) {wid}: the ranks' weights differ "
                                      f"after the sync at batch {self.batch}")
-            count, total = recovery_metric(hvd)
+            count, total = recovery_metric(hvd.runtime.core().metrics_dump())
             record["syncs"].append({
                 "batch": self.batch, "size": hvd.size(),
                 "rank": hvd.rank(), "digest": digest, "start": start,
                 "time": time.time(), "recoveries": count,
-                "recovery_s": total})
+                "recovery_s": total,
+                "recoveries_served": recovery_metric(served_metrics(hvd))[0]})
 
     state = State(model, opt, batch=0, grown=False,
                   checkpoint_dir=os.path.join(out_dir, "checkpoints")
@@ -3306,6 +3361,8 @@ def train_elastic(seed: int, ranks: int):
         f.write(f"#!/bin/sh\ncat {os.path.join(work, 'hosts.txt')}\n")
     os.chmod(script, 0o755)
     min_np, max_np = (2, 3) if form == "grow" else (1, 1)
+    import secrets
+    base = free_base(max_np)
     shm_before = shm_segments()
     log(f"(l) form {form}: workers {min_np}..{max_np}; /dev/shm before: "
         f"{shm_before}")
@@ -3313,10 +3370,11 @@ def train_elastic(seed: int, ranks: int):
     out = run_launcher(
         ["-np", str(min_np), "--min-np", str(min_np), "--max-np",
          str(max_np), "--host-discovery-script", script,
-         "--elastic-timeout", "120", sys.executable,
-         os.path.abspath(__file__), "--elastic-worker", work,
+         "--elastic-timeout", "120", "--metrics-port", str(base),
+         sys.executable, os.path.abspath(__file__), "--elastic-worker", work,
          "--elastic-form", form, "--seed", str(seed)], "(l)",
-        ELASTIC_TIMEOUT, env=dict(os.environ, HVDTPU_LOG_LEVEL="info"))
+        ELASTIC_TIMEOUT, env=dict(os.environ, HVDTPU_LOG_LEVEL="info",
+                                  HVDTPU_SECRET=secrets.token_hex(16)))
     seconds = time.monotonic() - t0
     shm_after = shm_segments()
     log(f"(l) the job took {seconds:.3f} s; /dev/shm after: {shm_after}")
@@ -3402,6 +3460,24 @@ def train_elastic(seed: int, ranks: int):
         msg)]
     res["recovery_s_driver"] = recovered[0] - failed[0] \
         if failed and recovered else None
+    # (m3): the driver's watch read rank 0's hvdtpu_dead_ranks in the round
+    # the failure started (and in every round); rank 0's endpoint served
+    # the recovery its core recorded.
+    reads = {int(e): int(v) for e, v in re.findall(
+        r"elastic: epoch (\d+): rank 0's /metrics on \S+ reads "
+        r"hvdtpu_dead_ranks (\d+)", out)}
+    after = [int(e) for e, why, _, _ in formed
+             if why == "worker 127.0.0.1:0 failed"]
+    res["dead_rank_reads"] = reads
+    res["recoveries_served"] = max(
+        (s["recoveries_served"] for s in finishers["localhost:0"]["syncs"]),
+        default=0)
+    if not after or after[0] not in reads or (
+            form == "grow" and res["recoveries_served"] < 1):
+        raise AssertionError(f"(m3) the driver's reads of rank 0's "
+                             f"hvdtpu_dead_ranks by epoch {reads}, the "
+                             f"failure's round {after}; recoveries served "
+                             f"{res['recoveries_served']}")
     rank0 = finishers["localhost:0"]
     if form == "grow":
         # The scale-up's parts: discovery (the file rewritten -> the
@@ -3437,6 +3513,349 @@ def train_elastic(seed: int, ranks: int):
     return res
 
 
+# ---------------------------------------------------------------------------
+# (m) observability: the SPMD timeline, the launcher's flags, the elastic
+# driver's watch
+# ---------------------------------------------------------------------------
+
+def trace_device(path: str):
+    """A Chrome trace's device events: each max-min wrapper's kernel count
+    (``TRACE_KERNELS``), the kernels by name, and the ms the device was
+    busy (the union of its kernel, copy and set intervals)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    counts = dict.fromkeys(TRACE_KERNELS, 0)
+    names = collections.Counter()
+    for e in device:
+        if e["cat"] != "kernel":
+            continue
+        names[e["name"].split("(")[0]] += 1
+        for wrapper, prefixes in TRACE_KERNELS.items():
+            if any(p in e["name"] for p in prefixes):
+                counts[wrapper] += 1
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
+        if start > end:
+            busy += stop - start
+        elif stop > end:
+            busy += stop - end
+        end = max(end, stop)
+    return counts, dict(names), busy / 1e3
+
+
+def train_traced(hvd, dev):
+    """(m1): the max-min ResNet-50 path at a world of one, ``MESH_WARMUP``
+    steps, then ``OBS_STEPS`` steps between ``hvd.start_timeline`` and
+    ``hvd.stop_timeline`` (``torch.profiler`` on the host and the device).
+    The trace's device events must hold B1's, B3's and B4's kernels by
+    name, as often as ``PATH_LAUNCHES`` gives for those steps, and so must
+    the wrappers' counts. Then ``OBS_ROUNDS`` pairs of alternating rounds
+    of ``OBS_STEPS`` steps with and without the timeline: its cost."""
+    import tempfile
+    model, opt, images, labels = make_slice(hvd, dev)
+
+    def step():
+        loss = forward_backward(model, opt, images, labels)
+        opt.step()
+        return loss
+
+    losses = [step() for _ in range(MESH_WARMUP)]
+    base = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_timeline_"),
+                        "resnet")
+    torch.cuda.synchronize()
+    reset_launches()
+    hvd.start_timeline(base)
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(OBS_STEPS)]
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    path = hvd.stop_timeline()
+    check_losses([float(v) for v in losses])
+    launches = read_launches()
+    check_launches("(m1)", launches, PATH_LAUNCHES["resnet"], OBS_STEPS)
+    counts, names, busy_ms = trace_device(path)
+    want = {name: PATH_LAUNCHES["resnet"][name] * OBS_STEPS
+            for name in TRACE_KERNELS}
+    log(f"(m1) timeline {path} ({os.path.getsize(path)} bytes): device "
+        f"kernels of {OBS_STEPS} steps {names}; busy {busy_ms:.3f} ms of the "
+        f"{window_ms:.3f} ms window, a share of {busy_ms / window_ms:.4f}")
+    if counts != want:
+        raise AssertionError(f"(m1) the trace's max-min kernels {counts}, "
+                             f"expected {want}")
+    times = {"plain": [], "timeline": []}
+    for r in range(OBS_ROUNDS):
+        for mode in (("plain", "timeline") if r % 2 == 0
+                     else ("timeline", "plain")):
+            if mode == "timeline":
+                hvd.start_timeline(f"{base}.{r}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OBS_STEPS):
+                step()
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) / OBS_STEPS * 1e3)
+            if mode == "timeline":
+                hvd.stop_timeline()
+    log(f"(m1) step ms in alternating rounds: {times}")
+    return {"counts": counts, "busy_ms": busy_ms, "window_ms": window_ms,
+            "busy_share": busy_ms / window_ms, "step_ms": times}
+
+
+def free_base(n: int) -> int:
+    """A port p with p..p+n free at the time of asking: a job of n ranks'
+    metrics endpoints and the launcher's aggregate."""
+    import socket
+    for _ in range(50):
+        s = socket.socket()
+        s.bind(("", 0))
+        base = s.getsockname()[1]
+        s.close()
+        held = []
+        try:
+            for port in range(base, base + n + 1):
+                t = socket.socket()
+                held.append(t)
+                t.bind(("", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for t in held:
+                t.close()
+    raise AssertionError("no free run of ports")
+
+
+def observe_worker(out_dir: str, seed: int, device: str = "cuda:0") -> None:
+    """One rank of (m2): (k3)'s path, 4-bit max-min with error feedback
+    through the core (B1 and B4), ``MESH_WARMUP`` and ``MESH_STEPS``
+    steps; then, under the launcher's flags, one dense reduction of the
+    last gradients through the core's wire (its int8 compression: the
+    gradient statistics' SNR), an on-demand flight-recorder dump, and a
+    wait for the scrapes of the endpoints (the marker ``scraped``). Ends
+    with ``hvd.shutdown()`` alone, and writes its results after it."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.compression import (CompressionConfig,
+                                               MaxMinQuantizer)
+    from horovod_tpu_torch.utils import envvars as ev
+    hvd.init(mode="process", device=device)
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    flagged = ev.get_int(ev.HVDTPU_METRICS_PORT, 0) > 0
+    model, opt, images, labels = process_slice(
+        hvd, dev, seed, CompressionConfig(
+            MaxMinQuantizer(bits=BITS, bucket_size=BUCKET),
+            reduction="scatter_allgather", error_feedback=True))
+    res = {"rank": r, "flagged": flagged,
+           "maxmin": process_steps(hvd, "observe_maxmin", model, opt,
+                                   images, labels)}
+    check_launches("(m2)", res["maxmin"]["launches"], process_launches(n),
+                   MESH_STEPS, res["maxmin"]["routes"],
+                   {"maxmin_dequantize": "packed"})
+    if flagged:
+        hvd.grouped_allreduce([p.grad for p in model.parameters()],
+                              name="observe.dense")
+        res["dumped"] = hvd.flightrec_dump()
+        deadline = time.monotonic() + 120
+        while not os.path.exists(os.path.join(out_dir, "scraped")):
+            if time.monotonic() > deadline:
+                raise AssertionError("(m2) the endpoints were not scraped "
+                                     "within 120 s")
+            time.sleep(0.1)
+    del model, opt
+    hvd.shutdown()
+    with open(os.path.join(out_dir, f"{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def scrape_endpoints(base: int, ranks: int, secret: str, out_dir: str,
+                     stop, seen: dict) -> None:
+    """Poll every rank's ``ENDPOINTS`` with the job's secret until each
+    has answered, then write the marker the workers wait for; ``seen``
+    gets each answer's length."""
+    from horovod_tpu_torch.observability import scrape
+    want = {(r, p) for r in range(ranks) for p in ENDPOINTS}
+    while not stop.is_set() and set(seen) != want:
+        for r, p in sorted(want - set(seen)):
+            try:
+                seen[(r, p)] = len(scrape("127.0.0.1", base + r, path=p,
+                                          secret=secret, timeout=5.0))
+            except OSError:
+                pass
+        stop.wait(0.2)
+    if set(seen) == want:
+        with open(os.path.join(out_dir, "scraped"), "w") as f:
+            f.write("ok\n")
+
+
+def observe_flags(flags, work: str, ranks: int):
+    """``hvdrun-torch``'s arguments for the observability flags named in
+    ``flags`` (of ``OBS_FLAGS``), their artifacts under ``work``; with
+    every flag, also the core's int8 wire (for the dense reduction's
+    SNR). The metrics base port, or 0."""
+    argv, base = [], 0
+    if "metrics" in flags:
+        base = free_base(ranks)
+        argv += ["--metrics-port", str(base)]
+    if "trace" in flags:
+        argv += ["--trace", os.path.join(work, "trace"), "--trace-sample",
+                 "1"]
+    for name, flag in (("perf", "--perf-profile"),
+                       ("grad", "--grad-profile"), ("profile", "--profile"),
+                       ("postmortem", "--postmortem")):
+        if name in flags:
+            argv += [flag, os.path.join(work, name)]
+    if set(flags) == set(OBS_FLAGS):
+        argv += ["--compression", "int8"]
+    return argv, base
+
+
+def observe_run(seed: int, ranks: int, flags=OBS_FLAGS):
+    """One run of (m2)'s workers under the static launcher with the
+    observability flags named in ``flags`` (none: the plain run); its
+    seconds, the ranks' results, the artifacts' directory, the scrapes
+    (with the metrics port) and the launcher's output."""
+    import secrets
+    import tempfile
+    import threading
+    work = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    secret = secrets.token_hex(16)
+    argv, base = observe_flags(flags, work, ranks)
+    seen, stop = {}, threading.Event()
+    scraper = None
+    if base:
+        scraper = threading.Thread(target=scrape_endpoints, args=(
+            base, ranks, secret, work, stop, seen), daemon=True)
+        scraper.start()
+    # The wire compresses the dense reduction alone: (k3)'s own exchanges
+    # and the broadcast of the weights stay exact, as in the plain runs.
+    env = dict(os.environ, HVDTPU_SECRET=secret,
+               HVDTPU_COMPRESSION_SKIP_REGEX=r"^(?!observe\.dense)")
+    t0 = time.monotonic()
+    try:
+        out = run_launcher(
+            ["-np", str(ranks), "-H", f"localhost:{ranks}", *argv,
+             sys.executable, os.path.abspath(__file__), "--observe-worker",
+             work, "--seed", str(seed)],
+            f"(m2) {'+'.join(flags) or 'plain'}", PROCESS_TIMEOUT, env=env)
+    finally:
+        stop.set()
+        if scraper is not None:
+            scraper.join()
+    seconds = time.monotonic() - t0
+    results = []
+    for r in range(ranks):
+        with open(os.path.join(work, f"{r}.json")) as f:
+            results.append(json.load(f))
+    return {"seconds": seconds, "results": results, "dir": work,
+            "scraped": {f"{r}{p}": v for (r, p), v in seen.items()},
+            "out": out}
+
+
+def check_artifacts(run, ranks: int) -> dict:
+    """(m2)'s merged artifacts: the trace's report names the step's ops
+    and a critical path; the perf and gradient profiles merged every rank,
+    and every compressed key of the gradient profile has an SNR; the
+    folded profile has samples; the post-mortem verdict of the on-demand
+    dumps of this clean run names no dead or hung rank."""
+    from horovod_tpu_torch import gradstats, perfstats, postmortem, profiler
+    from horovod_tpu_torch.trace_analysis import build_report
+    work = run["dir"]
+    report = build_report(os.path.join(work, "trace"))
+    ops = sorted({row["name"] for row in report["critical_path"]})
+    # The compressed allreduce's exchanges ("car.*") and the dense
+    # reduction's fused buckets.
+    if report["ranks"] != list(range(ranks)) or not all(
+            any(name.startswith(prefix) for name in ops)
+            for prefix in ("car.", "observe.dense.")):
+        raise AssertionError(f"(m2) the trace's report: ranks "
+                             f"{report['ranks']}, critical path over {ops}")
+    perf, found = perfstats.merge_profile_dir(os.path.join(work, "perf"))
+    grad, grad_found = gradstats.merge_profile_dir(os.path.join(work,
+                                                                "grad"))
+    snr = {}
+    for rank, prof in gradstats.profile_ranks(grad).items():
+        for key in prof.get("gradstats", {}).get("keys", []):
+            if key.get("compression", "none") != "none":
+                snr[f"{rank}:{key['key']}"] = key.get("ewma_snr_db")
+    if sorted(found) != list(range(ranks)) or \
+            sorted(grad_found) != list(range(ranks)) or not snr or \
+            not all(isinstance(v, (int, float)) and math.isfinite(v)
+                    for v in snr.values()):
+        raise AssertionError(f"(m2) profiles of ranks {found} and "
+                             f"{grad_found}; compressed keys' SNR {snr}")
+    folded = profiler.load_folded_dir(os.path.join(work, "profile"))
+    samples = sum(sum(row.values())
+                  for row in profiler.phase_table(folded).values())
+    verdict, _ = postmortem.run_postmortem(os.path.join(work, "postmortem"))
+    if samples <= 0 or verdict["dead"] or \
+            verdict["ranks_dumped"] != list(range(ranks)):
+        raise AssertionError(f"(m2) {samples} profile samples; the clean "
+                             f"run's verdict {verdict}")
+    perf_keys = sum(len(prof.get("perfstats", {}).get("keys", []))
+                    for prof in perfstats.profile_ranks(perf).values())
+    log(f"(m2) trace: {report['ops_sampled']} of {report['ops_total']} ops "
+        f"on the critical path ({ops}), stragglers "
+        f"{[(s['rank'], s['attribution']) for s in report['stragglers']]}; "
+        f"perf profile keys {perf_keys}; "
+        f"compressed keys' SNR dB {snr}; {samples} profile samples by "
+        f"phase {profiler.phase_table(folded)}; verdict of the clean run: "
+        f"dead {verdict['dead']}")
+    return {"critical_path_ops": len(report["critical_path"]),
+            "snr_db": snr, "profile_samples": samples}
+
+
+def train_observed(seed: int, ranks: int):
+    """(m2): (k3)'s path under ``hvdrun-torch`` with every observability
+    flag (a free ``--metrics-port`` base, ``--trace DIR --trace-sample 1``,
+    ``--perf-profile``, ``--grad-profile``, ``--profile``,
+    ``--postmortem``, and the core's int8 wire for the dense reduction),
+    in ``OBS_ROUNDS`` pairs of alternating rounds with plain runs (plain
+    first); every rank's endpoints scraped with the secret while it runs;
+    the artifacts checked after the first flagged run. Each rank ends with
+    ``hvd.shutdown()`` alone."""
+    rounds = {"plain": [], "flagged": []}
+    checked = None
+    for r in range(OBS_ROUNDS):
+        for flagged in ((False, True) if r % 2 == 0 else (True, False)):
+            run = observe_run(seed, ranks, OBS_FLAGS if flagged else ())
+            rounds["flagged" if flagged else "plain"].append(
+                {"step_ms": [res["maxmin"]["step_ms"]
+                             for res in run["results"]],
+                 "seconds": run["seconds"]})
+            if flagged and checked is None:
+                want = {f"{rank}{p}" for rank in range(ranks)
+                        for p in ENDPOINTS}
+                if set(run["scraped"]) != want or not all(
+                        res["dumped"] for res in run["results"]):
+                    raise AssertionError(f"(m2) scraped {run['scraped']}")
+                checked = check_artifacts(run, ranks)
+                checked["scraped_bytes"] = run["scraped"]
+    log(f"(m2) (k3) step ms of each rank and the run's seconds, with and "
+        f"without the flags in alternating rounds: {rounds}")
+    return {"rounds": rounds, **checked}
+
+
+def flag_costs(seed: int, ranks: int, rounds: int = OBS_ROUNDS):
+    """``--flag-costs``: (k3)'s step ms (the ranks' mean) under each
+    observability flag alone and under none, ``rounds`` rounds of every
+    form, the forms in reverse order every second round; and each flag's
+    cost, the median of its rounds over the median of the plain ones."""
+    forms = [()] + [(name,) for name in OBS_FLAGS]
+    ms = {"+".join(f) or "plain": [] for f in forms}
+    for r in range(rounds):
+        for flags in (forms if r % 2 == 0 else forms[::-1]):
+            run = observe_run(seed, ranks, flags)
+            ms["+".join(flags) or "plain"].append(statistics.mean(
+                res["maxmin"]["step_ms"] for res in run["results"]))
+    plain = statistics.median(ms["plain"])
+    cost = {name: statistics.median(v) / plain - 1 for name, v in ms.items()
+            if name != "plain"}
+    log(f"(m2) flag costs: (k3) step ms by form {ms}; each flag's cost "
+        f"over the plain runs' median {cost}")
+    return {"step_ms": ms, "cost": cost}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -3454,6 +3873,15 @@ def main() -> int:
         "--elastic-worker", default=None, metavar="DIR",
         help="run one worker of phase (l) (started by the elastic driver) "
              "and write what it saw into DIR")
+    parser.add_argument(
+        "--observe-worker", default=None, metavar="DIR",
+        help="run one rank of phase (m2) (started by the launcher) and "
+             "write its results into DIR")
+    parser.add_argument(
+        "--flag-costs", action="store_true",
+        help="build, then only time (k3) under each observability flag "
+             "alone and under none, in alternating rounds (prints the "
+             "costs; not the smoke run)")
     parser.add_argument("--elastic-form", default="grow",
                         choices=("grow", "solo"),
                         help="phase (l)'s schedule (with --elastic-worker)")
@@ -3464,6 +3892,9 @@ def main() -> int:
     if args.elastic_worker:
         elastic_worker(args.elastic_worker, args.elastic_form, args.seed)
         return 0
+    if args.observe_worker:
+        observe_worker(args.observe_worker, args.seed)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3471,6 +3902,16 @@ def main() -> int:
     from horovod_tpu_torch.utils import cuda_build
 
     kernels, norm_kernels, flash = kernel_modules()
+    if args.flag_costs:
+        from horovod_tpu_torch.utils import native_build
+        cuda_build.build()
+        native_build.build()
+        log(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip())
+        print(json.dumps(flag_costs(args.seed, process_ranks())), flush=True)
+        return 0
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3559,10 +4000,13 @@ def main() -> int:
         rows += measure_flash(flash, dev, flash_launches, flash_err, rates,
                               model_parallel["encoder"]["launches"],
                               noncausal_err, parent)
+        free_memory()
+        traced = train_traced(hvd, dev)
         hvd.shutdown()
         free_memory()
         ranks = process_ranks()
         process = train_process(args.seed, ranks)
+        observed = train_observed(args.seed, ranks)
         elastic = train_elastic(args.seed, ranks)
         for row in rows:
             if row["name"] in process_launches(1):
@@ -3584,6 +4028,13 @@ def main() -> int:
             f"{elastic.get('scale_up_s')} s; recovery "
             f"{elastic['recovery_s_metric']} s (hvdtpu_recovery_seconds), "
             f"{elastic['recovery_s_driver']} s (driver); on {smi}")
+        log(f"(m) (m1) device busy {traced['busy_share']:.4f} of the traced "
+            f"window; step ms with and without the timeline "
+            f"{traced['step_ms']}; (m2) (k3) with and without the flags "
+            f"{observed['rounds']}; (m3) the driver read rank 0's "
+            f"hvdtpu_dead_ranks in epochs {elastic['dead_rank_reads']}, "
+            f"rank 0's /metrics counted {elastic['recoveries_served']} "
+            f"recoveries; on {smi}")
     finally:
         hvd.shutdown()
     print(json.dumps({"kernels": rows}), flush=True)

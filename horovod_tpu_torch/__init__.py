@@ -39,11 +39,12 @@ returns their results.
 from .checkpoint import (checkpoint_metadata,  # noqa: F401
                          latest_checkpoint_step, restore_checkpoint,
                          save_checkpoint)
-from .compression import (Compression, PowerSGDOptimizer,  # noqa: F401
-                          PowerSGDState, autotune_compressed,
-                          crossover_gbps, payload_nbytes, powersgd_allreduce,
-                          powersgd_init, projected_step_seconds,
-                          set_quantization_levels)
+from .compression import (Compression, Compressor,  # noqa: F401
+                          FP16Compressor, FP32Compressor, NoneCompressor,
+                          PowerSGDOptimizer, PowerSGDState,
+                          autotune_compressed, crossover_gbps, payload_nbytes,
+                          powersgd_allreduce, powersgd_init,
+                          projected_step_seconds, set_quantization_levels)
 from .models import MLP, VGG, VGG16, VGG19, InceptionV3  # noqa: F401
 from .exceptions import (DuplicateNameError,  # noqa: F401
                          HostsUpdatedInterrupt, HvdTpuInternalError,
@@ -52,25 +53,39 @@ from .exceptions import (DuplicateNameError,  # noqa: F401
 from .functions import allgather_object, broadcast_object  # noqa: F401
 from .ops.collectives import (Adasum, Average, Max, Min,  # noqa: F401
                               Product, ReduceOp, Sum, allgather,
-                              allgather_async, allreduce, allreduce_async,
-                              alltoall, alltoall_async, broadcast,
-                              broadcast_, broadcast_async, grouped_allreduce,
-                              grouped_allreduce_async, grouped_enqueue,
+                              allgather_async, allreduce, allreduce_,
+                              allreduce_async, allreduce_async_, alltoall,
+                              alltoall_async, broadcast, broadcast_,
+                              broadcast_async, broadcast_async_,
+                              grouped_allreduce, grouped_allreduce_async,
+                              grouped_enqueue,
                               hierarchical_allgather, hierarchical_allreduce,
                               join, poll, reducescatter, release_handle,
                               synchronize)
-from .parallel import (DistributedOptimizer,  # noqa: F401
-                       ShardedDistributedOptimizer, SyncBatchNorm,
-                       allreduce_gradients, autotune_hierarchical,
-                       broadcast_optimizer_state, broadcast_parameters,
-                       choose_hierarchical, clear_hierarchical_decisions,
+from .parallel import (DistributedGradientTape,  # noqa: F401
+                       DistributedOptimizer, ShardedDistributedOptimizer,
+                       SyncBatchNorm, allreduce_gradients,
+                       autotune_hierarchical, broadcast_optimizer_state,
+                       broadcast_parameters, choose_hierarchical,
+                       clear_hierarchical_decisions,
                        load_hierarchical_decisions,
                        save_hierarchical_decisions)
 from .runtime import (axis_names, ccl_built, cross_rank,  # noqa: F401
-                      cross_size, cuda_built, ddl_built, device, dp_axis,
-                      gloo_built, gloo_enabled, init, is_homogeneous,
-                      is_initialized, local_rank, local_size, mesh,
-                      mode, mpi_built, mpi_enabled, mpi_threads_supported,
-                      nccl_built, rank, reinit, rocm_built, shutdown, size)
+                      cross_size, cuda_built, ddl_built, debugz, device,
+                      dp_axis, flightrec_dump, gloo_built, gloo_enabled,
+                      grad_report, init, is_homogeneous, is_initialized,
+                      local_rank, local_size, mesh, metrics, metrics_dump,
+                      metrics_server, mode, mpi_built, mpi_enabled,
+                      mpi_threads_supported, nccl_built, perf_report,
+                      prof_snapshot, prof_start, prof_stop, profile, rank,
+                      reinit, rocm_built, shutdown, size, start_timeline,
+                      start_trace, stop_timeline, stop_trace)
+from .callbacks import (BestModelCheckpoint, average_metrics,  # noqa: F401
+                        lr_schedule, warmup_schedule)
+from .ops.flash_attention import flash_attention  # noqa: F401
+from .parallel.ring_attention import (make_ring_attention,  # noqa: F401
+                                      ring_attention)
+from .parallel.ulysses import (make_ulysses_attention,  # noqa: F401
+                               ulysses_attention)
 from . import elastic  # noqa: F401,E402
 from .runner import run  # noqa: F401,E402

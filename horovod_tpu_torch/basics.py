@@ -748,7 +748,8 @@ class NativeCore:
         """Begin a distributed trace at runtime: a timeline whose per-hop
         child spans are sampled every ``sample`` ops (None keeps the
         configured ``HVDTPU_TRACE_SAMPLE`` rate; the file also carries the
-        clock metadata ``scripts/trace_analyze.py`` merges on). See
+        clock metadata ``python -m horovod_tpu_torch.trace_analysis``
+        merges on). See
         docs/tracing.md."""
         if sample is not None and sample < 0:
             raise ValueError(f"sample must be >= 0, got {sample}")
@@ -776,7 +777,7 @@ class NativeCore:
 
     def perfstats_snapshot(self) -> bytes:
         """Keyed perf-baseline snapshot as JSON bytes (decode with
-        :mod:`horovod_tpu.perfstats` / ``json.loads``): per-{tensor-set,
+        :mod:`horovod_tpu_torch.perfstats` / ``json.loads``): per-{tensor-set,
         algo, transport, hier, compression, op} EWMA + p50/p99 of op wall time
         and the wait/wire/reduce/codec phase buckets, plus anomaly counts.
         The same payload the ``/perfz`` endpoint serves. ``b""`` when the
@@ -785,8 +786,8 @@ class NativeCore:
 
     def gradstats_snapshot(self) -> bytes:
         """Keyed numerical-health snapshot as JSON bytes (decode with
-        :mod:`horovod_tpu.gradstats` / ``json.loads``): per-tensor gradient
-        norms/absmax/NaN counts, per-key quantization MSE/SNR +
+        :mod:`horovod_tpu_torch.gradstats` / ``json.loads``): per-tensor
+        gradient norms/absmax/NaN counts, per-key quantization MSE/SNR +
         error-feedback residual norms, and the divergence-probe totals.
         The same payload the ``/gradz`` endpoint serves. ``b""`` when the
         core is shut down."""
@@ -812,7 +813,7 @@ class NativeCore:
 
     def profiler_snapshot(self) -> bytes:
         """Folded-stacks JSON bytes (decode with
-        :mod:`horovod_tpu.profiler` / ``json.loads``): aggregated
+        :mod:`horovod_tpu_torch.profiler` / ``json.loads``): aggregated
         {phase, op, frames} -> count, dladdr-symbolized at snapshot time.
         The same payload the ``/profz`` endpoint serves. ``b""`` when the
         core is shut down."""
@@ -820,7 +821,7 @@ class NativeCore:
 
     def flightrec_snapshot(self) -> bytes:
         """Serialized flight-recorder dump image (binary; decode with
-        :mod:`horovod_tpu.flightrec`): the in-flight op and last-N phase
+        :mod:`horovod_tpu_torch.flightrec`): the in-flight op and last-N phase
         events of this rank, live. ``b""`` when the recorder is disabled
         or the core is shut down."""
         return self._probe_then_copy(self._lib.hvdtpu_flightrec_snapshot)

@@ -37,6 +37,11 @@ class NoneCompressor(Compressor):
         return tensor
 
 
+# The reference's no-op "compress to fp32", the default of its optimizer
+# (``horovod_tpu/torch/compression.py:38-40``).
+FP32Compressor = NoneCompressor
+
+
 class _CastCompressor(Compressor):
     wire_dtype: torch.dtype
 

@@ -95,7 +95,16 @@ enum class CtrlMsg : int32_t {
   GRADCHECK = 9,  // worker -> coordinator: post-allreduce output
                   // fingerprint {seq, crc32c, tensor} for the cross-rank
                   // divergence probe (docs/numerics.md)
+  // The negotiated shutdown (see Core::Shutdown):
+  SHUTDOWN_REQ = 10,  // worker -> coordinator: this rank asks to shut down
+  SHUTDOWN_ACK = 11,  // worker -> coordinator: CLEAN_SHUTDOWN executed
+  SHUTDOWN_FIN = 12,  // coordinator -> worker: every rank acked; leave
 };
+
+// How long a rank that asked to shut down waits for its peers to agree
+// before it closes its lanes the old way (aborting a peer that still
+// reads). A peer that died is not waited for: its lost connection counts.
+constexpr double kShutdownAgreeSecs = 30.0;
 
 void LogWarn(int rank, const char* fmt, ...) {
   va_list ap;
@@ -773,6 +782,27 @@ class Core {
 
   std::thread background_;
   std::atomic<bool> shutdown_{false};  // atomic: seqcst(shutdown latch, read via implicit loads)
+  // The negotiated shutdown (a deviation from the JAX package's core,
+  // whose Shutdown closes its lanes at once and so aborts a peer still
+  // reading its last bytes). Shutdown() sets shutdown_requested_; the
+  // background loop tells the coordinator (SHUTDOWN_REQ), which appends a
+  // CLEAN_SHUTDOWN response after the ready ops. Every rank executes it
+  // after every op before it, fails what is still outstanding, and acks
+  // (SHUTDOWN_ACK); once every live rank has, the coordinator sends
+  // SHUTDOWN_FIN and every loop leaves (clean_exit_). Only then are the
+  // lanes closed, without the abort flag. A lost connection or a broken
+  // world still leaves at once, and a rank whose peers do not agree within
+  // kShutdownAgreeSecs closes as before.
+  std::atomic<bool> shutdown_requested_{false};  // atomic: seqcst(user -> background request)
+  bool closing_ GUARDED_BY(mu_) = false;  // CLEAN_SHUTDOWN executed here
+  // Background-thread owned:
+  bool shutdown_announced_ = false;
+  double shutdown_deadline_ = 0;
+  bool clean_exit_ = false;
+  bool world_shutdown_ = false;          // coordinator: a rank asked
+  bool clean_shutdown_emitted_ = false;  // coordinator
+  bool clean_shutdown_executed_ = false;
+  std::set<int32_t> shutdown_acks_;      // coordinator
   std::atomic<bool> world_broken_{false};  // atomic: seqcst(failure latch)
   // Worker-side failover latch (set by HandleDataPlaneFailure, consumed at
   // the top of the next background cycle — see the deferral note there).
@@ -817,6 +847,10 @@ class Core {
   // runs. Background thread (or Start, before the spawn) only.
   void EmitTraceMeta();
   void FailAllOutstanding(const std::string& reason) EXCLUDES(mu_);
+  // The negotiated shutdown's steps (background thread).
+  void AnnounceShutdown();
+  void ExecuteCleanShutdown();
+  void CoordinatorMaybeFinishShutdown();
 
   // Live-metrics registry (metrics.h) + handles pre-resolved in Start() so
   // the background loop's per-cycle updates are pure lock-free atomic ops.
@@ -1812,13 +1846,17 @@ Status Core::Start() {
 
 void Core::Shutdown() {
   if (!started_) return;
+  // Ask the background loop to agree on the exit with the peers; it
+  // leaves once they have (or at once on a lost connection or a broken
+  // world).
+  shutdown_requested_ = true;
+  Wake();
+  if (background_.joinable()) background_.join();
   {
     MutexLock lk(mu_);
     shutdown_ = true;  // under mu_: no lost wakeups for waiters
   }
   cv_.NotifyAll();
-  Wake();
-  if (background_.joinable()) background_.join();
   // Cross-run regression sentry (docs/observability.md): persist this
   // rank's per-key baselines + anomaly log. After the join, the
   // background thread's perf state is quiescent.
@@ -1850,7 +1888,7 @@ void Core::Shutdown() {
     pending_.clear();
   }
   cv_.NotifyAll();
-  data_plane_.Shutdown();
+  data_plane_.Shutdown(/*clean=*/clean_exit_);
   if (control_fd_ >= 0) CloseFd(control_fd_);
   if (cfg_.rank == 0) {
     for (int fd : worker_fds_) CloseFd(fd);
@@ -1862,7 +1900,7 @@ void Core::Shutdown() {
 
 int64_t Core::Enqueue(TensorEntry entry, Status* status) {
   MutexLock lk(mu_);
-  if (shutdown_) {
+  if (shutdown_ || closing_) {
     *status = Status::Error(StatusCode::ABORTED, "core is shut down");
     return -1;
   }
@@ -1965,7 +2003,7 @@ int64_t Core::Join() {
   cv_.NotifyAll();
   Wake();
   MutexLock lk(mu_);
-  while (!join_done_.load() && !shutdown_.load()) cv_.Wait(lk);
+  while (!join_done_.load() && !shutdown_.load() && !closing_) cv_.Wait(lk);
   if (!join_done_.load()) return -2;  // woken by a broken world, not a join
   return last_joined_rank_.load();
 }
@@ -2028,6 +2066,7 @@ void Core::BackgroundLoop() {
     }
     WaitForWork();
     if (shutdown_) break;
+    if (shutdown_requested_ && !shutdown_announced_) AnnounceShutdown();
     ApplyTimelineRequest();
     if (cfg_.timeline_mark_cycles) timeline_.MarkCycle();
     const double t0 = NowSeconds();
@@ -2049,8 +2088,78 @@ void Core::BackgroundLoop() {
       m_outstanding_->Set(static_cast<double>(outstanding_.size()));
     }
     UpdateMemoryGauges();
+    if (clean_exit_) break;
+    if (shutdown_announced_ && NowSeconds() > shutdown_deadline_) {
+      LogWarn(cfg_.rank, "shutdown: the peers did not agree within %.0f s; "
+              "closing the lanes", kShutdownAgreeSecs);
+      break;
+    }
   }
+  {
+    MutexLock lk(mu_);
+    shutdown_ = true;  // a loop that left by agreement takes no more ops
+  }
+  cv_.NotifyAll();
   profiler_.UnregisterThread();
+}
+
+void Core::AnnounceShutdown() {
+  shutdown_announced_ = true;
+  shutdown_deadline_ = NowSeconds() + kShutdownAgreeSecs;
+  if (cfg_.size == 1) {
+    clean_exit_ = true;  // no peer reads this rank's lanes
+  } else if (cfg_.rank == 0) {
+    world_shutdown_ = true;
+  } else if (control_fd_ >= 0) {
+    Writer w;
+    w.I32(static_cast<int32_t>(CtrlMsg::SHUTDOWN_REQ));
+    w.I32(cfg_.rank);
+    outbox_.Queue(control_fd_, w.Take());
+  }
+}
+
+void Core::ExecuteCleanShutdown() {
+  // Every response before this one has run on this rank, so no lane of a
+  // peer is read here any more. What is still outstanding never will run:
+  // a peer asked to shut down (reference: SHUT_DOWN_ERROR).
+  clean_shutdown_executed_ = true;
+  {
+    MutexLock lk(mu_);
+    closing_ = true;
+    for (auto& kv : handles_) {
+      if (done_.count(kv.first) == 0) {
+        done_[kv.first] = Status::Error(
+            StatusCode::ABORTED,
+            "a rank shut the world down before this op completed");
+        outstanding_.erase(kv.second->name);
+      }
+    }
+    pending_.clear();
+  }
+  cv_.NotifyAll();
+  if (cfg_.rank == 0) {
+    shutdown_acks_.insert(0);
+  } else if (control_fd_ >= 0) {
+    Writer w;
+    w.I32(static_cast<int32_t>(CtrlMsg::SHUTDOWN_ACK));
+    w.I32(cfg_.rank);
+    outbox_.Queue(control_fd_, w.Take());
+    FlushCtrlOutbox();
+  }
+}
+
+void Core::CoordinatorMaybeFinishShutdown() {
+  if (!clean_shutdown_executed_ || clean_exit_) return;
+  for (int rank = 1; rank < cfg_.size; ++rank) {
+    if (worker_fds_[rank] >= 0 && shutdown_acks_.count(rank) == 0) return;
+  }
+  Writer w;
+  w.I32(static_cast<int32_t>(CtrlMsg::SHUTDOWN_FIN));
+  std::vector<uint8_t> payload = w.Take();
+  for (int rank = 1; rank < cfg_.size; ++rank) {
+    if (worker_fds_[rank] >= 0) outbox_.Queue(worker_fds_[rank], payload);
+  }
+  clean_exit_ = true;
 }
 
 void Core::UpdateMemoryGauges(bool force) {
@@ -2151,6 +2260,7 @@ void Core::PumpControlPlane() {
     CoordinatorIngest();
     CheckStalls();
     CoordinatorEmitResponses();
+    CoordinatorMaybeFinishShutdown();
   } else {
     if (!reqs.empty()) {
       // Response-cache fast path: a request identical to the last one for the
@@ -2227,6 +2337,10 @@ void Core::PumpControlPlane() {
       }
       Reader r(frame);
       CtrlMsg type = static_cast<CtrlMsg>(r.I32());
+      if (type == CtrlMsg::SHUTDOWN_FIN) {
+        clean_exit_ = true;  // every rank is past its last op
+        return;
+      }
       if (type == CtrlMsg::NEED_FULL) {
         // Coordinator evicted a cache entry we hit on — resend in full from
         // the still-outstanding entry (race-free repair path).
@@ -2429,6 +2543,10 @@ void Core::CoordinatorIngest() {
           outbox_.Queue(fd, w.Take());
         }
         HandleReadyRequests(std::move(reqs));
+      } else if (type == CtrlMsg::SHUTDOWN_REQ) {
+        world_shutdown_ = true;
+      } else if (type == CtrlMsg::SHUTDOWN_ACK) {
+        shutdown_acks_.insert(rank);
       } else if (type == CtrlMsg::JOIN) {
         int32_t who = r.I32();
         joined_ranks_.insert(who);
@@ -2784,6 +2902,14 @@ void Core::CoordinatorEmitResponses() {
     list.push_back(std::move(resp));
   }
 
+  // A rank asked to shut down: every rank leaves after the ops above.
+  if (world_shutdown_ && !clean_shutdown_emitted_) {
+    clean_shutdown_emitted_ = true;
+    Response bye;
+    bye.type = ResponseType::CLEAN_SHUTDOWN;
+    list.push_back(std::move(bye));
+  }
+
   // Join barrier complete?
   if (static_cast<int>(joined_ranks_.size()) == cfg_.size) {
     Response j;
@@ -2881,6 +3007,10 @@ void Core::CompleteEntry(TensorEntry* e, const Status& st) {
 }
 
 void Core::ExecuteResponse(const Response& resp) {
+  if (resp.type == ResponseType::CLEAN_SHUTDOWN) {
+    ExecuteCleanShutdown();
+    return;
+  }
   if (resp.type == ResponseType::SHUTDOWN) {
     // Coordinator declared the world broken (a peer died mid-collective).
     FailAllOutstanding(resp.error_message.empty()

@@ -637,10 +637,16 @@ const std::string& DataPlane::transport_label() {
   return transport_label_;
 }
 
-void DataPlane::Shutdown() {
-  // Transports first: the shm lanes flip their shared abort flag and wake
-  // any same-host peer still blocked in a ring op before the name goes.
+void DataPlane::Shutdown(bool clean) {
+  // Transports first: unless the close was agreed, the shm lanes flip their
+  // shared abort flag and wake any same-host peer still blocked in a ring
+  // op before the name goes.
   tcp_lanes_.clear();  // raw views into transports_: drop before the owners
+  if (clean) {
+    for (auto& t : transports_) {
+      if (t != nullptr) t->CloseCleanly();
+    }
+  }
   for (auto& t : transports_) t.reset();
   for (int& fd : fds_) {
     CloseFd(fd);

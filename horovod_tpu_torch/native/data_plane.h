@@ -138,8 +138,12 @@ class DataPlane {
   HVDTPU_CALLED_ON(background)
   Status Connect(const std::vector<PeerAddr>& peers);
 
+  // Close every lane. clean: every rank agreed on the exit (the
+  // negotiated shutdown), so no peer still reads, and the shm segments
+  // close without their abort flag; else a peer still inside an op is
+  // released by it.
   HVDTPU_CALLED_ON(background)
-  void Shutdown();
+  void Shutdown(bool clean = false);
 
   // Break every lane NOW: flips the shared IoControl abort flag (sliced
   // reads observe it within one detect slice), aborts the shm segments

@@ -34,6 +34,9 @@ enum class ResponseType : int32_t {
   ERROR = 1,
   JOIN_DONE = 2,
   SHUTDOWN = 3,
+  // A rank asked to shut down: every rank leaves after the ops before it
+  // (core.cpp, the negotiated shutdown).
+  CLEAN_SHUTDOWN = 4,
 };
 
 // Coordinator's instruction to execute (possibly fused) collectives

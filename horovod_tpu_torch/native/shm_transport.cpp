@@ -215,7 +215,9 @@ std::unique_ptr<ShmTransport> ShmTransport::Open(const std::string& name,
 
 ShmTransport::~ShmTransport() {
   if (seg_ != nullptr) {
-    Abort();  // release any peer still blocked on our rings
+    // Release any peer still blocked on our rings, unless the close was
+    // agreed (every peer is past its last op).
+    if (!clean_close_) Abort();
     if (creator_) Unlink();
     munmap(seg_, map_bytes_);
     seg_ = nullptr;

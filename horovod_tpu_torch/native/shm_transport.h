@@ -118,6 +118,9 @@ class ShmTransport : public Transport {
   // rank releases its same-host peers.
   HVDTPU_CALLED_ON(any)
   void Abort() override;
+  // The destructor then unmaps without flipping the abort flag.
+  HVDTPU_CALLED_ON(background)
+  void CloseCleanly() override { clean_close_ = true; }
   // Peer-liveness probe: a SIGKILLed peer can never flip the abort flag, so
   // the wait loops also watch this (otherwise idle) socket to the peer and
   // abort on EOF — checked every wait slice, so a killed peer wakes a
@@ -242,6 +245,7 @@ class ShmTransport : public Transport {
   size_t ring_bytes_ = 0;
   bool creator_ = false;
   bool unlinked_ = false;
+  bool clean_close_ = false;
   int liveness_fd_ = -1;
   bool peer_died_ = false;
   IoControl* ctl_ = nullptr;

@@ -181,6 +181,12 @@ class Transport {
   HVDTPU_CALLED_ON(any)
   virtual void Abort() {}
 
+  // The next close is agreed with the peer (no op of it reads this lane
+  // any more): the lane closes without aborting the peer's side. No-op for
+  // lanes whose close aborts nothing.
+  HVDTPU_CALLED_ON(background)
+  virtual void CloseCleanly() {}
+
   // Bytes currently buffered inside the lane's own storage (the shm rings'
   // head-tail spread; 0 for lanes that buffer in the kernel) — the memory-
   // occupancy telemetry's per-lane gauge (docs/profiling.md). Any thread;

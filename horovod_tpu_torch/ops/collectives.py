@@ -1290,6 +1290,22 @@ def broadcast_(x: torch.Tensor, root_rank: int = 0,
     return _backend("broadcast_", axis).broadcast_(x, root_rank, name, axis)
 
 
+def allreduce_(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+               name: Optional[str] = None, axis=None) -> torch.Tensor:
+    """In-place allreduce: ``x`` holds the result (reference:
+    ``hvd.allreduce_``, ``mpi_ops.py:257``; JAX frontend
+    ``horovod_tpu/torch/__init__.py:209``)."""
+    return _copy_into(x, allreduce(x.detach(), op, prescale_factor,
+                                   postscale_factor, name=name, axis=axis))
+
+
+def _copy_into(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    with torch.no_grad():
+        x.copy_(out.reshape(x.shape))
+    return x
+
+
 def alltoall(x: torch.Tensor, splits=None, name: Optional[str] = None,
              axis=None):
     """Send dim-0 parts of ``x`` to every rank and concatenate what each
@@ -1399,6 +1415,39 @@ def allreduce_async(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
         x, op, prescale_factor, postscale_factor, compression, name, axis))
 
 
+class _InPlace:
+    """A launched exchange whose result is copied into the tensor it was
+    started on (the in-place async ops); ``wait`` returns that tensor."""
+
+    __slots__ = ("pending", "x")
+
+    def __init__(self, pending, x: torch.Tensor):
+        self.pending = pending
+        self.x = x
+
+    def poll(self) -> bool:
+        return self.pending.poll()
+
+    def wait(self):
+        return _copy_into(self.x, self.pending.wait())
+
+    def release(self) -> None:
+        self.pending.release()
+
+
+def allreduce_async_(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+                     prescale_factor: float = 1.0,
+                     postscale_factor: float = 1.0,
+                     name: Optional[str] = None, axis=None) -> int:
+    """Start :func:`allreduce_`; ``synchronize`` writes the result into
+    ``x`` and returns it (reference: ``mpi_ops.py:225``)."""
+    return _register(_InPlace(_backend("allreduce_async", axis)
+                              .allreduce_async(x.detach(), op,
+                                               prescale_factor,
+                                               postscale_factor, None, name,
+                                               axis), x))
+
+
 def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
                             op: ReduceOp = ReduceOp.AVERAGE,
                             prescale_factor: float = 1.0,
@@ -1424,6 +1473,16 @@ def broadcast_async(x: torch.Tensor, root_rank: int = 0,
                     name: Optional[str] = None, axis=None) -> int:
     return _register(_backend("broadcast_async", axis).broadcast_async(
         x, root_rank, name, axis))
+
+
+def broadcast_async_(x: torch.Tensor, root_rank: int = 0,
+                     name: Optional[str] = None, axis=None) -> int:
+    """Start an in-place broadcast; ``synchronize`` writes the root's
+    tensor into ``x`` and returns it (JAX frontend
+    ``horovod_tpu/torch/__init__.py:327``)."""
+    return _register(_InPlace(_backend("broadcast_async", axis)
+                              .broadcast_async(x.detach(), root_rank, name,
+                                               axis), x))
 
 
 def alltoall_async(x: torch.Tensor, splits=None,

@@ -213,17 +213,33 @@ def mma_rounding_terms(q, k, v, do, lse, delta, scale: float, causal: bool
     causal rows and let an error of a few percent pass.
     ``tests/test_torch_flash_rounding.py`` holds an emulation of the route
     to this bound and shows that a 2% error fails it. lse and fp32 outputs
-    get no term. Costs one product of squares each."""
+    get no term. Costs one product of squares each.
+
+    ``dq_delta`` is what dQ may move by when ``delta = rowsum(dO o)`` is
+    computed from the forward's bf16 ``o`` (a forward-then-backward chain)
+    rather than from the plain one, as the kernel checks feed it. Rounding
+    ``o`` to bf16 moves each ``o_id`` by at most ``u |o_id|``, so delta by
+    ``sum_d dO_id e_id``, bounded as above by ``4 u sqrt(sum_d dO_id^2
+    o_id^2)`` (D >= 16 products; ``o = P V`` in fp32). A change of
+    ``delta_i`` changes ``dS_ij = p_ij (dP_ij - delta_i)`` by ``-p_ij``
+    times it, so ``dQ_i`` by ``scale`` times it times ``sum_j p_ij k_j``:
+    the term is ``scale 4 u sqrt(sum_d dO_id^2 o_id^2) |sum_j p_ij k_j|``.
+    Its bound covers the two sides of a comparison with another package,
+    each of which rounds its own ``o``."""
     p, ds = _dscores(q, k, v, do, lse, delta, scale, causal)
     factor = 4 * 2.0 ** -8
 
     def rss(x, y):
         return torch.matmul(x.square(), y.float().square()).sqrt()
 
+    o = torch.matmul(p, v.float())
+    delta_moves = factor * (do.float() * o).square().sum(-1).sqrt()
     return {"o": factor * rss(p, v),
             "dv": factor * rss(p.transpose(-1, -2), do),
             "dk": (factor * scale) * rss(ds.transpose(-1, -2), q),
-            "dq": (factor * scale) * rss(ds, k)}
+            "dq": (factor * scale) * rss(ds, k),
+            "dq_delta": scale * delta_moves[..., None] *
+            torch.matmul(p, k.float()).abs()}
 
 
 # ---------------------------------------------------------------------------

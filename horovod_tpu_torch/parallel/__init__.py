@@ -6,9 +6,9 @@ Ulysses), expert (switch MoE) and pipeline (GPipe) parallelism."""
 from .adasum import adasum, adasum_reference  # noqa: F401
 from .axes import (axis_bound, axis_index, axis_size,  # noqa: F401
                    local_shard, mesh_coords)
-from .optimizer import (DistributedOptimizer,  # noqa: F401
-                        allreduce_gradients, broadcast_optimizer_state,
-                        broadcast_parameters)
+from .optimizer import (DistributedGradientTape,  # noqa: F401
+                        DistributedOptimizer, allreduce_gradients,
+                        broadcast_optimizer_state, broadcast_parameters)
 from .sharded_optimizer import (ShardedDistributedOptimizer,  # noqa: F401
                                 publish_optimizer_state_bytes)
 from .strategy import (autotune_hierarchical,  # noqa: F401

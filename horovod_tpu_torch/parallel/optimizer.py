@@ -158,6 +158,37 @@ def allreduce_gradients(grads, op: C.ReduceOp = C.ReduceOp.AVERAGE,
     return dict(zip(keys, out)) if keys is not None else out
 
 
+class DistributedGradientTape:
+    """Wrap a function that returns gradients so that they come back
+    allreduced (JAX ``DistributedGradientTape``, ``horovod_tpu/parallel/
+    optimizer.py:438``; reference ``horovod/tensorflow/__init__.py:527``).
+    The function returns a list or dict of gradients, or ``(value,
+    gradients)``; the gradients go through :func:`allreduce_gradients`
+    with this tape's ``op``, ``compression``, ``axis`` and
+    ``hierarchical``."""
+
+    def __init__(self, grad_fn, op: C.ReduceOp = C.ReduceOp.AVERAGE,
+                 compression=None, axis=None, hierarchical=None):
+        self._grad_fn = grad_fn
+        self._op = op
+        self._compression = compression
+        self._axis = axis
+        self._hierarchical = hierarchical
+
+    def _reduce(self, grads):
+        return allreduce_gradients(grads, op=self._op,
+                                   compression=self._compression,
+                                   axis=self._axis,
+                                   hierarchical=self._hierarchical)
+
+    def __call__(self, *args, **kwargs):
+        out = self._grad_fn(*args, **kwargs)
+        if isinstance(out, tuple) and len(out) == 2:
+            value, grads = out
+            return value, self._reduce(grads)
+        return self._reduce(out)
+
+
 class _Unit:
     """Gradients reduced in one call: a bucket of dense gradients (its
     ``compressor`` None or a wire compressor) or a quantizer's group."""

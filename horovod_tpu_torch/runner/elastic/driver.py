@@ -22,8 +22,18 @@ keeps the hosts of the last round first, in their order, and puts new ones
 after them: rank 0, whose state ``sync()`` broadcasts, stays on a worker
 that trained (the reference's ``DiscoveredHosts`` keeps the same order;
 the JAX driver sorts the hosts by name, so a new host whose name sorts
-first would take rank 0 there). Workers' ``/metrics`` endpoints, which the
-JAX driver can watch for dead ranks, come with observability (ROADMAP A9).
+first would take rank 0 there).
+
+With ``metrics_base`` (``hvdrun-torch --metrics-port``) the driver also
+watches the ``hvdtpu_dead_ranks`` gauge of rank 0's ``/metrics`` (JAX
+``driver.py:112-133``, :200-215): rank 0 is the coordinator, which counts
+the peers it lost, and the watch follows each round's rank 0. A dead rank
+it reports starts a round, once a round, even where no worker could post
+a hint. It reads a round only once every worker has claimed it: until
+then rank 0's endpoint may still be its last world's, whose gauge counts
+the death a round already answers (the JAX driver's watch reads it and
+starts round after round). Each round's first read is logged at info
+level.
 """
 
 from __future__ import annotations
@@ -89,11 +99,6 @@ class ElasticDriver:
     def __init__(self, discovery: HostDiscovery, settings: ElasticSettings,
                  command: List[str], env: Dict[str, str],
                  verbose: bool = False, metrics_base: Optional[int] = None):
-        if metrics_base is not None:
-            raise NotImplementedError(
-                "the elastic driver's watch of rank 0's /metrics comes with "
-                "the observability modules (ROADMAP A9); pass "
-                "metrics_base=None")
         self._host_manager = HostManager(discovery)
         self._settings = settings
         self._command = command
@@ -123,6 +128,13 @@ class ElasticDriver:
         self._closed = False
         # The last round every worker of which has claimed it.
         self._formed_epoch = 0
+        # The watch of rank 0's /metrics: its base port, the current
+        # round's rank-0 host, and the last round it started a new one
+        # for.
+        self._metrics_base = metrics_base
+        self._metrics_thread: Optional[threading.Thread] = None
+        self._controller_host: Optional[str] = None
+        self._metrics_epoch_triggered = 0
 
     # ------------------------------------------------------------------
     def start(self) -> None:
@@ -132,6 +144,10 @@ class ElasticDriver:
         self._discovery_thread = threading.Thread(
             target=self._discovery_loop, daemon=True)
         self._discovery_thread.start()
+        if self._metrics_base:
+            self._metrics_thread = threading.Thread(
+                target=self._metrics_monitor_loop, daemon=True)
+            self._metrics_thread.start()
 
     def wait_for_completion(self, timeout: Optional[float] = None) -> int:
         """Wait for the job's end, stop every worker left, and return the
@@ -156,8 +172,9 @@ class ElasticDriver:
             self._procs.clear()
         for p in procs:
             p.terminate()
-        if self._discovery_thread is not None:
-            self._discovery_thread.join(timeout=5)
+        for thread in (self._discovery_thread, self._metrics_thread):
+            if thread is not None:
+                thread.join(timeout=5)
         self._kv.stop()
 
     @property
@@ -235,6 +252,43 @@ class ElasticDriver:
                         self._rendezvous(f"failure hint from {hint[0]}")
                     hint = None
 
+    def _metrics_monitor_loop(self) -> None:
+        """Scrape the current round's rank 0 and start a round when its
+        ``hvdtpu_dead_ranks`` is above 0: a failure is then handled even
+        when every survivor is blocked in a collective and none posts a
+        hint."""
+        from ...observability import (parse_prometheus_text, sample_value,
+                                      scrape)
+        interval = max(self._settings.hint_poll_interval_s * 2, 0.5)
+        logged = 0
+        while not self._shutdown.wait(interval):
+            with self._lock:
+                host, epoch = self._controller_host, self._epoch
+                formed = self._formed_epoch == epoch
+            if not host or not formed or \
+                    epoch <= self._metrics_epoch_triggered:
+                continue
+            try:
+                text = scrape(host, self._metrics_base, secret=self._secret,
+                              timeout=2.0)
+            except Exception:
+                continue  # rank 0 is not up yet, or starts again
+            dead = sample_value(parse_prometheus_text(text),
+                                "hvdtpu_dead_ranks") or 0
+            if epoch > logged:
+                logged = epoch
+                log.info("elastic: epoch %d: rank 0's /metrics on %s:%d "
+                         "reads hvdtpu_dead_ranks %d", epoch, host,
+                         self._metrics_base, int(dead))
+            if dead > 0:
+                log.warning("elastic: metrics report %d dead rank(s); "
+                            "re-forming", int(dead))
+                with self._lock:
+                    if self._shutdown.is_set() or epoch != self._epoch:
+                        continue  # a round has started since
+                    self._metrics_epoch_triggered = epoch
+                    self._rendezvous("dead rank reported by metrics")
+
     def _usable_hosts(self) -> Dict[str, int]:
         """The hosts of the last discovery less those blacklisted since:
         a failure starts its round at once, without running discovery
@@ -288,6 +342,7 @@ class ElasticDriver:
                 self._kv.put(f"/rendezvous/{epoch}/assignment/{worker_id}",
                              json.dumps(assignment).encode())
             self._expected = expected
+            self._controller_host = slots[0].hostname
             self._last_rendezvous = time.monotonic()
             # Workers running when the round is published must claim it;
             # they are taken before the publish, for the settle watchdog.

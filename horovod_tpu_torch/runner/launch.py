@@ -17,14 +17,33 @@ supervises them: the first worker to fail stops the others. With
         python train.py
     python -m horovod_tpu_torch.runner.launch -np 2 python train.py
 
-The flags are the JAX launcher's, parsed the same way. Those whose work
-needs the observability modules, which come later (ROADMAP A9), are
-refused with an error that says so: ``--metrics-port`` (or a
-``HVDTPU_METRICS_PORT`` above 0), ``--top``, ``--debugz``, ``--trace``,
-``--perf-profile``, ``--grad-profile``, ``--profile`` and
-``--postmortem``. Every other knob goes to the workers as its
-``HVDTPU_*`` variable, whether or not the port's core reads it, so that
-the two launchers give workers the same environment.
+The flags are the JAX launcher's, parsed the same way, and each knob goes
+to the workers as its ``HVDTPU_*`` variable, so that the two launchers give
+workers the same environment. The observability flags (JAX
+``launch.py:56-76``, :146-195, :425-492, :614-626):
+
+* ``--metrics-port BASE``: rank r serves ``/metrics``, ``/healthz``,
+  ``/debugz``, ``/perfz``, ``/gradz`` and ``/profz`` on BASE + r, behind
+  the job's secret; the launcher preflights the ports, prints the URLs
+  and serves every rank's samples, labelled by rank, on BASE + np
+  (:mod:`~horovod_tpu_torch.runner.metrics_agg`). ``--top`` (with
+  ``--top-once``) runs the console of
+  :mod:`~horovod_tpu_torch.runner.hvdtop` over them; ``--debugz`` prints
+  each rank's ``/debugz`` URL.
+* ``--trace DIR`` (``--trace-sample N``): each rank writes
+  ``DIR/trace.<rank>.json``; at the end the launcher merges them into
+  ``DIR/merged_trace.json`` and prints the critical-path report.
+* ``--perf-profile DIR``, ``--grad-profile DIR``, ``--profile DIR``: each
+  rank writes its perf baselines, gradient statistics or folded stacks at
+  shutdown; the launcher merges them (``perf_profile.json``,
+  ``grad_profile.json``, ``profile_merged.folded`` and
+  ``profile.speedscope.json``).
+* ``--postmortem DIR``: every rank's flight recorder dumps there when the
+  job fails, and the launcher prints the verdict
+  (:mod:`~horovod_tpu_torch.postmortem`).
+
+Each artifact directory is cleared of an earlier run's files of its names
+first, so that two runs are never merged into one.
 """
 
 from __future__ import annotations
@@ -41,15 +60,6 @@ from . import safe_exec
 from ..utils import envvars as ev
 
 PROG = "hvdrun-torch"
-
-# Flags refused until the observability modules are ported: their
-# argparse destination and the flag's name.
-OBSERVABILITY_FLAGS = (("top", "--top"), ("debugz", "--debugz"),
-                       ("trace", "--trace"),
-                       ("perf_profile", "--perf-profile"),
-                       ("grad_profile", "--grad-profile"),
-                       ("profile", "--profile"),
-                       ("postmortem", "--postmortem"))
 
 
 def parse_args(argv: List[str] = None) -> argparse.Namespace:
@@ -80,18 +90,21 @@ def parse_args(argv: List[str] = None) -> argparse.Namespace:
                         "FILE.rank.json (HVDTPU_TIMELINE)")
     p.add_argument("--timeline-mark-cycles", action="store_true")
     p.add_argument("--trace", default=None, metavar="DIR",
-                   help="cross-rank distributed tracing (HVDTPU_TRACE); "
-                        "refused until observability is ported")
+                   help="cross-rank distributed tracing (HVDTPU_TRACE): "
+                        "each rank writes DIR/trace.<rank>.json; the "
+                        "launcher merges them into DIR/merged_trace.json "
+                        "and prints the critical-path report")
     p.add_argument("--trace-sample", type=int, default=None,
                    help="emit per-hop trace spans for every Nth collective "
                         "op (HVDTPU_TRACE_SAMPLE)")
     p.add_argument("--postmortem", default=None, metavar="DIR",
                    help="post-mortem flight-recorder dumps "
-                        "(HVDTPU_FLIGHTREC_DIR); refused until "
-                        "observability is ported")
+                        "(HVDTPU_FLIGHTREC_DIR): DIR/flightrec.<rank>.bin "
+                        "on abort, stall or fatal signal; the launcher "
+                        "prints the verdict when the job fails")
     p.add_argument("--debugz", action="store_true",
-                   help="print each worker's /debugz URL; refused until "
-                        "observability is ported")
+                   help="print each worker's /debugz URL (requires "
+                        "--metrics-port)")
     p.add_argument("--fusion-threshold-mb", type=float, default=64.0,
                    help="tensor fusion threshold (HVDTPU_FUSION_THRESHOLD)")
     p.add_argument("--cycle-time-ms", type=float, default=1.0,
@@ -136,16 +149,18 @@ def parse_args(argv: List[str] = None) -> argparse.Namespace:
                    help="payloads below this stay uncompressed "
                         "(HVDTPU_COMPRESSION_MIN_BYTES)")
     p.add_argument("--top", action="store_true",
-                   help="live fleet console; refused until observability "
-                        "is ported")
+                   help="live fleet console over every worker's /metrics "
+                        "and /perfz (requires --metrics-port)")
     p.add_argument("--top-once", action="store_true",
                    help="with --top: print one frame")
     p.add_argument("--perf-profile", default=None, metavar="DIR",
-                   help="per-rank perf baselines (HVDTPU_PERF_PROFILE_DIR);"
-                        " refused until observability is ported")
+                   help="per-rank perf baselines (HVDTPU_PERF_PROFILE_DIR),"
+                        " merged into DIR/perf_profile.json")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="sampling profiler output (HVDTPU_PROF_DIR); "
-                        "refused until observability is ported")
+                   help="whole-job sampling profiler (HVDTPU_PROF_DIR): "
+                        "DIR/prof.<rank>.folded, merged into "
+                        "DIR/profile_merged.folded and "
+                        "DIR/profile.speedscope.json")
     p.add_argument("--prof-hz", type=int, default=None,
                    help="profiler sampling rate in Hz (HVDTPU_PROF_HZ)")
     p.add_argument("--prof-clock", default=None, choices=["cpu", "wall"],
@@ -157,8 +172,8 @@ def parse_args(argv: List[str] = None) -> argparse.Namespace:
                    help="disable the perf baselines (HVDTPU_PERFSTATS=0)")
     p.add_argument("--grad-profile", default=None, metavar="DIR",
                    help="per-rank gradient-health baselines "
-                        "(HVDTPU_GRAD_PROFILE_DIR); refused until "
-                        "observability is ported")
+                        "(HVDTPU_GRAD_PROFILE_DIR), merged into "
+                        "DIR/grad_profile.json")
     p.add_argument("--nancheck", default=None,
                    choices=["off", "warn", "abort"],
                    help="non-finite gradient policy (HVDTPU_NANCHECK)")
@@ -170,8 +185,8 @@ def parse_args(argv: List[str] = None) -> argparse.Namespace:
                         "(HVDTPU_GRADSTATS=0)")
     p.add_argument("--metrics-port", type=int, default=None,
                    help="base port of the live-metrics endpoints "
-                        "(HVDTPU_METRICS_PORT); refused until observability "
-                        "is ported")
+                        "(HVDTPU_METRICS_PORT): rank r serves on BASE + r, "
+                        "the launcher's aggregate on BASE + np")
     p.add_argument("--metrics-interval", type=float, default=None,
                    help="driver scrape period in seconds "
                         "(HVDTPU_METRICS_INTERVAL)")
@@ -286,7 +301,8 @@ Available Tensor Operations:
     {mark(True)} join (process mode)
     {mark(True)} compressed allreduce (maxmin/norm/topk + error feedback)
     {mark(True)} elastic training (hvd.elastic.run, TorchState)
-    {mark(False)} live metrics (observability, ROADMAP A9)"""
+    {mark(True)} live metrics, traces, profiles, post-mortem \
+(observability)"""
 
 
 def _install_config_file_defaults(path: str, parser) -> None:
@@ -323,28 +339,9 @@ def _ensure_job_secret(args) -> str:
     return args._job_secret
 
 
-def _refuse_observability(args) -> None:
-    """SystemExit naming the flag when the job asks for work of the
-    observability modules, which are not ported yet."""
-    asked = [flag for dest, flag in OBSERVABILITY_FLAGS
-             if getattr(args, dest)]
-    metrics = args.metrics_port if args.metrics_port is not None else \
-        ev.get_int(ev.HVDTPU_METRICS_PORT, 0)
-    if metrics:
-        asked.insert(0, "--metrics-port" if args.metrics_port is not None
-                     else f"{ev.HVDTPU_METRICS_PORT}={metrics}")
-    if asked:
-        raise SystemExit(
-            f"{PROG}: not available yet: {', '.join(asked)}. The work "
-            "asked for is the observability modules' (metrics endpoints, "
-            "flight recorder, tracing, profiler), which horovod_tpu_torch "
-            "does not have yet: ROADMAP A9, observability")
-
-
 def _apply_tuning_env(env: dict, args) -> dict:
     """The runtime's knobs, as the JAX launcher forwards them (flags that
     were not given leave a user-exported variable alone)."""
-    _refuse_observability(args)
     env[ev.HVDTPU_SECRET] = _ensure_job_secret(args)
     env[ev.HVDTPU_CYCLE_TIME] = str(args.cycle_time_ms)
     env[ev.HVDTPU_FUSION_THRESHOLD] = str(
@@ -385,6 +382,8 @@ def _apply_tuning_env(env: dict, args) -> dict:
         env[ev.HVDTPU_COMPRESSION] = args.compression
     at_least_zero("--compression-min-bytes", args.compression_min_bytes,
                   ev.HVDTPU_COMPRESSION_MIN_BYTES)
+    at_least_zero("--metrics-port", args.metrics_port,
+                  ev.HVDTPU_METRICS_PORT)
     if args.metrics_interval is not None:
         env[ev.HVDTPU_METRICS_INTERVAL] = str(args.metrics_interval)
     if args.timeline:
@@ -393,18 +392,47 @@ def _apply_tuning_env(env: dict, args) -> dict:
         env[ev.HVDTPU_TIMELINE] = args.timeline
     if args.timeline_mark_cycles:
         env[ev.HVDTPU_TIMELINE_MARK_CYCLES] = "1"
+    # Workers name their own files (trace.<rank>.json and so on): an
+    # elastic round gives them new ranks.
+    if args.trace:
+        _prepare_artifact_dir(args.trace, "trace.*.json",
+                              "merged_trace.json")
+        env[ev.HVDTPU_TRACE] = args.trace
+    # Absolute: a worker that changes directory dumps where the launcher
+    # looks.
+    if args.postmortem:
+        args.postmortem = os.path.abspath(args.postmortem)
+        _prepare_artifact_dir(args.postmortem, "flightrec.*.bin",
+                              "merged_postmortem.json")
+        env[ev.HVDTPU_FLIGHTREC_DIR] = args.postmortem
     at_least_zero("--trace-sample", args.trace_sample,
                   ev.HVDTPU_TRACE_SAMPLE)
     if args.no_perfstats:
         env[ev.HVDTPU_PERFSTATS] = "0"
     at_least_zero("--perf-slowdown-pct", args.perf_slowdown_pct,
                   ev.HVDTPU_PERF_SLOWDOWN_PCT)
+    if args.perf_profile:
+        args.perf_profile = os.path.abspath(args.perf_profile)
+        _prepare_artifact_dir(args.perf_profile, "perf_profile.*.json",
+                              "perf_profile.json")
+        env[ev.HVDTPU_PERF_PROFILE_DIR] = args.perf_profile
     if args.no_gradstats:
         env[ev.HVDTPU_GRADSTATS] = "0"
     if args.nancheck is not None:
         env[ev.HVDTPU_NANCHECK] = args.nancheck
     at_least_zero("--gradcheck-sample", args.gradcheck_sample,
                   ev.HVDTPU_GRADCHECK_SAMPLE)
+    if args.grad_profile:
+        args.grad_profile = os.path.abspath(args.grad_profile)
+        _prepare_artifact_dir(args.grad_profile, "grad_profile.*.json",
+                              "grad_profile.json")
+        env[ev.HVDTPU_GRAD_PROFILE_DIR] = args.grad_profile
+    if args.profile:
+        args.profile = os.path.abspath(args.profile)
+        _prepare_artifact_dir(args.profile, "prof.*.folded",
+                              "profile_merged.folded",
+                              "profile.speedscope.json")
+        env[ev.HVDTPU_PROF_DIR] = args.profile
     if args.prof_hz is not None:
         if not 1 <= args.prof_hz <= ev.MAX_PROF_HZ:
             raise SystemExit(f"hvdrun: --prof-hz must be 1..{ev.MAX_PROF_HZ}")
@@ -439,6 +467,29 @@ def _apply_tuning_env(env: dict, args) -> dict:
             if value is not None:
                 env[name] = str(value)
     return env
+
+
+def _prepare_artifact_dir(path: str, stale_glob: str,
+                          *merged_names: str) -> None:
+    """Create a run's artifact directory and remove an earlier run's
+    per-rank files and merged outputs from it: left there, they would be
+    merged with this run's."""
+    import glob
+    os.makedirs(path, exist_ok=True)
+    stale = glob.glob(os.path.join(path, stale_glob))
+    stale.extend(os.path.join(path, name) for name in merged_names)
+    for old in stale:
+        try:
+            os.unlink(old)
+        except OSError:
+            pass
+
+
+def _metrics_base(args) -> int:
+    """The metrics endpoints' base port: the flag, else an exported
+    ``HVDTPU_METRICS_PORT``; 0 is none."""
+    return args.metrics_port if args.metrics_port is not None else \
+        ev.get_int(ev.HVDTPU_METRICS_PORT, 0)
 
 
 def _build_env(slot: hosts_mod.SlotInfo, args, controller_host: str,
@@ -498,6 +549,22 @@ def run_elastic_launcher(args: argparse.Namespace) -> int:
     environment carries the knobs and the elastic timeout."""
     from .elastic import ElasticSettings, HostDiscoveryScript, run_elastic
 
+    metrics_base = _metrics_base(args)
+    if args.top:
+        # A round may move ranks between hosts: a fixed table of
+        # endpoints would watch the wrong workers.
+        raise SystemExit(
+            "hvdrun: --top is not supported with elastic jobs yet — run "
+            "scripts/hvdtop.py --endpoints ... against the current world "
+            "(rank r serves on metrics-port + r on its host)")
+    if args.debugz:
+        if metrics_base <= 0:
+            raise SystemExit("hvdrun: --debugz requires --metrics-port (the "
+                             "/debugz endpoint rides each worker's metrics "
+                             "server)")
+        print(f"hvdrun: debugz: rank r serves "
+              f"http://<its-host>:{metrics_base}+r/debugz "
+              "(flight-recorder live view)", file=sys.stderr)
     _resolve_chaos(args, args.min_np or args.num_proc)
     settings = ElasticSettings(
         min_np=args.min_np or args.num_proc,
@@ -509,8 +576,14 @@ def run_elastic_launcher(args: argparse.Namespace) -> int:
                                     slots=args.slots)
     env = _apply_tuning_env(dict(os.environ), args)
     env[ev.HVDTPU_ELASTIC_TIMEOUT] = str(args.elastic_timeout)
-    return run_elastic(discovery, settings, list(args.command), env,
-                       verbose=args.verbose)
+    rc = run_elastic(discovery, settings, list(args.command), env,
+                     verbose=args.verbose, metrics_base=metrics_base or None)
+    # The last round's files win for each rank: the trace of the final
+    # world.
+    _merge_artifacts(args)
+    if args.postmortem and rc != 0:
+        _postmortem_report(args.postmortem)
+    return rc
 
 
 def _preflight_spawn(args):
@@ -532,11 +605,8 @@ def _preflight_spawn(args):
 
 def run_launcher(args: argparse.Namespace) -> int:
     """Run the job ``args`` describes; its exit code."""
-    _refuse_observability(args)
     if args.host_discovery_script:
         return run_elastic_launcher(args)
-    if args.top_once and not args.top:
-        raise SystemExit("hvdrun: --top-once only makes sense with --top")
     _resolve_chaos(args, args.num_proc)
     host_list = (hosts_mod.parse_hostfile(args.hostfile) if args.hostfile
                  else hosts_mod.parse_hosts(args.hosts or
@@ -566,6 +636,8 @@ def run_launcher(args: argparse.Namespace) -> int:
                            secret=_ensure_job_secret(args),
                            listen_host=slots[0].hostname)
 
+    aggregator, console = _start_metrics(args, slots, hostnames)
+
     commands, envs, names, stdins = [], [], [], []
     for slot in slots:
         env = _build_env(slot, args, controller_host, controller_port)
@@ -588,8 +660,200 @@ def run_launcher(args: argparse.Namespace) -> int:
         if args.verbose:
             print(f"hvdrun: {names[-1]}: {' '.join(commands[-1])}",
                   file=sys.stderr)
-    return safe_exec.run_workers(commands, envs, names, verbose=args.verbose,
-                                 stdin_datas=stdins)
+    if aggregator is not None:
+        aggregator.start()
+    if console is not None:
+        console.start()
+    try:
+        rc = safe_exec.run_workers(commands, envs, names,
+                                   verbose=args.verbose, stdin_datas=stdins)
+    finally:
+        if console is not None:
+            console.stop()
+        if aggregator is not None:
+            aggregator.stop()
+    _merge_artifacts(args)
+    if args.postmortem and rc != 0:
+        # Only the ranks of this host left their dumps here: a remote
+        # rank's missing dump reads as uncollected, not as a death.
+        _postmortem_report(args.postmortem,
+                           local_ranks={s.rank for s in slots
+                                        if safe_exec.is_local_host(
+                                            s.hostname)})
+    return rc
+
+
+def _start_metrics(args, slots, hostnames):
+    """A static job's metrics endpoints (JAX ``launch.py:425-492``):
+    check the flags that need them, preflight the ports of this host's
+    ranks and of the aggregator (BASE + np), print the URLs, and build
+    the aggregator and, with ``--top``, the console (not started).
+    ``(None, None)`` without a base port."""
+    base = _metrics_base(args)
+    if args.debugz and base <= 0:
+        raise SystemExit("hvdrun: --debugz requires --metrics-port (the "
+                         "/debugz endpoint rides each worker's metrics "
+                         "server)")
+    if args.top and base <= 0:
+        raise SystemExit("hvdrun: --top requires --metrics-port (the "
+                         "console scrapes each worker's /metrics + /perfz "
+                         "endpoints)")
+    if args.top_once and not args.top:
+        raise SystemExit("hvdrun: --top-once only makes sense with --top")
+    if base <= 0:
+        return None, None
+    from .metrics_agg import MetricsAggregator
+    from .preflight import check_metrics_ports, local_addr
+    agg_port = base + args.num_proc
+    check_metrics_ports(hostnames, base, aggregator_port=agg_port)
+    endpoints = {s.rank: (s.hostname, base + s.rank) for s in slots}
+    for s in slots:
+        print(f"hvdrun: metrics: rank {s.rank} -> "
+              f"http://{s.hostname}:{base + s.rank}/metrics",
+              file=sys.stderr)
+    if args.debugz:
+        for s in slots:
+            print(f"hvdrun: debugz: rank {s.rank} -> "
+                  f"http://{s.hostname}:{base + s.rank}/debugz",
+                  file=sys.stderr)
+    print(f"hvdrun: metrics: world -> http://{local_addr()}:{agg_port}"
+          "/metrics (aggregated)", file=sys.stderr)
+    interval = (args.metrics_interval if args.metrics_interval is not None
+                else ev.get_float(ev.HVDTPU_METRICS_INTERVAL, 10.0))
+    secret = _ensure_job_secret(args)
+    # With the console on, the aggregator serves but does not print: two
+    # writers on stderr would garble each other.
+    aggregator = MetricsAggregator(endpoints, port=agg_port, secret=secret,
+                                   interval_s=interval,
+                                   print_summary=not args.top)
+    console = None
+    if args.top:
+        from .hvdtop import TopConsole
+        console = TopConsole(endpoints, secret=secret,
+                             interval_s=min(interval, 2.0),
+                             once=args.top_once)
+    return aggregator, console
+
+
+def _merge_artifacts(args) -> None:
+    """The end of the job: merge the per-rank traces, perf and gradient
+    profiles and folded stacks the ranks of this host wrote."""
+    if args.trace:
+        _merge_trace_dir(args.trace)
+    if args.perf_profile:
+        _merge_profile_dir(args.perf_profile, "perf")
+    if args.grad_profile:
+        _merge_profile_dir(args.grad_profile, "grad")
+    if args.profile:
+        _merge_prof_dir(args.profile)
+
+
+def _merge_trace_dir(trace_dir: str) -> None:
+    """Merge ``trace.<rank>.json`` into one clock-aligned
+    ``merged_trace.json`` and print the critical-path and straggler
+    report. Never fails the job: a remote rank's file is on its own
+    host."""
+    try:
+        import json
+
+        from ..trace_analysis import (build_report, format_report,
+                                      load_trace_dir, merge_events)
+        per_rank = load_trace_dir(trace_dir)
+        if not per_rank:
+            print(f"hvdrun: trace: no per-rank traces in {trace_dir} "
+                  "(remote workers keep theirs on their own hosts; copy "
+                  "them here and run python -m "
+                  "horovod_tpu_torch.trace_analysis)", file=sys.stderr)
+            return
+        merged, _ = merge_events(per_rank)
+        merged_path = os.path.join(trace_dir, "merged_trace.json")
+        with open(merged_path, "w") as f:
+            json.dump(merged, f)
+        print(format_report(build_report(trace_dir, per_rank=per_rank)),
+              file=sys.stderr)
+        print(f"hvdrun: trace: merged {len(per_rank)} rank trace(s) -> "
+              f"{merged_path} (load in https://ui.perfetto.dev)",
+              file=sys.stderr)
+    except Exception as exc:  # observability never fails the job
+        print(f"hvdrun: trace: merge failed: {exc}", file=sys.stderr)
+
+
+def _merge_profile_dir(profile_dir: str, kind: str) -> None:
+    """Merge ``<kind>_profile.<rank>.json`` (``kind`` perf or grad) into
+    ``<kind>_profile.json``, which ``python -m horovod_tpu_torch.
+    perfstats`` (or ``gradstats``) compares across runs. Never fails the
+    job."""
+    name = f"{kind}_profile"
+    try:
+        import json
+
+        from .. import gradstats, perfstats
+        mod = perfstats if kind == "perf" else gradstats
+        merged, found = mod.merge_profile_dir(profile_dir)
+        if not found:
+            print(f"hvdrun: {kind}-profile: no {name}.<rank>.json in "
+                  f"{profile_dir} (remote workers keep theirs on their own "
+                  "hosts)", file=sys.stderr)
+            return
+        merged_path = os.path.join(profile_dir, f"{name}.json")
+        with open(merged_path, "w") as f:
+            json.dump(merged, f)
+        print(f"hvdrun: {kind}-profile: merged {len(found)} rank "
+              f"profile(s) -> {merged_path} (compare runs with python -m "
+              f"{mod.__name__} OLD NEW)", file=sys.stderr)
+    except Exception as exc:  # observability never fails the job
+        print(f"hvdrun: {kind}-profile: merge failed: {exc}",
+              file=sys.stderr)
+
+
+def _merge_prof_dir(prof_dir: str) -> None:
+    """Merge ``prof.<rank>.folded`` into the rank-prefixed
+    ``profile_merged.folded`` and ``profile.speedscope.json``, and print
+    the per-phase table. Never fails the job."""
+    try:
+        import json
+
+        from ..profiler import (format_report, load_folded_dir, merge_ranks,
+                                to_speedscope)
+        per_rank = load_folded_dir(prof_dir)
+        if not per_rank:
+            print(f"hvdrun: profile: no prof.<rank>.folded in {prof_dir} "
+                  "(remote workers keep theirs on their own hosts)",
+                  file=sys.stderr)
+            return
+        merged_path = os.path.join(prof_dir, "profile_merged.folded")
+        with open(merged_path, "w") as f:
+            f.write("\n".join(merge_ranks(per_rank)) + "\n")
+        speed_path = os.path.join(prof_dir, "profile.speedscope.json")
+        with open(speed_path, "w") as f:
+            json.dump(to_speedscope(per_rank), f)
+        print(format_report(per_rank), file=sys.stderr)
+        print(f"hvdrun: profile: merged {len(per_rank)} rank profile(s) -> "
+              f"{merged_path} and {speed_path}", file=sys.stderr)
+    except Exception as exc:  # observability never fails the job
+        print(f"hvdrun: profile: merge failed: {exc}", file=sys.stderr)
+
+
+def _postmortem_report(dump_dir: str, local_ranks=None) -> None:
+    """Merge the flight-recorder dumps the ranks left when the job failed
+    into ``merged_postmortem.json`` and print the verdict: the rank that
+    died or hung, its last op, and what the others waited on. Never masks
+    the job's own exit."""
+    try:
+        from ..postmortem import format_verdict, run_postmortem
+        verdict, merged_path = run_postmortem(dump_dir,
+                                              local_ranks=local_ranks)
+        print(format_verdict(verdict), file=sys.stderr)
+        print(f"hvdrun: postmortem: merged trace -> {merged_path}",
+              file=sys.stderr)
+    except FileNotFoundError:
+        print(f"hvdrun: postmortem: no flightrec.<rank>.bin dumps in "
+              f"{dump_dir} (remote workers keep theirs on their own hosts; "
+              "copy them here and run python -m "
+              "horovod_tpu_torch.postmortem)", file=sys.stderr)
+    except Exception as exc:  # observability never fails the job
+        print(f"hvdrun: postmortem: analysis failed: {exc}",
+              file=sys.stderr)
 
 
 def _stop(signum, frame):

@@ -8,9 +8,10 @@ checks the two paths a worker will use: it reaches the launcher's
 key-value store (which also proves that ssh and the remote interpreter
 work), and, on every host but rank 0's, it opens a TCP connection to the
 controller's port, where rank 0's host listens with a throwaway socket.
-A failure names the host and the address it tried. The JAX module's
-``check_metrics_ports`` comes with the live-metrics endpoints
-(observability, ROADMAP A9).
+A failure names the host and the address it tried.
+:func:`check_metrics_ports` (JAX :162) proves, before the workers start,
+that the live-metrics ports of this host's ranks and of the launcher's
+aggregator can be bound.
 
     python -m horovod_tpu_torch.runner.preflight   # one probe, from env
 """
@@ -158,6 +159,38 @@ def probe_main() -> int:
     if ev.get_required(ev.HVDTPU_PREFLIGHT_ROLE) == "listen":
         return _listen(client, host, int(ctrl_port), deadline)
     return _connect(client, host, ctrl_host, int(ctrl_port), deadline)
+
+
+def check_metrics_ports(hostnames: List[str], base_port: int,
+                        aggregator_port: Optional[int] = None) -> None:
+    """Bind each port the job's metrics endpoints will take on this host:
+    rank r's ``base_port + r`` for the ranks of this host (a remote rank's
+    port fails in its own ``init``, naming it) and the launcher's
+    ``aggregator_port``. RuntimeError naming every busy port."""
+    from .safe_exec import is_local_host
+
+    failures = []
+    probes = [(host, base_port + rank, f"rank {rank}")
+              for rank, host in enumerate(hostnames)
+              if is_local_host(host)]
+    if aggregator_port is not None:
+        probes.append(("localhost", aggregator_port, "driver aggregator"))
+    for host, port, who in probes:
+        s = socket.socket()
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("", port))
+        except OSError as e:
+            failures.append(f"  {who}: port {port} on {host}: {e}")
+        finally:
+            s.close()
+    if failures:
+        raise RuntimeError(
+            "metrics-port preflight failed (HVDTPU_METRICS_PORT / "
+            "--metrics-port assigns base+rank per worker):\n" +
+            "\n".join(failures) +
+            "\nPick a base port with world_size+1 free ports above it, "
+            "or set it to 0 to disable the live-metrics endpoints.")
 
 
 def check_connectivity(hostnames: List[str], controller_host: str,

@@ -82,6 +82,12 @@ class _RuntimeState:
         default_factory=dict)
     mode: str = "spmd"
     core: object = None  # basics.NativeCore in process mode
+    # This rank's observability.MetricsServer (process mode,
+    # HVDTPU_METRICS_PORT > 0).
+    metrics_server: object = None
+    # The SPMD timeline: a running torch.profiler.profile and its file.
+    timeline: object = None
+    timeline_path: str = ""
     # Grows by one at every init: what was built against one world (an
     # optimizer's layout check) can tell that the world was made anew.
     epoch: int = 0
@@ -275,6 +281,56 @@ def _start_core(st: _RuntimeState, controller=(None, None)) -> None:
         _failure_detected_at = None
 
 
+def _start_metrics_server(st: _RuntimeState) -> None:
+    """Rank r's live endpoints on ``HVDTPU_METRICS_PORT`` + r (0: none;
+    JAX ``runtime.py:419-489``): ``/metrics`` and ``/healthz``, with
+    ``/debugz`` (the flight recorder's live view), ``/perfz`` (the perf
+    baselines), ``/gradz`` (the gradient statistics) and ``/profz`` (the
+    sampling profiler: ``?start``, ``?stop``, or the folded stacks), each
+    behind the job's secret. A port that cannot be bound shuts the core
+    down, so no half-joined rank lingers, and raises naming the knob."""
+    base = ev.get_int(ev.HVDTPU_METRICS_PORT, 0)
+    if base <= 0:
+        return
+    from .flightrec import debugz_json
+    from .observability import MetricsServer
+    core = st.core
+    port = base + st.rank
+
+    def snapshot_or(fn, empty: str) -> str:
+        snap = fn()
+        return snap.decode() if snap else empty
+
+    def profz(query):
+        if query == "start":
+            core.profiler_start()
+            return '{"profiler": "started"}'
+        if query == "stop":
+            core.profiler_stop()
+            return '{"profiler": "stopped"}'
+        return snapshot_or(core.profiler_snapshot,
+                           '{"version": 1, "enabled": false, '
+                           '"stacks": []}')
+
+    disabled = '{"version": 1, "enabled": false, "keys": []}'
+    try:
+        st.metrics_server = MetricsServer(
+            dump_fn=core.metrics_dump, port=port,
+            secret=ev.get_str(ev.HVDTPU_SECRET) or None,
+            health={"rank": st.rank, "size": st.size},
+            debugz_fn=lambda: debugz_json(core.flightrec_snapshot()),
+            perfz_fn=lambda: snapshot_or(core.perfstats_snapshot, disabled),
+            gradz_fn=lambda: snapshot_or(core.gradstats_snapshot, disabled),
+            profz_fn=profz)
+    except OSError as exc:
+        core.shutdown()
+        raise NotInitializedError(
+            f"cannot bind the metrics endpoint on port {port} "
+            f"({ev.HVDTPU_METRICS_PORT}={base} + rank {st.rank}): "
+            f"{exc}") from exc
+    st.metrics_server.start()
+
+
 def init(device: Union[str, torch.device, None] = None, mesh_shape=None,
          axis_names: Sequence[str] = (DP_AXIS,), dp_axis: str = DP_AXIS,
          mode: Optional[str] = None) -> None:
@@ -367,6 +423,7 @@ def init(device: Union[str, torch.device, None] = None, mesh_shape=None,
                 "allgather", "hvd.init.local_size",
                 torch.tensor([st.local_size], dtype=torch.int64))
             st.homogeneous = bool((sizes == st.local_size).all())
+            _start_metrics_server(st)
             log.debug("init: process mode rank %d/%d on %s", st.rank,
                       st.size, st.device)
             st.initialized = True
@@ -399,6 +456,10 @@ def shutdown() -> None:
     with _lock:
         if not _state.initialized:
             return
+        if _state.timeline is not None:
+            _state.timeline.stop()
+        if _state.metrics_server is not None:
+            _state.metrics_server.stop()
         if _state.core is not None:
             _state.core.shutdown()
         else:
@@ -518,6 +579,234 @@ def group(axis=None):
         raise ValueError(f"axis {axis!r} does not name axes of the mesh "
                          f"{st.mesh_shape} once each")
     return st.groups[tuple(a for a in st.axis_names if a in names)]
+
+
+# ---------------------------------------------------------------------------
+# observability (JAX runtime.py:620-860)
+# ---------------------------------------------------------------------------
+
+def metrics_dump() -> str:
+    """This rank's live metrics as Prometheus text, the text its
+    ``/metrics`` endpoint serves (process mode; ``""`` in SPMD mode, which
+    has no native loop to instrument: use :func:`start_timeline`
+    there)."""
+    st = _require_init()
+    return st.core.metrics_dump() if st.core is not None else ""
+
+
+def metrics() -> dict:
+    """:func:`metrics_dump` parsed: ``{family: {"type", "help",
+    "samples": [(suffix, labels, value)]}}``; empty in SPMD mode."""
+    from .observability import parse_prometheus_text
+    text = metrics_dump()
+    return parse_prometheus_text(text) if text else {}
+
+
+def metrics_server():
+    """This rank's running :class:`~horovod_tpu_torch.observability.
+    MetricsServer` (process mode with ``HVDTPU_METRICS_PORT`` > 0), else
+    None."""
+    return _require_init().metrics_server
+
+
+def debugz(last_n: int = 50) -> dict:
+    """The flight recorder's live view: the op in flight, the last wire
+    hop and the last ``last_n`` events, as ``/debugz`` serves them;
+    ``{"flightrec": "disabled"}`` outside process mode."""
+    from .flightrec import debugz_dict
+    st = _require_init()
+    if st.core is None:
+        return {"flightrec": "disabled"}
+    return debugz_dict(st.core.flightrec_snapshot(), last_n=last_n)
+
+
+def _report(snap: bytes, mod, parsed: bool):
+    """A snapshot of the core parsed by ``mod`` (:mod:`.perfstats` or
+    :mod:`.gradstats`), or its table; None when there is none."""
+    if not snap:
+        return None
+    doc = mod.parse_snapshot(snap)
+    return doc if parsed else mod.format_report(doc)
+
+
+def perf_report(parsed: bool = True):
+    """The perf baselines of this rank (EWMA and p50/p99 of each key's
+    op time and its wait/wire/reduce/codec phases, and the anomaly
+    counts), as ``/perfz`` serves them; ``parsed=False`` gives the table
+    of :func:`horovod_tpu_torch.perfstats.format_report`.
+    ``{"perfstats": "disabled"}`` outside process mode."""
+    from . import perfstats
+    st = _require_init()
+    out = _report(st.core.perfstats_snapshot() if st.core else b"",
+                  perfstats, parsed)
+    return {"perfstats": "disabled"} if out is None else out
+
+
+def grad_report(parsed: bool = True):
+    """The gradient statistics of this rank (norms, absmax and non-finite
+    counts per tensor, quantization MSE/SNR and residual norms per key,
+    the divergence totals), as ``/gradz`` serves them; ``parsed=False``
+    gives the table of :func:`horovod_tpu_torch.gradstats.format_report`.
+    ``{"gradstats": "disabled"}`` outside process mode."""
+    from . import gradstats
+    st = _require_init()
+    out = _report(st.core.gradstats_snapshot() if st.core else b"",
+                  gradstats, parsed)
+    return {"gradstats": "disabled"} if out is None else out
+
+
+def flightrec_dump(path: Optional[str] = None) -> bool:
+    """Write the flight recorder's ring to ``path`` (None: the configured
+    ``HVDTPU_FLIGHTREC_DIR/flightrec.<rank>.bin``); read it with
+    ``python -m horovod_tpu_torch.postmortem``. False when the recorder is
+    off, no destination is known, or outside process mode."""
+    st = _require_init()
+    return st.core.flightrec_dump(path) if st.core is not None else False
+
+
+def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
+    """Start a Chrome-trace timeline (reference: ``hvd.start_timeline``,
+    ``operations.cc:735``).
+
+    Process mode: the core's timeline of every op's negotiation, queue and
+    activity phases, written to ``file_path``. SPMD mode, whose
+    collectives are NCCL calls on the device's stream: ``torch.profiler``
+    over the host and, on a CUDA device, the device, so the trace holds
+    every kernel and NCCL call under its own name. It is written at
+    :func:`stop_timeline` to ``<file_path>.<rank>.pt.trace.json``. A
+    profiler that cannot trace CUDA on a CUDA device raises here."""
+    st = _require_init()
+    if st.core is not None:
+        st.core.start_timeline(file_path, mark_cycles)
+        return
+    if st.timeline is not None:
+        raise RuntimeError(f"a timeline is already running "
+                           f"({st.timeline_path})")
+    from torch.profiler import ProfilerActivity, profile, \
+        supported_activities
+    activities = [ProfilerActivity.CPU]
+    if st.device.type == "cuda":
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError(
+                "start_timeline: this torch.profiler cannot trace CUDA "
+                "(no CUPTI), so the timeline would hold no device event")
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    st.timeline = prof
+    st.timeline_path = f"{file_path}.{st.rank}.pt.trace.json"
+
+
+def stop_timeline() -> Optional[str]:
+    """Stop the timeline of :func:`start_timeline` (reference:
+    ``horovod_stop_timeline``, ``operations.cc:780``). In SPMD mode, write
+    the trace and return its path; a CUDA timeline whose window ran
+    kernels the profiler did not see raises instead of writing a trace
+    of the host alone. None in process mode and when no timeline runs."""
+    st = _require_init()
+    if st.core is not None:
+        st.core.stop_timeline()
+        return None
+    prof, path = st.timeline, st.timeline_path
+    if prof is None:
+        return None
+    st.timeline, st.timeline_path = None, ""
+    if st.device.type == "cuda":
+        torch.cuda.synchronize(st.device)
+    prof.stop()
+    if st.device.type == "cuda" and not any(
+            e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events()):
+        raise RuntimeError(
+            "stop_timeline: torch.profiler recorded no device event on "
+            f"{st.device}; no host-only trace is written")
+    prof.export_chrome_trace(path)
+    return path
+
+
+def start_trace(file_path: str, sample: Optional[int] = None,
+                mark_cycles: bool = False) -> None:
+    """Start a distributed trace (process mode): a timeline whose per-hop
+    spans (send, receive, reduce, quantize, with the wait and the wire
+    apart) are sampled every ``sample`` ops (None: ``HVDTPU_TRACE_SAMPLE``,
+    default 10) and whose metadata holds this rank's clock offset to rank
+    0, for ``python -m horovod_tpu_torch.trace_analysis``. SPMD mode has
+    no per-hop spans: this is :func:`start_timeline` there."""
+    st = _require_init()
+    if st.core is not None:
+        st.core.start_trace(file_path, sample=sample,
+                            mark_cycles=mark_cycles)
+    else:
+        start_timeline(file_path, mark_cycles=mark_cycles)
+
+
+def stop_trace() -> Optional[str]:
+    """Stop the trace of :func:`start_trace` (SPMD mode: the path of the
+    trace written, as :func:`stop_timeline`)."""
+    st = _require_init()
+    if st.core is not None:
+        st.core.stop_trace()
+        return None
+    return stop_timeline()
+
+
+def prof_start() -> None:
+    """Open a window of the core's sampling profiler: its ``SIGPROF``
+    timers fire at ``HVDTPU_PROF_HZ`` and tag each sample with the
+    collective's phase and op. No-op outside process mode or with
+    ``HVDTPU_PROF=0``."""
+    st = _require_init()
+    if st.core is not None:
+        st.core.profiler_start()
+
+
+def prof_stop() -> None:
+    """Close the sampling window; :func:`prof_snapshot` reads its
+    samples."""
+    st = _require_init()
+    if st.core is not None:
+        st.core.profiler_stop()
+
+
+def prof_snapshot(parsed: bool = True):
+    """The folded stacks of the current or last window, as ``/profz``
+    serves them (``{phase, op, frames} -> count``); ``parsed=False`` gives
+    flamegraph.pl's folded lines. ``{"profiler": "disabled"}`` outside
+    process mode."""
+    from .profiler import parse_snapshot, to_folded_text
+    st = _require_init()
+    snap = st.core.profiler_snapshot() if st.core is not None else b""
+    if not snap:
+        return {"profiler": "disabled"}
+    doc = parse_snapshot(snap)
+    return doc if parsed else to_folded_text(doc)
+
+
+class profile:
+    """A sampling window over the body of a ``with``::
+
+        with hvd.profile() as prof:
+            train_some_steps()
+        print(horovod_tpu_torch.profiler.format_report(...))
+
+    On exit ``prof.result`` holds :func:`prof_snapshot`'s document;
+    ``path`` also writes flamegraph.pl's folded lines there."""
+
+    def __init__(self, path: Optional[str] = None):
+        self._path = path
+        self.result: Optional[dict] = None
+
+    def __enter__(self) -> "profile":
+        prof_start()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        prof_stop()
+        self.result = prof_snapshot()
+        if self._path and "stacks" in self.result:
+            from .profiler import to_folded_text
+            with open(self._path, "w") as f:
+                f.write(to_folded_text(self.result))
 
 
 def require_spmd(what: str) -> None:

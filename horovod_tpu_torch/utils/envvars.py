@@ -51,10 +51,8 @@ HVDTPU_PREFLIGHT_HOST = "HVDTPU_PREFLIGHT_HOST"
 HVDTPU_PREFLIGHT_ROLE = "HVDTPU_PREFLIGHT_ROLE"
 HVDTPU_PREFLIGHT_CONTROLLER = "HVDTPU_PREFLIGHT_CONTROLLER"
 HVDTPU_PREFLIGHT_TIMEOUT = "HVDTPU_PREFLIGHT_TIMEOUT"
-# The live-metrics endpoints' base port and the driver's scrape period
-# (:256-257). The launcher reads the port to refuse the endpoints, which
-# come with observability (ROADMAP A9), and forwards the period as the
-# JAX launcher does.
+# The live-metrics endpoints' base port (rank r serves on base + r) and
+# the launcher's scrape period (:256-257).
 HVDTPU_METRICS_PORT = "HVDTPU_METRICS_PORT"
 HVDTPU_METRICS_INTERVAL = "HVDTPU_METRICS_INTERVAL"
 

@@ -453,10 +453,8 @@ def test_tiled_dq_within_bound_of_jax(s, d, causal):
     """The same against the JAX package's ``flash_attention`` gradient
     (Pallas in interpret mode) on the same bf16 inputs, with the extra
     bf16 step of two sides that round on their own. The emulation takes
-    the plain ``lse`` and ``delta``: fed the tiled forward's instead, the
-    bf16 rounding of that forward's ``o`` enters ``delta``, which the dQ
-    term does not cover (at S 256, D 64, causal, 11 elements of query 3
-    reach 1.67 of the bound)."""
+    the plain ``lse`` and ``delta``; the chain below takes the tiled
+    forward's."""
     dq, _, term, want = _tiled_dq_case(s, d, causal)
     got = dq.float().reshape(1, 2, s, d).transpose(1, 2)
     term = term.reshape(1, 2, s, d).transpose(1, 2)
@@ -480,3 +478,64 @@ def test_tiled_dq_planted_error_fails_the_bound(causal):
     planted = dq.float().clone()
     planted[:, 3 * s // 4:] *= 1.02
     assert _beyond(planted, want, term) > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_dq_case(s: int, d: int, causal: bool):
+    """Forward then backward as the card runs them: the tiled forward's
+    ``o`` and ``lse``, ``delta`` from that bf16 ``o``, and the tiled dQ on
+    them; with the plain dQ and the dQ terms (``dq`` and ``dq_delta``,
+    computed on the plain side)."""
+    _, (q, k, v, w) = _tiled_inputs(s, d)
+    scale = 1.0 / d ** 0.5
+    o, lse = emulate_fwd_tiled(q, k, v, scale, causal)
+    delta = (w.float() * o.float()).sum(dim=-1)
+    dq = emulate_dq_tiled(q, k, v, w, lse, delta, scale, causal)
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, scale, causal)
+    delta_ref = (w.float() * o_ref.float()).sum(dim=-1)
+    dq_ref = flash.flash_dq_plain(q, k, v, w, lse_ref, delta_ref, scale,
+                                  causal)
+    terms = flash.mma_rounding_terms(q, k, v, w, lse_ref, delta_ref, scale,
+                                     causal)
+    return dq, dq_ref, terms["dq"], terms["dq_delta"]
+
+
+def _to_bshd(x: torch.Tensor, s: int, d: int) -> torch.Tensor:
+    return x.float().reshape(1, 2, s, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("s", [200, 256])
+def test_tiled_chain_dq_within_bound_of_jax(s, d, causal):
+    """The chain's dQ against the JAX package's gradient (its own forward,
+    its own ``delta``), within the dQ bound plus ``dq_delta``, the term
+    that the bf16 rounding of ``o`` adds through ``delta``."""
+    dq, _, term, term_delta = _chain_dq_case(s, d, causal)
+    want = _tiled_dq_case(s, d, causal)[3]
+    assert _beyond(_to_bshd(dq, s, d), want,
+                   _to_bshd(term + term_delta, s, d), extra_step=True) == 0
+
+
+def test_chain_needs_the_delta_term():
+    """Without ``dq_delta`` the chain misses the bound: at S 256, D 64,
+    causal, elements of query 3 reach 1.67 of it."""
+    s, d = 256, 64
+    dq, _, term, _ = _chain_dq_case(s, d, True)
+    want = _tiled_dq_case(s, d, True)[3]
+    assert _beyond(_to_bshd(dq, s, d), want, _to_bshd(term, s, d),
+                   extra_step=True) > 0
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+def test_tiled_chain_dq_planted_error_fails_the_bound(causal):
+    """At S 1024, D 64 the chain's dQ stays within the bound with
+    ``dq_delta``, and the same dQ made 2% larger in its last quarter of
+    queries does not."""
+    s = 1024
+    dq, dq_ref, term, term_delta = _chain_dq_case(s, 64, causal)
+    assert _beyond(dq, dq_ref, term + term_delta) == 0
+    planted = dq.float().clone()
+    planted[:, 3 * s // 4:] *= 1.02
+    assert _beyond(planted, dq_ref, term + term_delta) > 0
+

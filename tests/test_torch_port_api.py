@@ -29,7 +29,14 @@ drawn from a seed with numpy:
   numpy definition (the functions are linear: within 1e-9);
 * ``broadcast_object``/``allgather_object`` round trips, ``callbacks``
   against the JAX package's schedules (within 1e-6 relative: JAX computes
-  in float32), ``average_metrics``, ``is_homogeneous`` and the build flags.
+  in float32), ``average_metrics``, ``is_homogeneous`` and the build flags;
+* the in-place ops (``allreduce_``, ``allreduce_async_``,
+  ``broadcast_async_``) and ``DistributedGradientTape`` against the JAX
+  package's torch frontend (``horovod_tpu.torch``) and its tape, which a
+  process-mode world of 2 of the JAX package runs on the same inputs
+  beside the port's (``--jax-worker``); within the sum bound above;
+* every name of ``tests/test_api_surface.py``'s ``TOP_LEVEL`` and
+  ``TORCH`` on ``import horovod_tpu_torch``.
 """
 
 import os
@@ -244,6 +251,43 @@ def _to_numpy(out):
         out.dtype == torch.float16 else out.numpy()
 
 
+def _frontend_cases(hvd, tape, rank):
+    """The in-place ops and the tape in either package's torch surface
+    (``tape`` wraps a function that returns gradients); the results as
+    numpy, and whether each in-place op returned its own tensor."""
+    a = _t(_x("inplace", rank, (5, 3)))
+    got_a = hvd.allreduce_(a, op=hvd.Average)
+    b = _t(_x("inplace-async", rank, (4, 2)))
+    got_b = hvd.synchronize(hvd.allreduce_async_(b, op=hvd.Sum))
+    c = _t(_x("inplace-bcast", rank, (6,)))
+    got_c = hvd.synchronize(hvd.broadcast_async_(c, 1))
+    grads = [_x("tape0", rank, (3, 2)), _x("tape1", rank, (7,))]
+    value, reduced = tape(lambda: (float(rank), grads))()
+    return {"allreduce_": (np.array(a), got_a is a),
+            "allreduce_async_": (np.array(b), got_b is b),
+            "broadcast_async_": (np.array(c), got_c is c),
+            "tape": (value, [np.asarray(g, np.float32) for g in reduced])}
+
+
+def _jax_worker(out_dir):
+    """A rank of the JAX package's process-mode world of 2: its torch
+    frontend's in-place ops and its DistributedGradientTape."""
+    import horovod_tpu
+    import horovod_tpu.torch as jhvd
+    jhvd.init()
+    rank = jhvd.rank()
+    res = _frontend_cases(jhvd, horovod_tpu.DistributedGradientTape, rank)
+    jhvd.join()
+    jhvd.shutdown()
+    with open(os.path.join(out_dir, f"jax.{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def _port_tape(fn):
+    return thvd.DistributedGradientTape(
+        lambda: (lambda v, g: (v, [_t(x) for x in g]))(*fn()))
+
+
 def _worker(out_dir):
     thvd.init(device="cpu")
     n, rank = thvd.size(), thvd.rank()
@@ -292,6 +336,7 @@ def _worker(out_dir):
                              for s in STEPS],
             "schedule": [after(s) for s in STEPS],
             "schedule-smooth": [smooth(s) for s in STEPS]}
+        res["frontend"] = _frontend_cases(thvd, _port_tape, rank)
         res["homogeneous"] = thvd.is_homogeneous()
         res["gloo_enabled"] = thvd.gloo_enabled()
     finally:
@@ -324,7 +369,7 @@ def _handle_errors():
     return out
 
 
-def _start(n, out_dir):
+def _start(n, out_dir, flag="--worker"):
     """Spawn the n ranks of a world; they write into ``out_dir``."""
     from conftest import free_port, subprocess_env
     port = free_port()
@@ -337,7 +382,7 @@ def _start(n, out_dir):
                     "HVDTPU_CONTROLLER_ADDR": "127.0.0.1",
                     "HVDTPU_CONTROLLER_PORT": str(port)})
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--worker", out_dir],
+            [sys.executable, os.path.abspath(__file__), flag, out_dir],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     return procs
@@ -360,9 +405,11 @@ def worlds(tmp_path_factory):
     """{n: [each rank's results]}; the worlds run at the same time."""
     dirs = {n: str(tmp_path_factory.mktemp(f"torch_api_{n}")) for n in WORLDS}
     started = {n: _start(n, d) for n, d in dirs.items()}
+    started["jax"] = _start(2, dirs[2], "--jax-worker")
     for procs in started.values():
         _wait(procs)
-    out = {}
+    out = {"jax": [pickle.load(open(os.path.join(dirs[2], f"jax.{r}.pkl"),
+                                    "rb")) for r in range(2)]}
     for n, out_dir in dirs.items():
         out[n] = []
         for r in range(n):
@@ -646,5 +693,57 @@ def test_best_checkpoint_and_early_stopping(tmp_path):
         stop.on_epoch_end(3, {"loss": 1.0})
 
 
+@pytest.mark.parametrize("case", ["allreduce_", "allreduce_async_",
+                                  "broadcast_async_", "tape"])
+def test_inplace_ops_and_tape_match_the_jax_frontend(case, worlds):
+    """World 2: the port's in-place ops write the JAX frontend's results
+    into the tensor they were given, and return it; the tapes' reduced
+    gradients (Average) agree."""
+    for rank in range(2):
+        got = worlds[2][rank]["frontend"][case]
+        want = worlds["jax"][rank][case]
+        if case == "tape":
+            assert got[0] == want[0] == float(rank)
+            pairs = list(zip(got[1], want[1]))
+            leaves = [[_x(f"tape{k}", r, g.shape) for r in range(2)]
+                      for k, (g, _) in enumerate(pairs)]
+            op = "average"
+        else:
+            assert got[1] and want[1], case
+            pairs = [(got[0], want[0])]
+            op = {"allreduce_": "average", "allreduce_async_": "sum"}.get(
+                case)
+            name = {"allreduce_": "inplace", "allreduce_async_":
+                    "inplace-async"}.get(case)
+            leaves = [[_x(name, r, got[0].shape) for r in range(2)]] \
+                if op else [None]
+        for (g, w), ins in zip(pairs, leaves):
+            assert g.shape == w.shape, case
+            if op is None:  # a broadcast moves bits
+                np.testing.assert_array_equal(g, w, err_msg=case)
+                continue
+            tol = _sum_tolerance(op, 2, ins)
+            assert (np.abs(g.astype(np.float64) - w) <= tol).all(), case
+
+
+def test_surface_has_every_reference_name():
+    """``import horovod_tpu_torch`` has every name a Horovod user reaches
+    for: ``TOP_LEVEL`` and ``TORCH`` of ``tests/test_api_surface.py``."""
+    import ast
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "test_api_surface.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    lists = {node.targets[0].id: ast.literal_eval(node.value)
+             for node in tree.body if isinstance(node, ast.Assign) and
+             getattr(node.targets[0], "id", "") in ("TOP_LEVEL", "TORCH")}
+    assert set(lists) == {"TOP_LEVEL", "TORCH"}
+    for which, names in lists.items():
+        missing = [n for n in names if not hasattr(thvd, n)]
+        assert not missing, (which, missing)
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
     _worker(sys.argv[2])
+if __name__ == "__main__" and sys.argv[1:2] == ["--jax-worker"]:
+    _jax_worker(sys.argv[2])

@@ -16,8 +16,9 @@
   (``localhost:2`` and ``127.0.0.1:1``), the worker of ``127.0.0.1`` dies
   before its step of batch 3, the survivors restore their commit and
   finish 8 batches as a world of 2. The same schedule runs once with the
-  port and once with ``horovod_tpu.torch`` under ``horovod_tpu.runner.
-  elastic``; the finishers' weights agree within rtol 1e-4, atol 1e-5
+  port's workers and once with ``horovod_tpu.torch``'s (its
+  ``TorchState``), both under the port's driver, which speaks the JAX
+  driver's wire; the finishers' weights agree within rtol 1e-4, atol 1e-5
   (``test_torch_port_process.py::test_training_matches_the_references``'
   tolerance), and each survivor's weights after every restore and sync
   are bitwise those it committed at that batch (batch 3 among them).
@@ -196,12 +197,12 @@ def _results(tmp_path):
     return path.read_text().splitlines() if path.exists() else []
 
 
-def _run_driver(pkg, script, settings, env, during=None):
-    """Run one elastic job to its end or to ``JOB_DEADLINE``; its exit
-    code, or the exception the driver raised. ``during(stop)`` runs in a
-    thread beside it (the scenario's changes of hosts) until the job
-    ends."""
-    e = _elastic(pkg)
+def _run_driver(script, settings, env, during=None):
+    """Run one elastic job under the port's driver to its end or to
+    ``JOB_DEADLINE``; its exit code, or the exception the driver raised.
+    ``during(stop)`` runs in a thread beside it (the scenario's changes of
+    hosts) until the job ends."""
+    e = _elastic("port")
     driver = e.ElasticDriver(e.HostDiscoveryScript(script), settings,
                              [sys.executable, HERE], env)
     stop = threading.Event()
@@ -211,22 +212,11 @@ def _run_driver(pkg, script, settings, env, during=None):
         side.start()
     try:
         driver.start()
-        if pkg == "port":
-            return driver.wait_for_completion(timeout=JOB_DEADLINE)
-        if not driver._result_event.wait(JOB_DEADLINE):
-            driver._result = "deadline"
-            driver._result_event.set()
-        return driver.wait_for_completion()
+        return driver.wait_for_completion(timeout=JOB_DEADLINE)
     except (TimeoutError, RuntimeError) as exc:
         return exc
     finally:
-        if pkg == "port":
-            driver.close()
-        else:
-            driver._shutdown.set()
-            for p in list(driver._procs.values()):
-                p.terminate()
-            driver._kv.stop()
+        driver.close()
         stop.set()
         if side:
             side.join()
@@ -235,7 +225,7 @@ def _run_driver(pkg, script, settings, env, during=None):
 def _job_static(tmp_path):
     script, _ = _discovery(tmp_path, "localhost:2\n")
     from horovod_tpu_torch.runner.elastic import ElasticSettings
-    return _run_driver("port", script, ElasticSettings(
+    return _run_driver(script, ElasticSettings(
         min_np=2, max_np=2, discovery_interval_s=0.3, elastic_timeout_s=60),
         _env(tmp_path, "counter", ELASTIC_TARGET_BATCHES="6"))
 
@@ -247,7 +237,7 @@ def _job_scale_up(tmp_path):
     def grow(stop):
         if not stop.wait(4):
             hosts_file.write_text("localhost:3\n")
-    return _run_driver("port", script, ElasticSettings(
+    return _run_driver(script, ElasticSettings(
         min_np=2, max_np=3, discovery_interval_s=0.3, elastic_timeout_s=60),
         _env(tmp_path, "counter", ELASTIC_TARGET_BATCHES="40",
              ELASTIC_BATCH_SLEEP="0.2"), grow)
@@ -256,7 +246,7 @@ def _job_scale_up(tmp_path):
 def _job_failure(tmp_path):
     script, _ = _discovery(tmp_path, "localhost:2\n127.0.0.1:2\n")
     from horovod_tpu_torch.runner.elastic import ElasticSettings
-    return _run_driver("port", script, ElasticSettings(
+    return _run_driver(script, ElasticSettings(
         min_np=2, max_np=2, discovery_interval_s=0.3, elastic_timeout_s=120),
         _env(tmp_path, "counter", ELASTIC_TARGET_BATCHES="30",
              ELASTIC_CRASH_AT="127.0.0.1:1:5",
@@ -270,7 +260,7 @@ def _job_scale_down(tmp_path):
     def shrink(stop):
         if not stop.wait(4):
             hosts_file.write_text("localhost:2\n")
-    return _run_driver("port", script, ElasticSettings(
+    return _run_driver(script, ElasticSettings(
         min_np=2, max_np=3, discovery_interval_s=0.3, elastic_timeout_s=60),
         _env(tmp_path, "counter", ELASTIC_TARGET_BATCHES="40",
              ELASTIC_BATCH_SLEEP="0.2"), shrink)
@@ -280,7 +270,7 @@ def _job_rendezvous_timeout(tmp_path):
     script, _ = _discovery(tmp_path, "localhost:1\n")
     from horovod_tpu_torch.runner.elastic import ElasticSettings
     t0 = time.time()
-    out = _run_driver("port", script, ElasticSettings(
+    out = _run_driver(script, ElasticSettings(
         min_np=3, max_np=3, discovery_interval_s=0.2, elastic_timeout_s=3),
         _env(tmp_path, "counter", ELASTIC_TARGET_BATCHES="4"))
     return out, time.time() - t0
@@ -295,17 +285,22 @@ def _job_reset_limit(tmp_path):
         while not stop.wait(1.0):
             n = 3 if n == 2 else 2
             hosts_file.write_text(f"localhost:{n}\n")
-    return _run_driver("port", script, ElasticSettings(
+    return _run_driver(script, ElasticSettings(
         min_np=1, max_np=3, discovery_interval_s=0.2, elastic_timeout_s=30,
         reset_limit=2), _env(tmp_path, "counter",
                              ELASTIC_TARGET_BATCHES="10000"), churn)
 
 
 def _job_torch(pkg, tmp_path):
+    """The MLP job with ``pkg``'s workers, under the port's driver: it
+    speaks the JAX driver's wire, and the JAX driver's own races (ROADMAP
+    C5, C6) failed the JAX leg under load (its workers then saw rounds
+    that the failure does not explain). ``tests/test_elastic.py`` covers
+    the JAX driver."""
     script, _ = _discovery(tmp_path, "localhost:2\n127.0.0.1:1\n")
-    settings = _elastic(pkg).ElasticSettings(
+    settings = _elastic("port").ElasticSettings(
         min_np=2, max_np=3, discovery_interval_s=0.3, elastic_timeout_s=120)
-    return _run_driver(pkg, script, settings, _env(
+    return _run_driver(script, settings, _env(
         tmp_path, f"torch_{pkg}", ELASTIC_OUT=str(tmp_path)))
 
 
@@ -390,19 +385,22 @@ def test_torch_state_recovery_matches_jax(jobs):
     finals = {}
     for pkg in ("port", "jax"):
         rc, d = jobs[f"torch_{pkg}"]
-        assert rc == 0, (pkg, _results(d))
+        leg = f"leg torch_{pkg}, {d / 'results.txt'}"
+        assert rc == 0, (leg, rc, _results(d))
         fin = _finishers(d)
-        assert sorted(fin) == ["localhost:0", "localhost:1"], (pkg, fin)
+        assert sorted(fin) == ["localhost:0", "localhost:1"], (leg, fin)
         for wid, res in fin.items():
-            assert (res["size"], res["batch"]) == (2, MLP_BATCHES), res
+            assert (res["size"], res["batch"]) == (2, MLP_BATCHES), \
+                (leg, wid, res["size"], res["batch"])
             # Every sync after a reset holds the weights of the commit it
             # went back to, the one of the failed batch among them.
             syncs = [(b, h) for b, h in res["restored"] if b > 0]
-            assert MLP_CRASH_AT in [b for b, _ in syncs], (pkg, wid, syncs)
-            assert all(h == res["committed"][b] for b, h in syncs), \
-                (pkg, wid)
+            why = (leg, wid, syncs, sorted(res["committed"]),
+                   res["resets"])
+            assert MLP_CRASH_AT in [b for b, _ in syncs], why
+            assert all(h == res["committed"].get(b) for b, h in syncs), why
         a, b = fin["localhost:0"]["weights"], fin["localhost:1"]["weights"]
-        assert all(np.array_equal(x, y) for x, y in zip(a, b)), pkg
+        assert all(np.array_equal(x, y) for x, y in zip(a, b)), leg
         finals[pkg] = a
     for got, want in zip(finals["port"], finals["jax"]):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
@@ -487,12 +485,23 @@ def _torch_worker(pkg: str) -> None:
     opt = hvd.DistributedOptimizer(
         torch.optim.SGD(model.parameters(), lr=MLP_LR, momentum=0.9),
         named_parameters=model.named_parameters())
-    committed, restored = {}, []
+    committed, restored, resets = {}, [], []
 
     class State(TorchState):
         def sync(self):
             super().sync()
             restored.append((self.batch, _digest(model)))
+
+        def restore(self):
+            super().restore()
+            resets.append(("restore", self.batch))
+
+        def check_host_updates(self):
+            try:
+                super().check_host_updates()
+            except Exception as exc:
+                resets.append((type(exc).__name__, self.batch))
+                raise
 
     state = State(model, opt, batch=0)
 
@@ -508,15 +517,17 @@ def _torch_worker(pkg: str) -> None:
             torch.nn.functional.mse_loss(model(x), y).backward()
             opt.step()
             state.batch += 1
-            state.commit()
+            # Before the commit, which may raise HostsUpdatedInterrupt
+            # after it has saved this state.
             committed[state.batch] = _digest(model)
+            state.commit()
         return hvd.size()
 
     size = train(state)
     with open(os.path.join(out, f"final.{wid}"), "wb") as f:
         pickle.dump({"size": size, "batch": state.batch,
                      "committed": committed,
-                     "restored": restored,
+                     "restored": restored, "resets": resets,
                      "weights": [p.detach().numpy().copy()
                                  for p in model.parameters()]}, f)
     hvd.join()

@@ -87,6 +87,15 @@ def test_import_pulls_in_no_jax():
             "import horovod_tpu_torch.elastic\n"
             "import horovod_tpu_torch.elastic.state\n"
             "import horovod_tpu_torch.elastic.torch_state\n"
+            "import horovod_tpu_torch.observability\n"
+            "import horovod_tpu_torch.flightrec\n"
+            "import horovod_tpu_torch.perfstats\n"
+            "import horovod_tpu_torch.gradstats\n"
+            "import horovod_tpu_torch.profiler\n"
+            "import horovod_tpu_torch.trace_analysis\n"
+            "import horovod_tpu_torch.postmortem\n"
+            "import horovod_tpu_torch.runner.metrics_agg\n"
+            "import horovod_tpu_torch.runner.hvdtop\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -118,7 +127,10 @@ def test_sources_import_no_jax(path):
                 "runner/elastic/discovery.py",
                 "runner/elastic/registration.py",
                 "runner/elastic/driver.py", "elastic/state.py",
-                "elastic/torch_state.py"} <= names, names
+                "elastic/torch_state.py", "observability.py",
+                "flightrec.py", "perfstats.py", "gradstats.py",
+                "profiler.py", "trace_analysis.py", "postmortem.py",
+                "runner/metrics_agg.py", "runner/hvdtop.py"} <= names, names
     for f in files:
         with open(f) as fh:
             tree = ast.parse(fh.read())

@@ -14,8 +14,9 @@ PUT, GET and DELETE, and a wrong secret refused with 403.
 
 The port alone: a static launch of a process-mode world of 2 on the CPU
 (an allreduce, exit 0), a failing rank's exit code, ``hvd.run(fn, np=2)``,
-the connectivity preflight's probes, ``--check-build``, and each flag
-whose work needs the observability modules refused with its message.
+the connectivity preflight's probes, ``--check-build``, and the
+observability flags refused where the JAX launcher refuses them, with its
+message, and otherwise giving the workers its environment.
 
 This file is also the workers' script: run with ``HVDTPU_TEST_WORKER``
 set, it runs one rank (imports no JAX).
@@ -380,24 +381,42 @@ def test_check_build_names_torch_and_core():
     ["--postmortem", "{tmp}/pm"], ["env"]])
 @pytest.mark.parametrize("elastic", [False, True])
 def test_observability_flags_refused(flags, elastic, tmp_path, monkeypatch):
-    """Each flag whose work needs the observability modules (and a
-    ``HVDTPU_METRICS_PORT`` the user exported) is refused, naming itself
-    and ROADMAP A9; nothing starts and nothing is written."""
+    """The observability flags (and a ``HVDTPU_METRICS_PORT`` the user
+    exported) are refused exactly where the JAX launcher refuses them,
+    with its message: ``--top`` and ``--debugz`` without a metrics port,
+    ``--top`` in an elastic job; nothing starts. Every other case gives
+    the workers the JAX launcher's environment, and makes the same
+    artifact directory."""
+    from horovod_tpu.runner import launch as jlaunch
     monkeypatch.delenv("HVDTPU_METRICS_PORT", raising=False)
+    monkeypatch.setenv("HVDTPU_SECRET", SECRET)
     if flags == ["env"]:
         monkeypatch.setenv("HVDTPU_METRICS_PORT", "9100")
-        flags, name = [], "HVDTPU_METRICS_PORT=9100"
-    else:
-        name = flags[0]
-    flags = [f.format(tmp=tmp_path) for f in flags]
+        flags = []
     extra = ["--host-discovery-script", str(tmp_path / "absent.sh")] \
         if elastic else []
-    args = tlaunch.parse_args(["-np", "1", *extra, *flags, "false"])
-    with pytest.raises(SystemExit) as exc:
-        tlaunch.run_launcher(args)
-    msg = str(exc.value)
-    assert name in msg and "ROADMAP A9, observability" in msg, msg
-    assert list(tmp_path.iterdir()) == []
+    outs = {}
+    for pkg, launch in (("port", tlaunch), ("jax", jlaunch)):
+        sub = tmp_path / pkg
+        argv = ["-np", "1", *extra,
+                *[f.format(tmp=sub) for f in flags], "false"]
+        args = launch.parse_args(argv)
+        if flags in (["--top"], ["--debugz"]):
+            with pytest.raises(SystemExit) as exc:
+                launch.run_launcher(args)
+            outs[pkg] = str(exc.value)
+            assert not sub.exists()
+            continue
+        env = launch._apply_tuning_env({}, args)
+        made = sorted(p.relative_to(sub).as_posix()
+                      for p in sub.rglob("*")) if sub.exists() else []
+        outs[pkg] = ({k: v.replace(str(sub), "DIR") for k, v in env.items()},
+                     made)
+    assert outs["port"] == outs["jax"], outs
+    if flags == ["--metrics-port", "9000"]:
+        assert outs["port"][0]["HVDTPU_METRICS_PORT"] == "9000"
+    elif flags in (["--top"], ["--debugz"]):
+        assert flags[0] in outs["port"], outs
 
 
 # ---------------------------------------------------------------------------

@@ -158,6 +158,31 @@ just after:
   failure started, and rank 0's ``/metrics`` must count its recovery
   (``hvdtpu_recovery_seconds``).
 
+* phase (n), the estimators and the Spark task path, full-width ResNet-50
+  (batch 64 a rank, bf16 autocast, SGD, 4-bit max-min with error feedback
+  in buckets of 512), each fit one epoch of 2 warm-up and 5 timed steps
+  on 64 images from ``--seed`` (plus the rank) seen again each step:
+  (n1) ``Estimator.fit((x, y))`` at a world of one over NCCL (B1, B3, B4
+  as ``PATH_LAUNCHES`` gives them a step), the trained model against its
+  CPU copy, and ``EstimatorModel.transform`` on the card in chunks of 16;
+  (n2) the Spark task path minus Spark: a parquet store of one shard a
+  rank (7 batches of a 150,528-float list column and a label, written
+  from numpy through Arrow) and two ``spark._spark_task`` bodies as
+  processes on the card (``--spark-task``) against the port's KV server,
+  each running the Estimator's ``_remote_fit`` on its shard in process
+  mode (B1, B4 as ``process_launches`` gives them): the ranks' weights
+  bitwise equal, rank 0's checkpoint loaded here by
+  ``EstimatorModel.load`` serving ``transform`` on the card; the write
+  and a batch's read are timed; (n3) two ranks under the launcher
+  (``--estimator-worker``): allgather with uneven dim 0, broadcast and
+  alltoall with uneven splits differentiated on the card against their
+  analytic gradients, exactly; one float64 step of ResNet-50 with every
+  batch norm a ``horovod_tpu_torch.torch.SyncBatchNorm`` against rank 0's
+  step with ``torch.nn.BatchNorm2d`` on both ranks' 128 images (loss,
+  each layer's statistics, gradients within ``SBN_TOL``); then
+  ``TorchEstimator`` rounds on (n2)'s shards with SyncBatchNorm and with
+  the model's local batch norm, alternating (``N3_FORMS``).
+
 ``DistributedOptimizer`` reduces from gradient hooks: every timed step of
 a training phase must launch its reductions before ``loss.backward()``
 returns (the quantized group of a ResNet-50 phase, in the second pass with
@@ -442,10 +467,27 @@ ELASTIC_SOLO_DIE_AT, ELASTIC_GROW_WAIT, ELASTIC_TIMEOUT = 5, 60, 300
 # under the launcher's observability flags, in alternating rounds with
 # and without them (OBS_ROUNDS pairs), and scrapes ENDPOINTS of every rank
 # while it runs.
-OBS_STEPS, OBS_ROUNDS = 3, 2
+OBS_STEPS, OBS_ROUNDS = 3, 1
 ENDPOINTS = ("/metrics", "/healthz", "/debugz", "/perfz", "/gradz")
 # The launcher's observability flags, as observe_flags names them.
 OBS_FLAGS = ("metrics", "trace", "perf", "grad", "profile", "postmortem")
+# Phase (n), the estimators and the Spark task path: each fit is one epoch
+# of EST_WARMUP + EST_STEPS batches of BATCH images (a step is timed from
+# the end of the one before it); (n2) writes a parquet shard a rank of
+# that many batches, (n3) runs N3_FORMS in that order; SBN_TOL bounds
+# SyncBatchNorm's step against one big batch (the loss, relative; each
+# layer's statistics, against the largest value of the reference's; the
+# gradients, all of them against their norm, and each tensor against its
+# largest value: SyncBatchNorm keeps the JAX frontend's fp32 statistics,
+# whose sums over 64 images of up to 112x112 positions move a small
+# gradient by up to about a percent of its largest value); the phases
+# must end within N_TIMEOUT seconds, and the tasks and ranks of (n2) and
+# (n3) run on N_DEVICE.
+EST_WARMUP, EST_STEPS = 2, 5
+N3_FORMS = ("sync", "local", "local", "sync")
+SBN_TOL = {"loss": 1e-4, "stats": 1e-3, "grads": 1e-3,
+           "grads_tensor": 2e-2}
+N_TIMEOUT, N_DEVICE = 420, "cuda:0"
 # The CUDA kernel of each max-min wrapper, as the device events of
 # torch.profiler's trace name it: B3 and B4 are one template, summing or
 # not.
@@ -3122,11 +3164,13 @@ def process_ranks() -> int:
     return ranks
 
 
-def run_launcher(argv, what: str, timeout: float, env=None) -> str:
+def run_launcher(argv, what: str, timeout: float, env=None,
+                 drop: str = None) -> str:
     """``python -m horovod_tpu_torch.runner.launch argv`` from the
-    checkout: its output (the workers' too), after it exited 0. Past
-    ``timeout`` it gets SIGTERM, on which it stops its workers' process
-    groups, and the phase fails."""
+    checkout: its output (the workers' too), after it exited 0, logged
+    but for the lines that hold ``drop`` (counted). Past ``timeout`` it
+    gets SIGTERM, on which it stops its workers' process groups, and the
+    phase fails."""
     import signal
     proc = subprocess.Popen(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *argv],
@@ -3145,8 +3189,14 @@ def run_launcher(argv, what: str, timeout: float, env=None) -> str:
             log(f"[{what}] {line}")
         raise AssertionError(f"{what}: the launcher did not end within "
                              f"{timeout} s")
+    dropped = 0
     for line in out.splitlines():
-        log(f"[{what}] {line}")
+        if drop is not None and drop in line:
+            dropped += 1
+        else:
+            log(f"[{what}] {line}")
+    if dropped:
+        log(f"[{what}] ({dropped} lines with {drop!r} not shown)")
     if proc.returncode != 0:
         raise AssertionError(f"{what}: the launcher exited "
                              f"{proc.returncode}")
@@ -3836,7 +3886,7 @@ def train_observed(seed: int, ranks: int):
     return {"rounds": rounds, **checked}
 
 
-def flag_costs(seed: int, ranks: int, rounds: int = OBS_ROUNDS):
+def flag_costs(seed: int, ranks: int, rounds: int = 2):
     """``--flag-costs``: (k3)'s step ms (the ranks' mean) under each
     observability flag alone and under none, ``rounds`` rounds of every
     form, the forms in reverse order every second round; and each flag's
@@ -3854,6 +3904,582 @@ def flag_costs(seed: int, ranks: int, rounds: int = OBS_ROUNDS):
     log(f"(m2) flag costs: (k3) step ms by form {ms}; each flag's cost "
         f"over the plain runs' median {cost}")
     return {"step_ms": ms, "cost": cost}
+
+
+# ---------------------------------------------------------------------------
+# (n) the estimators and the Spark task path
+# ---------------------------------------------------------------------------
+
+def no_tf32() -> None:
+    """fp32 products and convolutions in fp32, as in every phase (the
+    workers of (n2) and (n3) are processes of their own)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class ImageModel(torch.nn.Module):
+    """``inner`` on images that come as flat rows (a parquet list column,
+    ``H*W*3`` floats) or as NHWC, under bf16 autocast on the card when
+    ``bf16`` (the main path's ``forward_backward``; the logits then come
+    out in fp32)."""
+
+    def __init__(self, inner, bf16: bool = True):
+        super().__init__()
+        self.inner = inner
+        self.bf16 = bf16
+
+    def forward(self, x):
+        if x.dim() == 2:
+            x = x.reshape(x.shape[0], IMAGE, IMAGE, 3)
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            enabled=self.bf16 and x.is_cuda):
+            out = self.inner(x)
+        return out.float() if self.bf16 else out
+
+
+def resnet_on(dev, seed: int = 0):
+    from horovod_tpu_torch.models import ResNet50
+    torch.manual_seed(seed)
+    return ResNet50(num_classes=1000).to(dev,
+                                         memory_format=torch.channels_last)
+
+
+class StepClock:
+    """A metric of the estimators (top-1 accuracy) that also times the
+    steps: both estimators compute their metrics once a step, after its
+    optimizer step. The steps after the first ``EST_WARMUP`` are timed from
+    the end of the step before (the loss's exchange, the next batch from
+    the host, forward, backward, the reduction and the update), and the
+    launch counts are read over them. ``losses`` collects every step's
+    loss through ``loss``; ``trained`` is the model the estimator trains
+    (its copy of ours), taken by a forward pre-hook."""
+
+    def __init__(self):
+        self.ends, self.losses, self.launches = [], [], None
+        self.trained = None
+
+    def watch(self, model):
+        def take(module, args):
+            self.trained = module
+        model.register_forward_pre_hook(take)
+        return model
+
+    def loss(self, out, labels):
+        loss = F.cross_entropy(out, labels)
+        self.losses.append(loss.detach())
+        return loss
+
+    def __call__(self, out, labels):
+        torch.cuda.synchronize()
+        self.ends.append(time.perf_counter())
+        if len(self.ends) == EST_WARMUP:
+            reset_launches()
+        elif len(self.ends) == EST_WARMUP + EST_STEPS:
+            self.launches = read_launches()
+        return (out.argmax(-1) == labels).float().mean()
+
+    def stats(self, path: str):
+        """Timed step ms (median and each), the launches, the losses;
+        checks that the loss is finite and falls."""
+        ms = [(b - a) * 1e3 for a, b in zip(self.ends[EST_WARMUP - 1:],
+                                            self.ends[EST_WARMUP:])]
+        losses = [float(v) for v in self.losses]
+        check_losses(losses)
+        if len(ms) != EST_STEPS:
+            raise AssertionError(f"{path}: {len(self.ends)} steps")
+        return {"step_ms": statistics.median(ms), "steps_ms": ms,
+                "losses": losses, "launches": self.launches}
+
+
+def est_compression():
+    from horovod_tpu_torch.compression import (CompressionConfig,
+                                               MaxMinQuantizer)
+    return CompressionConfig(MaxMinQuantizer(bits=BITS, bucket_size=BUCKET),
+                             reduction="scatter_allgather",
+                             error_feedback=True)
+
+
+def est_images(seed: int, batches: int):
+    """``batches`` batches of BATCH images (flat NHWC rows of float32) and
+    labels: the same BATCH images from ``seed`` again and again, so that
+    the loss of a few steps falls."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((BATCH, IMAGE * IMAGE * 3),
+                                 dtype=np.float32)
+    labels = rng.integers(0, 1000, BATCH)
+    return np.tile(images, (batches, 1)), np.tile(labels, batches)
+
+
+def train_estimator(hvd, dev, store_dir: str):
+    """(n1): ``Estimator.fit((x, y))`` at a world of one (SPMD over NCCL),
+    ResNet-50 through 4-bit max-min (B1, B3, B4 as ``PATH_LAUNCHES``
+    gives them a step); the trained model against its CPU copy;
+    ``EstimatorModel.transform`` on the card in chunks of 16."""
+    from horovod_tpu_torch.integrations import Estimator, LocalStore
+    clock = StepClock()
+    model = clock.watch(ImageModel(resnet_on(dev)))
+    est = Estimator(model, lambda p: torch.optim.SGD(p, lr=LR, momentum=0.9),
+                    clock.loss, LocalStore(store_dir), epochs=1,
+                    batch_size=BATCH, run_id="n1", metrics={"top1": clock},
+                    gradient_compression=est_compression())
+    x, y = est_images(0, EST_WARMUP + EST_STEPS)
+    t0 = time.perf_counter()
+    fitted = est.fit((x, y))
+    fit_s = time.perf_counter() - t0
+    res = clock.stats("(n1)")
+    check_launches("(n1)", res["launches"], PATH_LAUNCHES["resnet"],
+                   EST_STEPS)
+    check_vision_copy("(n1)", fitted.model.inner,
+                      torch.from_numpy(x[:2]).reshape(
+                          2, IMAGE, IMAGE, 3)[:, :64, :64].contiguous()
+                      .to(dev))
+    res["fit_s"] = fit_s
+    res["transform"] = time_transform("(n1)", fitted, x[:BATCH])
+    log(f"(n1) Estimator.fit: step {res['step_ms']:.3f} ms (each "
+        f"{res['steps_ms']}), the whole fit {fit_s:.3f} s, launches in "
+        f"{EST_STEPS} steps {res['launches']}; losses {res['losses']}; "
+        f"transform {res['transform']}")
+    return res
+
+
+def time_transform(path: str, fitted, x):
+    """``fitted.transform`` of ``x`` (BATCH images) on the card in chunks
+    of 16: finite logits of the right shape; ms per BATCH images, the
+    median of 5 calls after one."""
+    import numpy as np
+    out = fitted.transform(x, batch_size=16)
+    if out.shape != (len(x), 1000) or not np.isfinite(out).all():
+        raise AssertionError(f"{path}: transform gave {out.shape}")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fitted.transform(x, batch_size=16)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"ms_per_batch": statistics.median(times), "each_ms": times}
+
+
+def write_shards(path: str, seed: int, ranks: int):
+    """(n2)'s parquet store: ``ranks`` files, each EST_WARMUP +
+    EST_STEPS batches of BATCH rows of one list column of IMAGE*IMAGE*3
+    float32 (``image``) and an int64 ``label``, written from numpy through
+    Arrow; returns the seconds and bytes."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    os.makedirs(path, exist_ok=True)
+    t0 = time.perf_counter()
+    nbytes = 0
+    for r in range(ranks):
+        x, y = est_images(seed + r, EST_WARMUP + EST_STEPS)
+        width = x.shape[1]
+        offsets = pa.array(np.arange(0, x.size + 1, width, dtype=np.int32))
+        column = pa.ListArray.from_arrays(offsets, pa.array(x.reshape(-1)))
+        pq.write_table(pa.table({"image": column, "label": pa.array(y)}),
+                       os.path.join(path, f"part-{r:05d}.parquet"))
+        nbytes += x.nbytes + y.nbytes
+    return time.perf_counter() - t0, nbytes
+
+
+def read_shard(path: str, rank: int, size: int):
+    """The ms to read this rank's shard through ``ParquetShardReader``, a
+    batch at a time (the whole pass over the batches)."""
+    from horovod_tpu_torch.spark.util import ParquetShardReader
+    reader = ParquetShardReader(path, ["image"], "label", batch_size=BATCH,
+                                rank=rank, size=size)
+    t0 = time.perf_counter()
+    batches = [b[0].shape for b in reader.batches()]
+    ms = (time.perf_counter() - t0) * 1e3
+    if batches != [(BATCH, IMAGE * IMAGE * 3)] * (EST_WARMUP + EST_STEPS):
+        raise AssertionError(f"(n2) rank {rank} read {batches}")
+    return ms / len(batches)
+
+
+def spark_fit(out_dir: str, data: str, store_dir: str):
+    """The function each (n2) Spark task runs under the port's runtime
+    (process mode): ``_remote_fit`` of the Estimator on this rank's shard;
+    writes what it saw into ``out_dir/spark.<rank>.json``."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.integrations import Estimator, LocalStore
+    from horovod_tpu_torch.integrations.estimator import _remote_fit
+    dev, r = hvd.device(), hvd.rank()
+    res = {"rank": r, "size": hvd.size(), "mode": hvd.mode(),
+           "read_ms_per_batch": read_shard(data, r, hvd.size())}
+    clock = StepClock()
+    model = clock.watch(ImageModel(resnet_on(dev)))
+    est = Estimator(model, lambda p: torch.optim.SGD(p, lr=LR, momentum=0.9),
+                    clock.loss, LocalStore(store_dir), epochs=1,
+                    batch_size=BATCH, run_id="n2", metrics={"top1": clock},
+                    feature_cols=["image"], label_col="label",
+                    gradient_compression=est_compression(), device=dev)
+    history, _ = _remote_fit(est, data)
+    res.update(clock.stats(f"(n2) rank {r}"))
+    res["history"] = history
+    res["digest"] = weights_digest(clock.trained)
+    with open(os.path.join(out_dir, f"spark.{r}.json"), "w") as f:
+        json.dump(res, f)
+    return res["digest"]
+
+
+def spark_task_worker(out_dir: str, rank: int, kv_port: int) -> None:
+    """One (n2) Spark task minus Spark: the port's ``_spark_task`` body
+    against the parent's KV server, running :func:`spark_fit`."""
+    import pickle
+    from horovod_tpu_torch.spark import _spark_task
+    no_tf32()
+    with open(os.path.join(out_dir, "task.json")) as f:
+        task = json.load(f)
+    payload = pickle.dumps((spark_fit, (out_dir, task["data"],
+                                        task["store"]), {}))
+    got, digest = _spark_task(rank, task["ranks"], "127.0.0.1", kv_port,
+                              payload, 120.0, None, device=N_DEVICE)
+    if got != rank:
+        raise AssertionError(f"(n2) task {rank} ran as rank {got}")
+
+
+def train_spark(work: str, seed: int, ranks: int):
+    """(n2): ``ranks`` ``_spark_task`` bodies as processes on the card
+    against the port's KV server, each ``_remote_fit`` on its parquet
+    shard in process mode; rank 0's checkpoint loaded here with
+    ``EstimatorModel.load`` serves ``transform`` on the card."""
+    from horovod_tpu_torch.integrations import EstimatorModel, LocalStore
+    from horovod_tpu_torch.runner.http_kv import KVStoreServer
+    data, store = os.path.join(work, "data"), os.path.join(work, "store")
+    write_s, nbytes = write_shards(data, seed, ranks)
+    log(f"(n2) parquet: {nbytes} bytes in {ranks} shards written in "
+        f"{write_s:.3f} s")
+    with open(os.path.join(work, "task.json"), "w") as f:
+        json.dump({"data": data, "store": store, "ranks": ranks}, f)
+    server = KVStoreServer(port=0)
+    server.start()
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--spark-task", work,
+             "--rank", str(r), "--kv-port", str(server.port)], cwd=ROOT)
+            for r in range(ranks)]
+        try:
+            codes = [p.wait(timeout=N_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    finally:
+        server.stop()
+    if codes != [0] * ranks:
+        raise AssertionError(f"(n2) the tasks exited {codes}")
+    results = []
+    for r in range(ranks):
+        with open(os.path.join(work, f"spark.{r}.json")) as f:
+            results.append(json.load(f))
+        check_launches(f"(n2) rank {r}", results[r]["launches"],
+                       process_launches(ranks), EST_STEPS)
+    if [(res["rank"], res["size"], res["mode"]) for res in results] != [
+            (r, ranks, "process") for r in range(ranks)] or \
+            len({res["digest"] for res in results}) != 1:
+        raise AssertionError(f"(n2) ranks or weights differ: {results}")
+    dev = torch.device(N_DEVICE)
+    fitted = EstimatorModel.load(ImageModel(resnet_on(dev)),
+                                 LocalStore(store), "n2", device=dev)
+    x, _ = est_images(seed, 1)
+    transform = time_transform("(n2)", fitted, x)
+    check_vision_copy("(n2)", fitted.model.inner,
+                      torch.from_numpy(x[:2]).reshape(
+                          2, IMAGE, IMAGE, 3)[:, :64, :64].contiguous()
+                      .to(dev))
+    res = {"write_s": write_s, "bytes": nbytes, "ranks": results,
+           "transform": transform,
+           "step_ms": [res["step_ms"] for res in results],
+           "read_ms_per_batch": [res["read_ms_per_batch"]
+                                 for res in results]}
+    log(f"(n2) step ms by rank {res['step_ms']}, read ms a batch "
+        f"{res['read_ms_per_batch']}, launches in {EST_STEPS} steps "
+        f"{results[0]['launches']}, weights bitwise equal across the ranks; "
+        f"transform of the loaded checkpoint {transform}")
+    return res
+
+
+def to_batchnorm2d(module):
+    """``module`` with every flax-style ``BatchNorm`` of the port's models
+    replaced by ``torch.nn.BatchNorm2d`` over copies of its parameters and
+    statistics (momentum 1 - m)."""
+    from horovod_tpu_torch.models.resnet import BatchNorm
+    if isinstance(module, BatchNorm):
+        bn = torch.nn.BatchNorm2d(module.weight.shape[0], eps=module.eps,
+                                  momentum=1.0 - module.momentum).to(
+                                      module.weight.device,
+                                      module.weight.dtype)
+        with torch.no_grad():
+            for name in ("weight", "bias", "running_mean", "running_var"):
+                getattr(bn, name).copy_(getattr(module, name))
+        return bn
+    for name, child in module.named_children():
+        setattr(module, name, to_batchnorm2d(child))
+    return module
+
+
+def output_stats(model, kinds, rows: int):
+    """Forward hooks on every module of ``kinds``: the channel sums of
+    squares (fp64) of each output's first ``rows`` images, in order."""
+    stats = []
+
+    def hook(module, args, out):
+        o = out.detach()[:rows].double()
+        stats.append((o * o).sum([0, 2, 3]))
+    for m in model.modules():
+        if isinstance(m, kinds):
+            m.register_forward_hook(hook)
+    return stats
+
+
+def running_stats(model, kinds):
+    return [(m.running_mean, m.running_var) for m in model.modules()
+            if isinstance(m, kinds)]
+
+
+def worst(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def check_sync_bn(hvd, dev, seed: int):
+    """(n3)'s check: one float64 step of ResNet-50 with every batch norm a
+    ``horovod_tpu_torch.torch.SyncBatchNorm`` on this rank's BATCH images,
+    against rank 0's step of the same weights with ``torch.nn.BatchNorm2d``
+    on every rank's images (gathered through the core), within SBN_TOL:
+    the loss (the ranks' mean); each layer's statistics, as the running
+    statistics fold them in (the variance relative to its largest value,
+    the mean in units of the largest standard deviation) and as rank 0's
+    rows come out of the layer (their channel sums of squares: normalized
+    by a rank's own statistics they would differ by percents); and the
+    gradients (the ranks' average; each tensor against its largest
+    value). In float64 the convolutions' own rounding, which differs with
+    the algorithm cuDNN picks for 64 or 128 images, stays far below the
+    fp32 statistics of SyncBatchNorm (the JAX frontend's arithmetic): the
+    errors measure those. The gradients are held as a whole (the error's
+    norm over theirs) and tensor by tensor (SBN_TOL). Returns rank 0's
+    errors over their bounds, and logs the tensors with the largest
+    gradient errors."""
+    import horovod_tpu_torch.torch as ht
+    from horovod_tpu_torch.torch.sync_batch_norm import \
+        convert_sync_batchnorm
+    base = resnet_on(dev).double()
+    x, y = est_images(seed + hvd.rank(), 1)
+    images = torch.from_numpy(x).to(dev, torch.float64).reshape(
+        BATCH, IMAGE, IMAGE, 3)
+    labels = torch.from_numpy(y).to(dev)
+    sync = ImageModel(convert_sync_batchnorm(copy.deepcopy(base)),
+                      bf16=False)
+    out_sq = output_stats(sync, ht.SyncBatchNorm, BATCH)
+    loss = F.cross_entropy(sync(images), labels)
+    loss.backward()
+    grads = torch.cat([p.grad.reshape(-1) for p in sync.parameters()])
+    grads = hvd.allreduce(grads, op=hvd.Average, name="n3.grads")
+    loss = hvd.allreduce(loss.detach().reshape(1), op=hvd.Average,
+                         name="n3.loss")
+    all_images = hvd.allgather(images, name="n3.images")
+    all_labels = hvd.allgather(labels, name="n3.labels")
+    if hvd.rank() != 0:
+        return None
+    big = ImageModel(to_batchnorm2d(copy.deepcopy(base)), bf16=False)
+    big_sq = output_stats(big, torch.nn.BatchNorm2d, BATCH)
+    big_loss = F.cross_entropy(big(all_images), all_labels)
+    big_loss.backward()
+    sizes = [p.numel() for p in big.parameters()]
+    big_grads = torch.cat([p.grad.reshape(-1) for p in big.parameters()])
+    run = running_stats(sync, ht.SyncBatchNorm)
+    big_run = running_stats(big, torch.nn.BatchNorm2d)
+    if not len(run) == len(big_run) == len(out_sq) == len(big_sq) == \
+            SYNC_BN_LAYERS:
+        raise AssertionError(f"(n3) {len(run)} and {len(big_run)} batch "
+                             f"norms")
+    stats = [max(worst(v, bv),
+                 float((m - bm).abs().max() / bv.max().sqrt()),
+                 worst(sq, bsq))
+             for (m, v), (bm, bv), sq, bsq in zip(run, big_run, out_sq,
+                                                  big_sq)]
+    big_loss = big_loss.detach()
+    names = [n for n, _ in big.named_parameters()]
+    by_tensor = sorted(
+        ((worst(g, w), n, float(w.abs().max())) for n, g, w in zip(
+            names, grads.split(sizes), big_grads.split(sizes))),
+        reverse=True)
+    log(f"(n3) the largest gradient errors (over the tensor's largest "
+        f"value, name, that value): {by_tensor[:5]}")
+    errors = {"loss": float((loss[0] - big_loss).abs() / big_loss.abs()),
+              "stats": max(stats),
+              "grads": float((grads - big_grads).norm() / big_grads.norm()),
+              "grads_tensor": by_tensor[0][0]}
+    over = {k: v / SBN_TOL[k] for k, v in errors.items()}
+    log(f"(n3) SyncBatchNorm over {hvd.size()} ranks against one batch of "
+        f"{all_images.shape[0]}: errors {errors}, over their bounds {over}")
+    if any(v > 1 for v in over.values()):
+        raise AssertionError(f"(n3) SyncBatchNorm differs from one big "
+                             f"batch: {errors} (bounds {SBN_TOL})")
+    return over
+
+
+def check_grad_collectives(hvd, dev) -> int:
+    """(n3)'s differentiable collectives on the card: allgather with uneven
+    dim 0, broadcast from the last rank and alltoall with uneven splits,
+    each with ``requires_grad``; the gradient of ``sum(out * w)`` against
+    the analytic one (the cotangents summed over the ranks and this rank's
+    rows taken; summed onto the root, zeros elsewhere; the parts sent
+    home), on quarters, so exactly. Returns the cases checked."""
+    r, n = hvd.rank(), hvd.size()
+
+    def vals(seed, shape):
+        g = torch.Generator().manual_seed(seed)
+        return (torch.randint(-16, 16, shape, generator=g) / 4.0)
+
+    def grad_of(fn, x, w):
+        x = x.to(dev).requires_grad_()
+        out = fn(x)
+        out = out[0] if isinstance(out, tuple) else out
+        (out * w(out.shape).to(dev)).sum().backward()
+        return x.grad.cpu()
+
+    def w_of(rank):
+        return lambda shape: vals(1000 + rank, tuple(shape))
+
+    rows = [k + 1 for k in range(n)]
+    got = grad_of(lambda t: hvd.allgather(t, name="n3.ag"),
+                  vals(r, (rows[r], 3)), w_of(r))
+    total = sum(vals(1000 + k, (sum(rows), 3)) for k in range(n))
+    want = total[sum(rows[:r]):sum(rows[:r + 1])]
+    checks = [("allgather", got, want)]
+    got = grad_of(lambda t: hvd.broadcast(t, root_rank=n - 1,
+                                          name="n3.bc"),
+                  vals(10 + r, (4, 3)), w_of(r))
+    want = sum(vals(1000 + k, (4, 3)) for k in range(n))
+    checks.append(("broadcast", got, want if r == n - 1 else want * 0))
+    sp = [[(s + d) % 3 + s for d in range(n)] for s in range(n)]
+    got = grad_of(lambda t: hvd.alltoall(t, splits=sp[r], name="n3.a2a"),
+                  vals(20 + r, (sum(sp[r]), 3)), w_of(r))
+    parts = []
+    for d in range(n):
+        start = sum(sp[s][d] for s in range(r))
+        recv_rows = sum(sp[s][d] for s in range(n))
+        parts.append(vals(1000 + d, (recv_rows, 3))[start:start + sp[r][d]])
+    checks.append(("alltoall", got, torch.cat(parts)))
+    for what, g, w in checks:
+        if not torch.equal(g, w):
+            raise AssertionError(f"(n3) rank {r}: {what}'s gradient {g}, "
+                                 f"expected {w}")
+    return len(checks)
+
+
+def torch_estimator_round(hvd, dev, form: str, data: str, store: str,
+                          run_id: str):
+    """One (n3) round: ``TorchEstimator`` (``_remote_fit_torch``) on this
+    rank's shard, ResNet-50 with every batch norm a
+    ``horovod_tpu_torch.torch.SyncBatchNorm`` (``form`` "sync": its scale,
+    bias and running statistics carried over) or the model's own local
+    ``BatchNorm`` ("local"), through 4-bit max-min (B1, B4)."""
+    from horovod_tpu_torch.spark import LocalStore
+    from horovod_tpu_torch.torch import TorchEstimator
+    from horovod_tpu_torch.torch.estimator import _remote_fit_torch
+    from horovod_tpu_torch.torch.sync_batch_norm import \
+        convert_sync_batchnorm
+    inner = resnet_on(dev)
+    if form == "sync":
+        inner = convert_sync_batchnorm(inner)
+    clock = StepClock()
+    model = clock.watch(ImageModel(inner))
+    est = TorchEstimator(
+        model, lambda p: torch.optim.SGD(p, lr=LR, momentum=0.9),
+        clock.loss, LocalStore(store), epochs=1, batch_size=BATCH,
+        metrics={"top1": clock}, feature_cols=["image"],
+        label_cols=["label"], gradient_compression=est_compression(),
+        run_id=run_id, shuffle=False, device=dev)
+    history = _remote_fit_torch(est, data)
+    res = clock.stats(f"(n3) {form}")
+    check_launches(f"(n3) {form}", res["launches"],
+                   process_launches(hvd.size()), EST_STEPS)
+    res["history"] = history
+    res["digest"] = same_weights(hvd, f"(n3) {form}", clock.trained)
+    return res
+
+
+def estimator_worker(out_dir: str, seed: int) -> None:
+    """One rank of (n3), started by the launcher: the differentiable
+    collectives and the SyncBatchNorm check on the card, then the
+    TorchEstimator rounds N3_FORMS; results into ``out_dir/<rank>.json``."""
+    import horovod_tpu_torch as hvd
+    no_tf32()
+    hvd.init(mode="process", device=N_DEVICE)
+    dev, r = hvd.device(), hvd.rank()
+    with open(os.path.join(out_dir, "task.json")) as f:
+        task = json.load(f)
+    res = {"rank": r, "size": hvd.size(),
+           "grad_checks": check_grad_collectives(hvd, dev),
+           "sync_bn": check_sync_bn(hvd, dev, seed)}
+    free_memory()
+    res["rounds"] = []
+    for i, form in enumerate(N3_FORMS):
+        res["rounds"].append(torch_estimator_round(
+            hvd, dev, form, task["data"], task["store"], f"n3.{i}"))
+        res["rounds"][-1]["form"] = form
+        free_memory()
+    hvd.join()
+    hvd.shutdown()
+    with open(os.path.join(out_dir, f"{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def train_torch_estimator(work: str, seed: int, ranks: int):
+    """(n3): ``ranks`` processes of :func:`estimator_worker` started by the
+    port's launcher on (n2)'s parquet shards."""
+    out = os.path.join(work, "n3")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "task.json"), "w") as f:
+        json.dump({"data": os.path.join(work, "data"),
+                   "store": os.path.join(work, "n3_store")}, f)
+    run_launcher(["-np", str(ranks), "-H", f"localhost:{ranks}",
+                  sys.executable, os.path.abspath(__file__),
+                  "--estimator-worker", out, "--seed", str(seed)],
+                 "(n3)", N_TIMEOUT, drop="perf sentry")
+    results = []
+    for r in range(ranks):
+        with open(os.path.join(out, f"{r}.json")) as f:
+            results.append(json.load(f))
+    rounds = results[0]["rounds"]
+    by_form = {form: [rd["step_ms"] for rd in rounds if rd["form"] == form]
+               for form in set(N3_FORMS)}
+    res = {"sync_bn_over_bound": results[0]["sync_bn"],
+           "grad_checks": results[0]["grad_checks"],
+           "rounds": [(rd["form"], rd["step_ms"]) for rd in rounds],
+           "step_ms": by_form, "launches": rounds[0]["launches"]}
+    log(f"(n3) {ranks} ranks: {res['grad_checks']} differentiable "
+        f"collectives exact; SyncBatchNorm against one batch, errors over "
+        f"their bounds {res['sync_bn_over_bound']}; TorchEstimator step ms "
+        f"by round {res['rounds']}; launches in {EST_STEPS} steps "
+        f"{res['launches']}")
+    return res
+
+
+def train_estimators(hvd, seed: int, ranks: int):
+    """Phase (n): (n1) at a world of one over NCCL, then (n2) and (n3) in
+    processes of their own (the runtime here shut down first)."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip_smoke_estimators_")
+    try:
+        hvd.init()
+        try:
+            n1 = train_estimator(hvd, hvd.device(),
+                                 os.path.join(work, "n1_store"))
+        finally:
+            hvd.shutdown()
+        free_memory()
+        n2 = train_spark(work, seed, ranks)
+        free_memory()
+        n3 = train_torch_estimator(work, seed, ranks)
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    return {"n1": n1, "n2": n2, "n3": n3}
 
 
 def main() -> int:
@@ -3882,6 +4508,19 @@ def main() -> int:
         help="build, then only time (k3) under each observability flag "
              "alone and under none, in alternating rounds (prints the "
              "costs; not the smoke run)")
+    parser.add_argument(
+        "--spark-task", default=None, metavar="DIR",
+        help="run one Spark task body of phase (n2) (started by the "
+             "parent, with --rank and --kv-port) on DIR's task")
+    parser.add_argument("--rank", type=int, default=0,
+                        help="the (n2) task's rank (with --spark-task)")
+    parser.add_argument("--kv-port", type=int, default=0,
+                        help="the port of the parent's key-value store "
+                             "(with --spark-task)")
+    parser.add_argument(
+        "--estimator-worker", default=None, metavar="DIR",
+        help="run one rank of phase (n3) (started by the launcher) and "
+             "write its results into DIR")
     parser.add_argument("--elastic-form", default="grow",
                         choices=("grow", "solo"),
                         help="phase (l)'s schedule (with --elastic-worker)")
@@ -3894,6 +4533,12 @@ def main() -> int:
         return 0
     if args.observe_worker:
         observe_worker(args.observe_worker, args.seed)
+        return 0
+    if args.spark_task:
+        spark_task_worker(args.spark_task, args.rank, args.kv_port)
+        return 0
+    if args.estimator_worker:
+        estimator_worker(args.estimator_worker, args.seed)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3918,8 +4563,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
@@ -4008,11 +4652,20 @@ def main() -> int:
         process = train_process(args.seed, ranks)
         observed = train_observed(args.seed, ranks)
         elastic = train_elastic(args.seed, ranks)
+        free_memory()
+        estimators = train_estimators(hvd, args.seed, ranks)
         for row in rows:
             if row["name"] in process_launches(1):
                 row["launches_process_maxmin"] = \
                     process[0]["maxmin"]["launches"][row["name"]]
                 row["launches_elastic"] = elastic["launches"][row["name"]]
+                row["launches_spark"] = \
+                    estimators["n2"]["ranks"][0]["launches"][row["name"]]
+                row["launches_torch_estimator"] = \
+                    estimators["n3"]["launches"][row["name"]]
+            if row["name"] in PATH_LAUNCHES["resnet"]:
+                row["launches_estimator"] = \
+                    estimators["n1"]["launches"][row["name"]]
         dense, zero1 = process[0]["dense"], process[0]["zero1"]
         log(f"(k) {len(process)} ranks: (k1) {process[0]['menu_checked']} "
             f"exact results; (k2) dense {dense['step_ms']:.3f} ms a step, "
@@ -4035,6 +4688,16 @@ def main() -> int:
             f"hvdtpu_dead_ranks in epochs {elastic['dead_rank_reads']}, "
             f"rank 0's /metrics counted {elastic['recoveries_served']} "
             f"recoveries; on {smi}")
+        n1, n2, n3 = (estimators[k] for k in ("n1", "n2", "n3"))
+        log(f"(n) (n1) Estimator step {n1['step_ms']:.3f} ms, transform "
+            f"{n1['transform']['ms_per_batch']:.3f} ms per {BATCH} images; "
+            f"(n2) parquet written in {n2['write_s']:.3f} s, read "
+            f"{n2['read_ms_per_batch']} ms a batch, step ms by rank "
+            f"{n2['step_ms']}, transform of the loaded checkpoint "
+            f"{n2['transform']['ms_per_batch']:.3f} ms per {BATCH} images; "
+            f"(n3) TorchEstimator step ms {n3['step_ms']} (rounds "
+            f"{n3['rounds']}), SyncBatchNorm's errors over their bounds "
+            f"{n3['sync_bn_over_bound']}; on {smi}")
     finally:
         hvd.shutdown()
     print(json.dumps({"kernels": rows}), flush=True)

@@ -45,6 +45,17 @@ _DTYPES = {torch.uint8: 0, torch.int8: 1, torch.int32: 4, torch.int64: 5,
 _ALLREDUCE_ALGOS = {name: code
                     for code, name in enumerate(ev.ALLREDUCE_ALGOS)}
 
+# hvdtpu::CtrlMsg (native/core.cpp) and hvdtpu::ResponseType
+# (native/message.h) of the copy: the JAX package's tags and the negotiated
+# shutdown's. Python builds no control frame; these mirrors hold the copy's
+# tags to one written-down table (scripts/check_invariants.py's
+# ENUM-MIRROR, run over the copy by tests/test_torch_port_native_checks.py).
+_CTRL_MSGS = {"hello": 1, "peers": 2, "ready": 3, "responses": 4, "join": 5,
+              "need_full": 6, "params": 7, "clock": 8, "gradcheck": 9,
+              "shutdown_req": 10, "shutdown_ack": 11, "shutdown_fin": 12}
+_RESPONSE_TYPES = {"ok": 0, "error": 1, "join_done": 2, "shutdown": 3,
+                   "clean_shutdown": 4}
+
 
 def _library_path() -> str:
     """The core built from the port's own sources, compiled at the first

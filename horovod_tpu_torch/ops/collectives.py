@@ -1039,8 +1039,88 @@ def grouped_enqueue():
 def _check_native_grad(x: torch.Tensor, what: str) -> None:
     if _wants_grad(x):
         raise NotImplementedError(
-            f"autograd through process-mode {what} is not ported yet "
-            "(ROADMAP A8); only allreduce is differentiable there")
+            f"autograd through process-mode {what} is not supported: the "
+            "JAX package's process mode differentiates allreduce, "
+            "allgather, broadcast and alltoall only")
+
+
+# Autograd in process mode (the JAX frontend's ``_AllgatherGrad``,
+# ``_BroadcastGrad`` and ``_AlltoallGrad``,
+# ``horovod_tpu/torch/__init__.py:241-398``): the same core ops in the same
+# order, on the rank's device, staged through pinned host memory.
+
+def _core_sum(x: torch.Tensor) -> torch.Tensor:
+    return _core_collective("allreduce", x, _auto_name("allreduce"),
+                            op=int(ReduceOp.SUM), prescale=1.0,
+                            postscale=1.0)
+
+
+def _core_rows(rows: int) -> List[int]:
+    """Every rank's ``rows``, by an int64 allgather."""
+    got = _core_collective("allgather", torch.tensor([rows],
+                                                     dtype=torch.int64),
+                           _auto_name("allgather"))
+    return [int(v) for v in got.reshape(-1).tolist()]
+
+
+class _NativeAllgatherFn(torch.autograd.Function):
+    """Backward: a Sum allreduce of the cotangent, then this rank's rows,
+    found from an allgather of every rank's dim 0 (a scalar is one row)."""
+
+    @staticmethod
+    def forward(ctx, x, name):
+        ctx.shape = x.shape
+        return _core_collective("allgather", x, name)
+
+    @staticmethod
+    def backward(ctx, grad):
+        summed = _core_sum(grad)
+        rows = ctx.shape[0] if len(ctx.shape) else 1
+        offset = sum(_core_rows(rows)[:runtime.rank()])
+        seg = summed.reshape((-1,) + tuple(grad.shape[1:]))[
+            offset:offset + rows]
+        return seg.reshape(ctx.shape), None
+
+
+class _NativeBroadcastFn(torch.autograd.Function):
+    """Backward: the cotangents summed onto the root; every other rank gets
+    the sum times 0, as the JAX frontend computes it (so a negative sum
+    gives -0.0 there)."""
+
+    @staticmethod
+    def forward(ctx, x, root_rank, name):
+        ctx.root_rank = root_rank
+        return _core_collective("broadcast", x, name, root_rank=root_rank)
+
+    @staticmethod
+    def backward(ctx, grad):
+        summed = _core_sum(grad)
+        if runtime.rank() != ctx.root_rank:
+            summed = summed * 0
+        return summed.reshape(grad.shape), None, None
+
+
+class _NativeAlltoallFn(torch.autograd.Function):
+    """Backward: the cotangent goes home, each part to the rank it came
+    from, by the received splits (``recv``, filled once the forward's
+    splits are gathered); an even forward (``recv`` left empty) finds them
+    in backward, from an allgather of the rows every rank sent to each
+    peer."""
+
+    @staticmethod
+    def forward(ctx, x, splits, recv, name):
+        ctx.recv = recv
+        ctx.per_peer = x.shape[0] // runtime.size() if x.dim() else 0
+        return _core_collective(
+            "alltoall", x, name, splits=None if splits is None
+            else torch.tensor(splits, dtype=torch.int32))
+
+    @staticmethod
+    def backward(ctx, grad):
+        recv = ctx.recv or _core_rows(ctx.per_peer)
+        out = _core_collective("alltoall", grad, _auto_name("alltoall"),
+                               splits=torch.tensor(recv, dtype=torch.int32))
+        return out, None, None, None
 
 
 def _native_launch_reduce(x, op, prescale, postscale, scatter=False,
@@ -1122,22 +1202,28 @@ def _native_grouped_allreduce(tensors, op, prescale_factor, postscale_factor,
 
 def _native_allgather_async(x, name, axis):
     runtime.group(axis)
-    _check_native_grad(x, "allgather")
-    return _core_async("allgather", x, name or _auto_name("allgather"))
+    return _core_async("allgather", x.detach(),
+                       name or _auto_name("allgather"))
 
 
 def _native_allgather(x, name, axis):
+    if _wants_grad(x):
+        runtime.group(axis)
+        return _NativeAllgatherFn.apply(x, name or _auto_name("allgather"))
     return _native_allgather_async(x, name, axis).wait()
 
 
 def _native_broadcast_async(x, root_rank, name, axis):
     runtime.group(axis)
-    _check_native_grad(x, "broadcast")
-    return _core_async("broadcast", x, name or _auto_name("broadcast"),
-                       root_rank=root_rank)
+    return _core_async("broadcast", x.detach(),
+                       name or _auto_name("broadcast"), root_rank=root_rank)
 
 
 def _native_broadcast(x, root_rank, name, axis):
+    if _wants_grad(x):
+        runtime.group(axis)
+        return _NativeBroadcastFn.apply(x, root_rank,
+                                        name or _auto_name("broadcast"))
     return _native_broadcast_async(x, root_rank, name, axis).wait()
 
 
@@ -1148,9 +1234,9 @@ def _native_broadcast_(x, root_rank, name, axis):
 
 def _native_alltoall_async(x, splits, name, axis):
     runtime.group(axis)
-    _check_native_grad(x, "alltoall")
     splits = _splits_list(splits)
-    return _core_async("alltoall", x, name or _auto_name("alltoall"),
+    return _core_async("alltoall", x.detach(),
+                       name or _auto_name("alltoall"),
                        splits=None if splits is None
                        else torch.tensor(splits, dtype=torch.int32))
 
@@ -1159,14 +1245,23 @@ def _native_alltoall(x, splits, name, axis):
     """With ``splits``, the rows received from each rank come from an
     int32 allgather of every rank's send splits, as in the JAX package
     (:744-758): the core negotiates the matrix but returns the payload
-    alone."""
+    alone. Differentiable (:class:`_NativeAlltoallFn`)."""
     name = name or _auto_name("alltoall")
-    out = _native_alltoall_async(x, splits, name, axis).wait()
-    if splits is None:
+    sp = _splits_list(splits)
+    recv: List[int] = []  # filled below; backward routes the parts home
+    if _wants_grad(x):
+        runtime.group(axis)
+        out = _NativeAlltoallFn.apply(x, sp, recv, name)
+    else:
+        out = _native_alltoall_async(x, sp, name, axis).wait()
+    if sp is None:
         return out
-    sp = torch.tensor(_splits_list(splits), dtype=torch.int32)
-    matrix = _core_collective("allgather", sp, f"{name}.splits")
-    return out, matrix.reshape(-1, sp.numel())[:, runtime.rank()].clone()
+    matrix = _core_collective("allgather",
+                              torch.tensor(sp, dtype=torch.int32),
+                              f"{name}.splits")
+    received = matrix.reshape(-1, len(sp))[:, runtime.rank()].clone()
+    recv.extend(received.tolist())
+    return out, received
 
 
 def _native_reducescatter(x, op, prescale_factor, postscale_factor, name,

@@ -99,7 +99,9 @@ class SyncBatchNorm(BatchNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        runtime.require_spmd("SyncBatchNorm")
+        runtime.require_spmd(
+            "SyncBatchNorm", "horovod_tpu_torch.torch.SyncBatchNorm (torch "
+            "_BatchNorm semantics, statistics through the native core)")
         return _SyncBatchNormFn.apply(x, self.weight, self.bias,
                                       self.running_mean, self.running_var,
                                       self.momentum, self.eps,

@@ -809,15 +809,17 @@ class profile:
                 f.write(to_folded_text(self.result))
 
 
-def require_spmd(what: str) -> None:
+def require_spmd(what: str, instead: Optional[str] = None) -> None:
     """Raise NotImplementedError in process mode for a part of the port
     that runs over ``torch.distributed`` process groups, which process mode
-    does not create."""
+    does not create; ``instead`` names what process mode offers in its
+    place."""
     if _state.initialized and _state.mode == "process":
+        tail = (f"in process mode use {instead}" if instead else
+                "its process-mode port is queued (ROADMAP A8)")
         raise NotImplementedError(
             f"{what} runs over torch.distributed process groups, which "
-            "init(mode=\"process\") does not create; its process-mode "
-            "port is queued (ROADMAP A8)")
+            f"init(mode=\"process\") does not create; {tail}")
 
 
 def world_group():

@@ -11,6 +11,17 @@ under a file lock: the ranks of a world, and test processes, start at the
 same moment, and only one of them compiles. The library is linked to a
 temporary name and renamed, so its existence means it is complete. No
 ``make`` is needed. Nothing is built when a module is imported.
+
+The core's C++ unit tests (``native/unit_tests.cpp``, linked with every
+source, ``core.cpp`` included) build here too, plain with the library's
+flags or under ``-fsanitize=thread`` at ``-O1`` (the JAX package Makefile's
+``check`` and ``check-tsan``)::
+
+    python -m horovod_tpu_torch.utils.native_build --check [--tsan]
+
+builds the binary into ``_build`` (once for its sources) and runs it; it
+prints ``native unit tests: ALL OK`` and exits 0 when every case passes,
+and a TSan build exits 66 on a reported race.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -29,12 +41,18 @@ SOURCES = tuple(NATIVE / f"{name}.cpp" for name in (
     "socket_util", "message", "transport", "shm_transport", "compressed",
     "metrics", "tracing", "flightrec", "perfstats", "profiler", "gradstats",
     "data_plane", "timeline", "autotune", "sha256", "core"))
+# The unit tests: not part of the library, nor of its key.
+UNIT_TESTS = NATIVE / "unit_tests.cpp"
 # -O3: the reduction loops rely on gcc's auto-vectorization;
 # -fno-omit-frame-pointer: the sampling profiler walks frame pointers.
 CXX_FLAGS = ("-O3", "-g", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
              "-pthread", "-fno-omit-frame-pointer")
 LD_FLAGS = ("-shared", "-pthread")
 LIBS = ("-lrt", "-ldl")
+# The sanitizer build: -O1 and frame pointers for accurate stacks.
+TSAN_FLAGS = ("-O1", "-g", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
+              "-pthread", "-fno-omit-frame-pointer", "-fsanitize=thread")
+TSAN_OPTIONS = "exitcode=66 report_thread_leaks=0"
 
 
 def _cxx() -> str:
@@ -61,10 +79,12 @@ def _run_all(cmds) -> None:
 
 def source_key(native: Path = NATIVE) -> str:
     """Hash of the flags and of every ``.cpp`` and ``.h`` file under
-    ``native`` (names and contents, in name order)."""
+    ``native`` (names and contents, in name order), the unit tests'
+    ``unit_tests.cpp`` left out."""
     key = hashlib.sha256(" ".join(CXX_FLAGS + LD_FLAGS + LIBS).encode())
     for src in sorted(p for p in native.iterdir()
-                      if p.suffix in (".cpp", ".h")):
+                      if p.suffix in (".cpp", ".h") and
+                      p.name != UNIT_TESTS.name):
         key.update(src.name.encode() + b"\0")
         key.update(src.read_bytes())
     return key.hexdigest()[:16]
@@ -101,3 +121,79 @@ def build() -> Path:
                 if obj.exists():
                     obj.unlink()
     return path
+
+
+def unit_tests_path(tsan: bool = False) -> Path:
+    """Where the unit-test binary for the current sources lives once
+    built."""
+    key = hashlib.sha256((source_key() + " ".join(TSAN_FLAGS)).encode())
+    key.update(UNIT_TESTS.read_bytes())
+    return BUILD_DIR / (f"unit_tests-{key.hexdigest()[:16]}"
+                        f"{'-tsan' if tsan else ''}")
+
+
+def build_unit_tests(tsan: bool = False) -> Path:
+    """Compile ``unit_tests.cpp`` and every source of the core (one
+    ``g++`` each, all at once) and link them into one binary, unless one
+    for the current sources exists; return its path."""
+    path = unit_tests_path(tsan)
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = TSAN_FLAGS if tsan else CXX_FLAGS
+    with open(BUILD_DIR / f".{path.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            return path
+        cxx = _cxx()
+        srcs = (*SOURCES, UNIT_TESTS)
+        objs = [BUILD_DIR / f"{path.name}.{src.stem}.{os.getpid()}.o"
+                for src in srcs]
+        try:
+            _run_all([[cxx, *flags, "-c", "-o", str(obj), str(src)]
+                      for src, obj in zip(srcs, objs)])
+            tmp = BUILD_DIR / f"{path.name}.{os.getpid()}.tmp"
+            link = ("-pthread", "-fsanitize=thread") if tsan \
+                else ("-pthread",)
+            _run_all([[cxx, *link, "-o", str(tmp), *map(str, objs),
+                       *LIBS]])
+            os.replace(tmp, path)
+        finally:
+            for obj in objs:
+                if obj.exists():
+                    obj.unlink()
+    return path
+
+
+def run_unit_tests(tsan: bool = False, timeout: float = 600
+                   ) -> subprocess.CompletedProcess:
+    """Build the unit tests (plain, or under TSan) and run them; the
+    completed process, its output captured."""
+    env = dict(os.environ)
+    if tsan:
+        env["TSAN_OPTIONS"] = TSAN_OPTIONS
+    return subprocess.run([str(build_unit_tests(tsan))], env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Build the port's native core, or build and run its "
+                    "C++ unit tests.")
+    parser.add_argument("--check", action="store_true",
+                        help="build and run the unit tests")
+    parser.add_argument("--tsan", action="store_true",
+                        help="with --check: under -fsanitize=thread")
+    args = parser.parse_args(argv)
+    if not args.check:
+        print(build())
+        return 0
+    proc = run_unit_tests(args.tsan)
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr)
+    return proc.returncode
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -741,6 +741,22 @@ def test_surface_has_every_reference_name():
     for which, names in lists.items():
         missing = [n for n in names if not hasattr(thvd, n)]
         assert not missing, (which, missing)
+    # The counterpart of ``import horovod_tpu.torch as hvd`` has TORCH too:
+    # the top level's objects, but for the torch frontend's SyncBatchNorm.
+    import torch
+
+    import horovod_tpu_torch.torch as ht
+    missing = [n for n in lists["TORCH"] if not hasattr(ht, n)]
+    assert not missing, ("horovod_tpu_torch.torch", missing)
+    for name in lists["TORCH"]:
+        if name != "SyncBatchNorm":
+            assert getattr(ht, name) is getattr(thvd, name), name
+    assert issubclass(ht.SyncBatchNorm,
+                      torch.nn.modules.batchnorm._BatchNorm)
+    assert ht.SyncBatchNorm is not thvd.SyncBatchNorm
+    assert hasattr(ht.elastic, "TorchState") and hasattr(ht.elastic, "run")
+    for name in ("TorchEstimator", "TorchModel", "EarlyStopping"):
+        assert hasattr(ht, name), name
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

@@ -96,6 +96,21 @@ def test_import_pulls_in_no_jax():
             "import horovod_tpu_torch.postmortem\n"
             "import horovod_tpu_torch.runner.metrics_agg\n"
             "import horovod_tpu_torch.runner.hvdtop\n"
+            "import horovod_tpu_torch.torch\n"
+            "import horovod_tpu_torch.torch.sync_batch_norm\n"
+            "import horovod_tpu_torch.torch.estimator\n"
+            "import horovod_tpu_torch.spark\n"
+            "import horovod_tpu_torch.spark.store\n"
+            "import horovod_tpu_torch.spark.pandas_df\n"
+            "import horovod_tpu_torch.spark.fit_dispatch\n"
+            "import horovod_tpu_torch.spark.util\n"
+            "import horovod_tpu_torch.spark.elastic\n"
+            "import horovod_tpu_torch.integrations\n"
+            "import horovod_tpu_torch.integrations.estimator\n"
+            "import horovod_tpu_torch.integrations.executor\n"
+            "import horovod_tpu_torch.integrations.ray\n"
+            "horovod_tpu_torch.spark.Estimator\n"
+            "horovod_tpu_torch.spark.TorchEstimator\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -130,7 +145,14 @@ def test_sources_import_no_jax(path):
                 "elastic/torch_state.py", "observability.py",
                 "flightrec.py", "perfstats.py", "gradstats.py",
                 "profiler.py", "trace_analysis.py", "postmortem.py",
-                "runner/metrics_agg.py", "runner/hvdtop.py"} <= names, names
+                "runner/metrics_agg.py", "runner/hvdtop.py",
+                "torch/__init__.py", "torch/sync_batch_norm.py",
+                "torch/estimator.py", "spark/__init__.py", "spark/store.py",
+                "spark/pandas_df.py", "spark/fit_dispatch.py",
+                "spark/util.py", "spark/elastic.py",
+                "integrations/__init__.py", "integrations/estimator.py",
+                "integrations/executor.py", "integrations/ray.py"} <= names, \
+            names
     for f in files:
         with open(f) as fh:
             tree = ast.parse(fh.read())

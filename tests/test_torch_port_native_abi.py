@@ -111,13 +111,18 @@ def test_codes_are_the_copys():
 
 def test_sources_are_the_ports_own():
     """Every quoted include names a file of the directory, and the build
-    compiles every .cpp there and names nothing of the JAX package."""
+    compiles every .cpp there into the library (the unit tests'
+    ``unit_tests.cpp`` into their own binary) and names nothing of the JAX
+    package."""
     names = {p.name for p in NATIVE.iterdir()}
     for p in NATIVE.iterdir():
         for inc in re.findall(r'^#include "([^"]+)"', p.read_text(), re.M):
             assert "/" not in inc and inc in names, (p.name, inc)
-    assert {p.name for p in native_build.SOURCES} == {
+    assert native_build.UNIT_TESTS.parent == NATIVE
+    assert {p.name for p in native_build.SOURCES} | {
+        native_build.UNIT_TESTS.name} == {
         n for n in names if n.endswith(".cpp")}
+    assert native_build.UNIT_TESTS not in native_build.SOURCES
     assert all(p.parent == NATIVE for p in native_build.SOURCES)
     source = open(native_build.__file__).read()
     assert not re.search(r"horovod_tpu(?!_torch)\b", source)

@@ -183,6 +183,26 @@ just after:
   ``TorchEstimator`` rounds on (n2)'s shards with SyncBatchNorm and with
   the model's local batch norm, alternating (``N3_FORMS``).
 
+* phase (o), the compiled step, at a world of one over NCCL with cuDNN
+  deterministic (after (m1), in the main process): the max-min, ``uni``
+  and stochastic ResNet-50 paths, max-min at
+  ``backward_passes_per_step=2`` (one call a backward pass) and the GPT
+  path, each ``CAPTURE_STEPS`` steps eagerly (the phases' own steps) and
+  as many through ``hvd.data_parallel_step`` on a second slice made from
+  the same seeds: a CUDA graph of the whole step (forward, backward, the
+  hooks' NCCL reductions and kernels, SGD) after its warm-up calls,
+  replayed. The weights, batch statistics, momentum buffers and
+  error-feedback residuals of the two must be bitwise equal, and the
+  losses too; a ``torch.profiler`` trace of one captured step must hold
+  each wrapper's kernels (``GRAPH_KERNELS``) as ``CAPTURE_LAUNCHES`` gives
+  for a step (the wrappers' own counters do not see a replay). Logged:
+  step ms and images/s or tokens/s in ``CAPTURE_ROUNDS`` alternating pairs
+  of rounds, the device's busy share of a traced step of each form, peak
+  memory and what each form keeps (the graphs' pools), and each capture's
+  ms. Then a step that calls ``.item()`` must raise at its capture,
+  naming that line, and a step called in process mode (a world of one
+  over the native core) must raise.
+
 ``DistributedOptimizer`` reduces from gradient hooks: every timed step of
 a training phase must launch its reductions before ``loss.backward()``
 returns (the quantized group of a ResNet-50 phase, in the second pass with
@@ -224,6 +244,7 @@ import argparse
 import collections
 import copy
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -497,6 +518,29 @@ TRACE_KERNELS = {
                               "maxmin_decode_generic_kernel<true"),
     "maxmin_dequantize": ("maxmin_decode_packed_kernel<false",
                           "maxmin_decode_generic_kernel<false"),
+}
+
+# Phase (o), the compiled step: each path CAPTURE_STEPS steps eagerly and
+# CAPTURE_STEPS through data_parallel_step (a CUDA graph of the whole step
+# after its warm-up calls), from the same weights and batch; then one
+# step of each traced, and CAPTURE_ROUNDS alternating pairs of rounds of
+# CAPTURE_ROUND_STEPS steps. A path's launches a step (its phase's).
+CAPTURE_STEPS, CAPTURE_ROUNDS, CAPTURE_ROUND_STEPS = 8, 3, 5
+CAPTURE_LAUNCHES = {"resnet": PATH_LAUNCHES["resnet"],
+                    "resnet_uni": PATH_LAUNCHES["resnet_uni"],
+                    "resnet_stochastic": PATH_LAUNCHES["resnet_stochastic"],
+                    "resnet_accumulated": PATH_LAUNCHES["resnet"],
+                    "gpt": MP_LAUNCHES["gpt_remat_full"]}
+# The CUDA kernels of every wrapper, as the device events of a trace name
+# them (a replayed graph counts nothing in the wrappers' counters).
+GRAPH_KERNELS = {
+    **TRACE_KERNELS,
+    "maxmin_quantize_stochastic": ("maxmin_quantize_stochastic_",),
+    "norm_quantize": ("norm_quantize_",),
+    "norm_dequantize": ("norm_dequantize_kernel",),
+    "flash_fwd": ("flash_fwd_",),
+    "flash_dkdv": ("flash_dkdv_",),
+    "flash_dq": ("flash_dq_",),
 }
 
 
@@ -1172,10 +1216,12 @@ def make_slice(hvd, dev, compressor=None, backward_passes_per_step=1):
 
 
 def forward_backward(model, opt, images, labels, scale: float = 1.0,
-                     zero: bool = True):
+                     zero: bool = True, cache: bool = True):
+    """``cache``: autocast's cache of the weights' bf16 copies, which a
+    step captured in a CUDA graph turns off."""
     if zero:
         opt.zero_grad(set_to_none=True)
-    with torch.autocast("cuda", dtype=torch.bfloat16):
+    with torch.autocast("cuda", dtype=torch.bfloat16, cache_enabled=cache):
         logits = model(images)
     loss = F.cross_entropy(logits, labels)
     (loss * scale if scale != 1.0 else loss).backward()
@@ -3568,21 +3614,22 @@ def train_elastic(seed: int, ranks: int):
 # driver's watch
 # ---------------------------------------------------------------------------
 
-def trace_device(path: str):
-    """A Chrome trace's device events: each max-min wrapper's kernel count
-    (``TRACE_KERNELS``), the kernels by name, and the ms the device was
-    busy (the union of its kernel, copy and set intervals)."""
+def trace_device(path: str, kernels=TRACE_KERNELS):
+    """A Chrome trace's device events: each wrapper's kernel count
+    (``kernels``: the max-min wrappers' by default), the kernels by name,
+    and the ms the device was busy (the union of its kernel, copy and set
+    intervals)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     device = [e for e in events if e.get("ph") == "X" and e.get("cat") in
               ("kernel", "gpu_memcpy", "gpu_memset")]
-    counts = dict.fromkeys(TRACE_KERNELS, 0)
+    counts = dict.fromkeys(kernels, 0)
     names = collections.Counter()
     for e in device:
         if e["cat"] != "kernel":
             continue
         names[e["name"].split("(")[0]] += 1
-        for wrapper, prefixes in TRACE_KERNELS.items():
+        for wrapper, prefixes in kernels.items():
             if any(p in e["name"] for p in prefixes):
                 counts[wrapper] += 1
     busy, end = 0.0, -math.inf
@@ -4482,6 +4529,308 @@ def train_estimators(hvd, seed: int, ranks: int):
     return {"n1": n1, "n2": n2, "n3": n3}
 
 
+# ---------------------------------------------------------------------------
+# (o) the compiled step: each path's eager steps against the same steps
+# through data_parallel_step, one CUDA graph a step
+# ---------------------------------------------------------------------------
+
+def captured_resnet_step(model, opt, batch):
+    """A ResNet-50 phase's step for ``data_parallel_step``: the phase's own
+    forward and backward (autocast without its cache, as a captured step
+    asks) and ``opt.step()``."""
+    loss = forward_backward(model, opt, *batch, cache=False)
+    opt.step()
+    return loss
+
+
+def captured_accumulated_step(model, opt, batch):
+    """One backward pass of the ``backward_passes_per_step=2`` phase: the
+    gradients zeroed before the window's first pass, the optimizer stepped
+    after its last."""
+    loss = forward_backward(model, opt, *batch, scale=0.5,
+                            zero=opt.passes_in_window() == 0, cache=False)
+    if opt.passes_in_window() == opt.backward_passes_per_step:
+        opt.step()
+    return loss
+
+
+def captured_gpt_step(model, opt, batch):
+    loss = gpt_forward_backward(model, opt, *batch)
+    opt.step()
+    return loss
+
+
+def capture_slice(hvd, dev, path: str):
+    """A path's model, optimizer and batch, made as its phase makes them
+    (the same seeds: every call gives the same weights and batch), and its
+    step for ``data_parallel_step``."""
+    if path == "gpt":
+        model, opt, tokens, targets = make_gpt_slice(hvd, dev)
+        return model, opt, (tokens, targets), captured_gpt_step
+    if path == "resnet_accumulated":
+        model, opt, images, labels = make_slice(hvd, dev,
+                                                backward_passes_per_step=2)
+        return model, opt, (images, labels), captured_accumulated_step
+    model, opt, images, labels = make_slice(hvd, dev,
+                                            resnet_compressors()[path])
+    return model, opt, (images, labels), captured_resnet_step
+
+
+def halves(batch):
+    """The two half-batches of a ``backward_passes_per_step=2`` step."""
+    half = BATCH // 2
+    return [tuple(t[i * half:(i + 1) * half] for t in batch)
+            for i in range(2)]
+
+
+def eager_step(path: str, model, opt, batch):
+    """One step of a path as its phase takes it (``train``,
+    ``train_accumulated``, ``train_gpt``)."""
+    if path == "resnet_accumulated":
+        losses = [forward_backward(model, opt, *part, scale=0.5, zero=i == 0)
+                  for i, part in enumerate(halves(batch))]
+        opt.step()
+        return (losses[0] + losses[1]) / 2
+    if path == "gpt":
+        loss = gpt_forward_backward(model, opt, *batch)
+    else:
+        loss = forward_backward(model, opt, *batch)
+    opt.step()
+    return loss
+
+
+def captured_step(path: str, step, model, opt, batch):
+    """One step of a path through ``data_parallel_step``: one call, or a
+    call for each backward pass of the ``backward_passes_per_step=2``
+    phase."""
+    if path == "resnet_accumulated":
+        losses = [step(model, opt, part) for part in halves(batch)]
+        return (losses[0] + losses[1]) / 2
+    return step(model, opt, batch)
+
+
+def step_state(model, opt):
+    """Every tensor a step updates: the model's ``state_dict`` (weights and
+    batch statistics) and the optimizer's state (momentum buffers,
+    error-feedback residuals)."""
+    out = {f"model.{k}": v for k, v in model.state_dict().items()}
+    for p, state in opt.state.items():
+        for k, v in state.items():
+            if torch.is_tensor(v):
+                out[f"state.{opt._names[id(p)]}.{k}"] = v
+    return out
+
+
+def round_ms(fn, steps: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def traced_step(fn, path: str):
+    """One step under ``torch.profiler`` (host and device): each wrapper's
+    kernels in the trace's device events (``GRAPH_KERNELS``), the device's
+    busy ms and the window's host ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(path)
+    counts, _, busy_ms = trace_device(path, GRAPH_KERNELS)
+    os.remove(path)
+    return counts, busy_ms, window_ms
+
+
+def capture_path(hvd, dev, path: str, work: str):
+    """One path of (o): CAPTURE_STEPS eager steps of a slice, then as many
+    through ``data_parallel_step`` on a second slice made alike; every
+    tensor of the model and the optimizer's state bitwise equal after them,
+    and the losses too; a traced step of each form (the captured one's
+    kernels as ``CAPTURE_LAUNCHES`` gives for a step); CAPTURE_ROUNDS
+    alternating pairs of rounds. Memory: the peak above what was allocated
+    before a form's steps, and what the form keeps after them (the graphs'
+    pools among it)."""
+    memory = {}
+
+    def measured(form, run):
+        """``run()``'s result; the peak allocated above what was allocated
+        before it, what is still allocated after it, and what it left
+        reserved (the caching allocator's and the graphs' pools), the
+        cache emptied before it."""
+        free_memory()
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        for key, value in (
+                ("peak", torch.cuda.max_memory_allocated() - allocated),
+                ("kept", torch.cuda.memory_allocated() - allocated),
+                ("reserved", torch.cuda.memory_reserved() - reserved)):
+            memory[f"{form}_{key}_gib"] = value / 2**30
+        return out
+
+    model_e, opt_e, batch_e, train_step = capture_slice(hvd, dev, path)
+    losses_e = measured("eager", lambda: [
+        eager_step(path, model_e, opt_e, batch_e)
+        for _ in range(CAPTURE_STEPS)])
+    model_c, opt_c, batch_c, _ = capture_slice(hvd, dev, path)
+    step = hvd.data_parallel_step(train_step)
+    losses_c = measured("captured", lambda: [
+        captured_step(path, step, model_c, opt_c, batch_c)
+        for _ in range(CAPTURE_STEPS)])
+    graphs = [step.entry(k) for k in step.keys()
+              if step.entry(k).graph is not None]
+    capture_ms = [e.capture_s * 1e3 for e in graphs]
+    want, got = step_state(model_e, opt_e), step_state(model_c, opt_c)
+    if set(want) != set(got):
+        raise AssertionError(f"(o) {path}: state {sorted(set(want) ^ set(got))}"
+                             f" in one form only")
+    differ = {k: float((got[k].double() - want[k].double()).abs().max())
+              for k in want if not bitwise(got[k], want[k])}
+    if differ:
+        raise AssertionError(f"(o) {path}: captured state differs from the "
+                             f"eager one in {len(differ)} of {len(want)} "
+                             f"tensors: {dict(list(differ.items())[:8])}")
+    losses_e = [float(v) for v in losses_e]
+    losses_c = [float(v) for v in losses_c]
+    if losses_c != losses_e:
+        raise AssertionError(f"(o) {path}: losses {losses_c}, eager "
+                             f"{losses_e}")
+    check_losses(losses_c)
+    residuals = sum(k.endswith(".hvd_residual") for k in want)
+    eager = functools.partial(eager_step, path, model_e, opt_e, batch_e)
+    captured = functools.partial(captured_step, path, step, model_c, opt_c,
+                                 batch_c)
+    # The rounds come before the traces: a step timed after the profiler
+    # has run may carry its cost.
+    times = {"eager": [], "captured": []}
+    for r in range(CAPTURE_ROUNDS):
+        for form in (("eager", "captured") if r % 2 == 0
+                     else ("captured", "eager")):
+            times[form].append(round_ms(
+                eager if form == "eager" else captured, CAPTURE_ROUND_STEPS))
+    counts, busy_c, window_c = traced_step(
+        captured, os.path.join(work, f"{path}_captured.json"))
+    per_step = {name: CAPTURE_LAUNCHES[path].get(name, 0)
+                for name in GRAPH_KERNELS}
+    if counts != per_step:
+        raise AssertionError(f"(o) {path}: a captured step's trace launched "
+                             f"{counts}, expected {per_step}")
+    _, busy_e, window_e = traced_step(
+        eager, os.path.join(work, f"{path}_eager.json"))
+    items = (GPT_BATCH * GPT_SEQ, "tokens") if path == "gpt" else \
+        (BATCH, "images")
+    rate = {form: [items[0] / ms * 1e3 for ms in times[form]]
+            for form in times}
+    res = {"state_tensors": len(want), "residuals": residuals,
+           "losses": losses_c, "launches": counts, "graphs": len(graphs),
+           "capture_ms": capture_ms, "step_ms": times,
+           f"{items[1]}_per_s": rate,
+           "busy_share": {"eager": busy_e / window_e,
+                          "captured": busy_c / window_c},
+           # The traced step's busy ms over the untimed rounds' median
+           # step: the profiler lengthens an eager step's window.
+           "busy_share_of_step": {
+               "eager": busy_e / statistics.median(times["eager"]),
+               "captured": busy_c / statistics.median(times["captured"])},
+           "busy_ms": {"eager": busy_e, "captured": busy_c},
+           "memory": memory}
+    log(f"(o) {path}: {CAPTURE_STEPS} eager and {CAPTURE_STEPS} captured "
+        f"steps bitwise equal in {len(want)} tensors ({residuals} "
+        f"error-feedback residuals) and their losses {losses_c}; "
+        f"{len(graphs)} graph(s) captured in {capture_ms} ms; one captured "
+        f"step's trace {counts}; step ms {times}; {items[1]}/s {rate}; "
+        f"device busy {busy_e:.3f} of {window_e:.3f} ms eager, "
+        f"{busy_c:.3f} of {window_c:.3f} ms captured (traced windows); "
+        f"memory {memory}")
+    del step, model_c, opt_c, model_e, opt_e, captured, eager
+    free_memory()
+    return res
+
+
+def check_capture_errors(hvd, dev) -> dict:
+    """A step that copies a tensor to the host raises at its capture and
+    names the line; the card computes on after it. Then a step called in
+    process mode (a world of one, the native core) raises."""
+    from horovod_tpu_torch.step import WARMUP_CALLS
+
+    def host_copy(x):
+        y = x * 2
+        if y.sum().item() > 0:
+            y = y + 1
+        return y
+
+    step = hvd.run_step(host_copy, in_specs=(hvd.REPLICATED,),
+                        out_specs=hvd.REPLICATED)
+    x = torch.ones(4, device=dev)
+    for _ in range(WARMUP_CALLS):
+        step(x)
+    try:
+        step(x)
+    except RuntimeError as e:
+        item_error = str(e)
+    else:
+        raise AssertionError("(o) a step with .item() was captured")
+    if "y.sum().item()" not in item_error or "host_copy" not in item_error:
+        raise AssertionError(f"(o) the capture's error names no .item(): "
+                             f"{item_error}")
+    if float((torch.ones(4, device=dev) * 3).sum()) != 12.0:
+        raise AssertionError("(o) the card computes wrong after the failed "
+                             "capture")
+    log(f"(o) .item() in a step: {item_error}")
+    hvd.shutdown()
+    saved = os.environ.get("HVDTPU_CONTROLLER_PORT")
+    os.environ["HVDTPU_CONTROLLER_PORT"] = str(free_base(1))
+    try:
+        hvd.init(mode="process")
+        step = hvd.run_step(lambda t: t * 2, in_specs=(hvd.REPLICATED,),
+                            out_specs=hvd.REPLICATED)
+        try:
+            step(torch.ones(4, device=hvd.device()))
+        except NotImplementedError as e:
+            process_error = str(e)
+        else:
+            raise AssertionError("(o) run_step ran in process mode")
+    finally:
+        hvd.shutdown()
+        if saved is None:
+            os.environ.pop("HVDTPU_CONTROLLER_PORT", None)
+        else:
+            os.environ["HVDTPU_CONTROLLER_PORT"] = saved
+    log(f"(o) a step in process mode: {process_error}")
+    return {"item": item_error, "process": process_error}
+
+
+def train_captured(hvd, dev):
+    """(o): the five paths through ``data_parallel_step`` against their
+    eager steps, with cuDNN deterministic; then the two errors. Leaves the
+    runtime shut down."""
+    import tempfile
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    work = tempfile.mkdtemp(prefix="chip_smoke_captured_")
+    log(f"(o) NCCL {torch.cuda.nccl.version()}")
+    try:
+        paths = {path: capture_path(hvd, dev, path, work)
+                 for path in CAPTURE_LAUNCHES}
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+        os.rmdir(work)
+    return {"paths": paths, "errors": check_capture_errors(hvd, dev)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
@@ -4646,6 +4995,8 @@ def main() -> int:
                               noncausal_err, parent)
         free_memory()
         traced = train_traced(hvd, dev)
+        free_memory()
+        captured = train_captured(hvd, dev)
         hvd.shutdown()
         free_memory()
         ranks = process_ranks()
@@ -4666,6 +5017,12 @@ def main() -> int:
             if row["name"] in PATH_LAUNCHES["resnet"]:
                 row["launches_estimator"] = \
                     estimators["n1"]["launches"][row["name"]]
+            # (o): the kernel's launches in one captured step's trace, by
+            # path.
+            row["launches_captured"] = {
+                path: res["launches"][row["name"]]
+                for path, res in captured["paths"].items()
+                if res["launches"][row["name"]]}
         dense, zero1 = process[0]["dense"], process[0]["zero1"]
         log(f"(k) {len(process)} ranks: (k1) {process[0]['menu_checked']} "
             f"exact results; (k2) dense {dense['step_ms']:.3f} ms a step, "
@@ -4688,6 +5045,15 @@ def main() -> int:
             f"hvdtpu_dead_ranks in epochs {elastic['dead_rank_reads']}, "
             f"rank 0's /metrics counted {elastic['recoveries_served']} "
             f"recoveries; on {smi}")
+        log("(o) step ms eager / captured, busy share eager / captured, "
+            "peak GiB eager / captured: " + "; ".join(
+                f"{path} {res['step_ms']['eager']} / "
+                f"{res['step_ms']['captured']}, "
+                f"{res['busy_share']['eager']:.4f} / "
+                f"{res['busy_share']['captured']:.4f}, "
+                f"{res['memory']['eager_peak_gib']:.3f} / "
+                f"{res['memory']['captured_peak_gib']:.3f}"
+                for path, res in captured["paths"].items()) + f"; on {smi}")
         n1, n2, n3 = (estimators[k] for k in ("n1", "n2", "n3"))
         log(f"(n) (n1) Estimator step {n1['step_ms']:.3f} ms, transform "
             f"{n1['transform']['ms_per_batch']:.3f} ms per {BATCH} images; "

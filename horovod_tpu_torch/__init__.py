@@ -27,6 +27,8 @@ Usage::
                                    backward_passes_per_step=1)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     handle = hvd.allreduce_async(t)  # ... hvd.synchronize(handle)
+    step = hvd.data_parallel_step(train_step)  # one CUDA graph a step
+    loss = step(model, opt, hvd.shard_batch(batch))
 
 Launch with ``hvdrun-torch -np 4 python train.py`` (or ``python -m
 horovod_tpu_torch.runner.launch``). An elastic job
@@ -60,7 +62,8 @@ from .ops.collectives import (Adasum, Average, Max, Min,  # noqa: F401
                               grouped_allreduce, grouped_allreduce_async,
                               grouped_enqueue,
                               hierarchical_allgather, hierarchical_allreduce,
-                              join, poll, reducescatter, release_handle,
+                              in_named_trace, join, poll, rank_in_step,
+                              reducescatter, release_handle, size_in_step,
                               synchronize)
 from .parallel import (DistributedGradientTape,  # noqa: F401
                        DistributedOptimizer, ShardedDistributedOptimizer,
@@ -80,6 +83,8 @@ from .runtime import (axis_names, ccl_built, cross_rank,  # noqa: F401
                       prof_snapshot, prof_start, prof_stop, profile, rank,
                       reinit, rocm_built, shutdown, size, start_timeline,
                       start_trace, stop_timeline, stop_trace)
+from .step import (REPLICATED, batch_spec,  # noqa: F401
+                   data_parallel_step, replicate, run_step, shard_batch)
 from .callbacks import (BestModelCheckpoint, average_metrics,  # noqa: F401
                         lr_schedule, warmup_schedule)
 from .ops.flash_attention import flash_attention  # noqa: F401

@@ -12,7 +12,8 @@ CPU, launches its kernel for a CUDA tensor, and raises for any other device:
 there is no fallback. ``LAUNCHES`` counts kernel launches, so a run can show
 that its path went through the kernels, and ``ROUTES`` counts the launches
 of B2, B3 and B4 by the route the C entry point reports
-(``hvd_maxmin_last_route``). On B2's ``packed`` route (:func:`packed_route`)
+(``hvd_maxmin_last_route``); both count in Python, so the replay of a
+step captured in a CUDA graph adds nothing to them. On B2's ``packed`` route (:func:`packed_route`)
 the kernel writes the codes packed as ``pack_bits`` packs them, on its
 ``bytes`` route one byte per code. B3 and B4 read the packed payload as it
 crossed the wire, on the ``packed`` route where a bucket is a multiple of 8

@@ -13,7 +13,8 @@ counts B5's by the route the C entry point reports
 (``hvd_norm_last_route``): ``packed_search`` and ``packed_scan`` write the
 codes packed as ``pack_bits`` packs them (:func:`kernels.packed_route`), the
 level found by bisection on a table that :func:`searchable` accepts or by
-the linear scan on any other; ``bytes`` writes one byte per code. Whether a
+the linear scan on any other; ``bytes`` writes one byte per code (both
+count in Python: the replay of a captured step adds nothing). Whether a
 table may be bisected is decided here only: by :class:`LevelTable`, which
 checks it once where it is built, or by :func:`norm_quantize` for a plain
 tensor.

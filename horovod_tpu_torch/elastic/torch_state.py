@@ -14,9 +14,9 @@ from .state import DurableStateMixin, ObjectState
 
 
 def _compact(obj):
-    """``obj`` with every tensor that views a larger storage cloned (a
-    ``DistributedOptimizer``'s error-feedback residuals view one fused
-    buffer): pickling a view writes the whole storage it views."""
+    """``obj`` with every tensor that views a larger storage cloned (an
+    optimizer's state may hold views of a fused buffer): pickling a view
+    writes the whole storage it views."""
     if isinstance(obj, torch.Tensor):
         whole = obj.untyped_storage().nbytes()
         return obj.clone() if whole > obj.numel() * obj.element_size() \

@@ -6,7 +6,10 @@ ranks may differ in dim 0), ``broadcast`` (:1003), ``alltoall`` (:1011;
 optional uneven splits), ``reducescatter`` (:1032), the async handles
 (:1061-1162: ``*_async``, ``poll``, ``synchronize``, ``release_handle``),
 :func:`send_recv` for the point-to-point exchanges the JAX package writes
-as ``lax.ppermute``, and the two-level reductions over two mesh axes,
+as ``lax.ppermute``, the in-step names (``in_named_trace`` :75,
+``rank_in_step`` :116, ``size_in_step`` :142: inside a step function of
+:func:`~horovod_tpu_torch.step.run_step`), and the two-level reductions
+over two mesh axes,
 :func:`hierarchical_allreduce` and :func:`hierarchical_allgather`
 (``hierarchical_allreduce_p`` :348, ``hierarchical_allgather_p`` :404).
 Reference surface: ``horovod/torch/mpi_ops.py``.
@@ -61,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import enum
 import itertools
+import math
 import threading
 import time
 import zlib
@@ -954,6 +958,11 @@ def _stage_in(x: torch.Tensor) -> torch.Tensor:
     x = x.detach()
     if x.device.type == "cpu":
         return x.contiguous()
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "a process-mode collective stages its tensor through pinned "
+            "host memory and synchronizes the stream, which a CUDA graph "
+            "cannot hold: it cannot run in a captured step")
     host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
     host.copy_(x, non_blocking=True)
     t0 = time.perf_counter()
@@ -1648,3 +1657,54 @@ def send_recv(send: Optional[Dict[str, torch.Tensor]] = None,
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return received
+
+
+# ---------------------------------------------------------------------------
+# in-step names (JAX: in_named_trace :75, rank_in_step :116, size_in_step
+# :142): inside a step function of step.run_step, as inside the JAX
+# package's shard_map
+# ---------------------------------------------------------------------------
+
+def _step_axes(axis) -> tuple:
+    """``axis`` (the dp axis by default; a name or a tuple of names) as a
+    tuple of names bound in the current step; NameError outside a step or
+    for an axis the mesh does not have, as ``lax.axis_index`` raises."""
+    names = (runtime.dp_axis() if axis is None and runtime.is_initialized()
+             else axis)
+    names = (names,) if isinstance(names, str) or names is None \
+        else tuple(names)
+    mesh = runtime.axis_names() if runtime.is_initialized() else ()
+    for name in names:
+        if not runtime.in_step() or name not in mesh:
+            raise NameError(f"unbound axis name: {name}")
+    return names
+
+
+def in_named_trace(axis=None) -> bool:
+    """True inside a step function of :func:`~horovod_tpu_torch.step.
+    run_step` when ``axis`` (the data-parallel axis by default) is an axis
+    of the mesh: where the JAX package's in-step collectives are legal."""
+    try:
+        _step_axes(axis)
+        return True
+    except NameError:
+        return False
+
+
+def rank_in_step(axis=None) -> int:
+    """This rank's index along mesh axis ``axis`` (the data-parallel axis
+    by default; a tuple of axes: row-major over them), inside a step
+    function of :func:`~horovod_tpu_torch.step.run_step`; NameError
+    outside one, as ``lax.axis_index`` raises outside ``shard_map``."""
+    from ..parallel.axes import axis_index
+    index = 0
+    for name in _step_axes(axis):
+        index = index * runtime.mesh_shape()[name] + axis_index(name)
+    return index
+
+
+def size_in_step(axis=None) -> int:
+    """The size of mesh axis ``axis`` (the data-parallel axis by default;
+    a tuple of axes: the product), inside a step function of
+    :func:`~horovod_tpu_torch.step.run_step`; NameError outside one."""
+    return math.prod(runtime.mesh_shape()[name] for name in _step_axes(axis))

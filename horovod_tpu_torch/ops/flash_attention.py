@@ -21,7 +21,11 @@ CUDA-core kernels of ``flash_attention.cu``. Each wrapper takes the plain
 PyTorch version beside it for tensors on the CPU, launches its kernel for
 CUDA tensors, and raises for any other device: there is no fallback.
 ``LAUNCHES`` counts kernel launches and ``ROUTES`` the launches of each
-kernel by the route the C entry point reports it took.
+kernel by the route the C entry point reports it took. They count in
+Python, so a replay of a step captured in a CUDA graph
+(:func:`~horovod_tpu_torch.step.run_step`) adds nothing: there the kernels
+are read from a profiler trace. The kernels launch on PyTorch's current
+stream, the capturing one under capture.
 """
 
 from __future__ import annotations

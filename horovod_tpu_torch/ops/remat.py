@@ -16,6 +16,13 @@ policy. ``torch.einsum`` may lower a product without batch dimensions to
 them apart by the ATen op. It goes by role: the model computes the products
 JAX saves through :func:`saved_einsum`, and the policy saves the output of
 every matrix product that runs inside it and of nothing else.
+
+Inside a step captured in a CUDA graph (:func:`~horovod_tpu_torch.step.
+run_step`) the recompute runs in the captured backward. Checkpointing
+saves the CUDA generator's state for it, which cannot be read while a
+stream captures, so under capture it saves none: a
+block recomputed there must draw no random numbers, as none of the port's
+models does in a block (no dropout).
 """
 
 from __future__ import annotations
@@ -64,10 +71,13 @@ def apply(mode: str, fn, *args):
     (``"dots"``)."""
     if mode == "none":
         return fn(*args)
+    rng = not (torch.cuda.is_available() and
+               torch.cuda.is_current_stream_capturing())
     if mode == "full":
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=rng)
     check_mode(mode)
-    return checkpoint(fn, *args, use_reentrant=False,
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=rng,
                       context_fn=functools.partial(
                           create_selective_checkpoint_contexts,
                           _dots_policy))

@@ -4,6 +4,9 @@ Counterpart of ``horovod_tpu/parallel/axes.py``, answered from the
 runtime's mesh: every rank is one process, so an axis of the mesh is always
 bound. :func:`axis_index` stands for ``lax.axis_index`` and
 :func:`local_shard` for what ``shard_map``'s ``in_specs`` hand each rank.
+A spec is a tuple with one entry a leading dim, as a ``PartitionSpec``:
+:data:`REPLICATED` and :func:`batch_spec` are ``horovod_tpu/step.py``'s
+(:25, :28).
 """
 
 from __future__ import annotations
@@ -13,6 +16,17 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from .. import runtime
+
+
+REPLICATED: Tuple = ()
+
+
+def batch_spec(dim: int = 0, axis: Optional[str] = None) -> Tuple:
+    """The spec that splits dim ``dim`` over mesh axis ``axis`` (the
+    data-parallel axis by default) and keeps every other dim whole."""
+    entries: list = [None] * (dim + 1)
+    entries[dim] = axis if axis is not None else runtime.dp_axis()
+    return tuple(entries)
 
 
 def axis_size(ax: Optional[str]) -> int:

@@ -40,6 +40,11 @@ anew (``runtime.epoch()``: an elastic reset), since the world's ranks may
 have changed. No later launch exchanges a descriptor, since a host
 round trip inside a backward hook would stall the card. An exchange's
 buffer stays referenced by its pending handle until ``synchronize()``.
+What a step keeps (the error-feedback residuals, the dense buckets' flat
+buffers) is allocated once and then updated in place, so that a whole
+step can be captured in a CUDA graph (:func:`~horovod_tpu_torch.step.
+run_step`); :meth:`passes_in_window` tells a step of one backward pass
+where it stands in a window of ``backward_passes_per_step``.
 
 In process mode (``init(mode="process")``) a dense bucket is one op of the
 native core, named ``DistributedOptimizer.bucket.{k}`` on every rank (an
@@ -66,6 +71,7 @@ from .. import runtime
 from ..compression import (CompressionConfig, Compressor, MaxMinQuantizer,
                            NormalizedQuantizer, TopKCompressor,
                            init_error_feedback)
+from ..compression.error_feedback import update_residuals
 from ..compression.reducers import compressed_grouped_allreduce
 from ..exceptions import HvdTpuInternalError
 from ..functions import broadcast_object
@@ -260,6 +266,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         # The runtime epoch whose world checked the layout: a world made
         # anew (an elastic reset) checks it again, every rank together.
         self._checked_epoch = None
+        # Grows at every load_state_dict, which makes new state tensors: a
+        # step captured before it would go on reading the old ones.
+        self._generation = 0
         self._synchronized = False
         self._should_synchronize = True
         # Reductions the hooks launched since the last synchronize().
@@ -373,8 +382,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         residuals = [self.state[p][_RESIDUAL] for p in params]
         reduced, new_res = compressed_grouped_allreduce(
             grads, comp, residuals=residuals, **kwargs)
-        for p, r in zip(params, new_res):
-            self.state[p][_RESIDUAL] = r
+        update_residuals(residuals, new_res)
         return reduced
 
     def _finish(self, unit: _Unit) -> None:
@@ -455,7 +463,51 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._new_window()
         self._synchronized = False
         self._should_synchronize = True
+        self._generation += 1
         super(self.__class__, self).load_state_dict(*args, **kwargs)
+
+    def passes_in_window(self) -> int:
+        """Backward passes accumulated in the current window: 0 after
+        ``synchronize()``, ``backward_passes_per_step`` once the window is
+        full. A step of one backward pass decides by it whether to zero the
+        gradients first (0) and to step after its pass (full)."""
+        if not self._fired:
+            return 0
+        return self.backward_passes_per_step - min(self._delay[p]
+                                                   for p in self._fired)
+
+    # -- capture (step.run_step) -----------------------------------------------
+    # A replayed graph runs no Python: the countdowns, the units' counts and
+    # the pending reductions stay where the capture left them. run_step keys
+    # its graphs by _window_key, takes _window_snapshot after a capture and
+    # puts it back after each replay of that graph.
+
+    def _window_key(self) -> tuple:
+        """What a captured step depends on besides its tensors: the
+        countdowns (the position in the window), whether this world has
+        checked the layout (the check exchanges it on the host, so that
+        step is never captured) and the state's generation."""
+        return (tuple(sorted(set(self._delay.values()))),
+                self._checked_epoch == runtime.epoch(), self._generation)
+
+    def _window_snapshot(self) -> tuple:
+        if any(u.pending is not None for u in self._units):
+            raise RuntimeError(
+                "a captured step left a gradient reduction in flight: the "
+                "step that fills the window must call step() or "
+                "synchronize()")
+        return (dict(self._delay), set(self._fired),
+                [u.ready for u in self._units], self.hook_launches,
+                self._synchronized)
+
+    def _window_restore(self, snapshot: tuple) -> None:
+        delay, fired, ready, launches, synchronized = snapshot
+        self._delay.update(delay)
+        self._fired = set(fired)
+        for unit, count in zip(self._units, ready):
+            unit.ready = count
+        self.hook_launches = launches
+        self._synchronized = synchronized
 
     @contextlib.contextmanager
     def skip_synchronize(self) -> Iterator[None]:
@@ -531,7 +583,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
       entry (Adasum stays hierarchical). Not with a compressor.
 
     ``opt.hook_launches`` counts the reductions the hooks launched since
-    the last ``synchronize()``.
+    the last ``synchronize()`` (in Python: a replayed CUDA graph of the
+    step does not count them).
     """
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be at least 1")

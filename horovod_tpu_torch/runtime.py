@@ -44,6 +44,7 @@ the last ``init``'s arguments, as ``hvd.elastic.run`` does after a reset.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -107,6 +108,11 @@ _elastic_last_epoch = 0
 # init records the time from it to the world's re-formation in the new
 # core (hvdtpu_recovery_seconds).
 _failure_detected_at: Optional[float] = None
+# Calls of a step function by step.run_step under way: the counterpart of
+# being inside the JAX package's shard_map trace. A counter of the process,
+# not of a thread, since backward (and the optimizer's hooks in it) runs on
+# autograd's own threads.
+_step_depth = 0
 
 
 def note_failure_detected() -> None:
@@ -807,6 +813,25 @@ class profile:
             from .profiler import to_folded_text
             with open(self._path, "w") as f:
                 f.write(to_folded_text(self.result))
+
+
+@contextlib.contextmanager
+def stepping():
+    """Mark a call of a step function of :func:`~horovod_tpu_torch.step.
+    run_step` (warm-up, capture or eager): :func:`in_step` is True in it."""
+    global _step_depth
+    _step_depth += 1
+    try:
+        yield
+    finally:
+        _step_depth -= 1
+
+
+def in_step() -> bool:
+    """Inside a step function of :func:`~horovod_tpu_torch.step.run_step`
+    (the in-step names of :mod:`horovod_tpu_torch.ops.collectives` read
+    it)."""
+    return _step_depth > 0
 
 
 def require_spmd(what: str, instead: Optional[str] = None) -> None:

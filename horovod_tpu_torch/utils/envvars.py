@@ -65,6 +65,8 @@ MASTER_ADDR = "MASTER_ADDR"
 MASTER_PORT = "MASTER_PORT"
 
 HVDTPU_LOG_LEVEL = "HVDTPU_LOG_LEVEL"
+# Leave the time out of each log record (reference: HOROVOD_LOG_HIDE_TIME).
+HVDTPU_LOG_HIDE_TIME = "HVDTPU_LOG_HIDE_TIME"
 
 # Bytes of one DistributedOptimizer bucket of dense gradients.
 HVDTPU_FUSION_THRESHOLD = "HVDTPU_FUSION_THRESHOLD"

@@ -1,7 +1,8 @@
 """Leveled, rank-prefixed logging (counterpart of ``horovod_tpu/utils/logging.py``).
 
 Reference: ``horovod/common/logging.{h,cc}``; the level comes from
-``HVDTPU_LOG_LEVEL`` ∈ {debug, info, warning, error, fatal, off}.
+``HVDTPU_LOG_LEVEL`` ∈ {trace, debug, info, warning, error, fatal, off},
+and ``HVDTPU_LOG_HIDE_TIME`` leaves the time out of each record.
 """
 
 from __future__ import annotations
@@ -11,7 +12,11 @@ import sys
 
 from . import envvars as ev
 
+TRACE = 5
+_pylogging.addLevelName(TRACE, "TRACE")
+
 _LEVELS = {
+    "trace": TRACE,
     "debug": _pylogging.DEBUG,
     "info": _pylogging.INFO,
     "warning": _pylogging.WARNING,
@@ -25,8 +30,10 @@ def _make_logger() -> _pylogging.Logger:
     logger = _pylogging.getLogger("horovod_tpu_torch")
     if not logger.handlers:
         handler = _pylogging.StreamHandler(sys.stderr)
-        handler.setFormatter(_pylogging.Formatter(
-            "%(asctime)s [%(levelname)s] %(message)s"))
+        hide_time = ev.get_bool(ev.HVDTPU_LOG_HIDE_TIME)
+        fmt = "[%(levelname)s] %(message)s" if hide_time else \
+            "%(asctime)s [%(levelname)s] %(message)s"
+        handler.setFormatter(_pylogging.Formatter(fmt))
         logger.addHandler(handler)
         level_name = (ev.get_str(ev.HVDTPU_LOG_LEVEL) or "warning").lower()
         logger.setLevel(_LEVELS.get(level_name, _pylogging.WARNING))
@@ -43,13 +50,21 @@ def _prefix(msg: str) -> str:
     return f"[{rank}]: {msg}" if rank is not None else msg
 
 
+def trace(msg: str, *args) -> None:
+    logger.log(TRACE, _prefix(msg), *args)
+
+
 def debug(msg: str, *args) -> None:
     logger.debug(_prefix(msg), *args)
+
+
+def info(msg: str, *args) -> None:
+    logger.info(_prefix(msg), *args)
 
 
 def warning(msg: str, *args) -> None:
     logger.warning(_prefix(msg), *args)
 
 
-def info(msg: str, *args) -> None:
-    logger.info(_prefix(msg), *args)
+def error(msg: str, *args) -> None:
+    logger.error(_prefix(msg), *args)

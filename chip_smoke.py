@@ -14,7 +14,12 @@ just after:
 * ResNet-50: ``hvd.init()`` (NCCL, a world of one), full-width ResNet-50 in
   bf16 autocast over ``channels_last``, and ``DistributedOptimizer``
   sending the gradients through the 4-bit max-min ``scatter_allgather``
-  reducer with error feedback (kernels B1, B3, B4);
+  reducer with error feedback (kernels B1, B3, B4). In every ResNet-50 and
+  Inception V3 phase each batch norm runs the six kernels of
+  ``csrc/batch_norm.cu`` a step (the ReLU and the residual add folded in),
+  counted as ``norm_launches`` gives them; checked first against their
+  plain version at ResNet-50's shapes of 256 images and timed there
+  (``check_batch_norm``, ``measure_batch_norm``);
 * the same ResNet-50 path with the fork's normalized quantizer, what
   ``make_compressor("uni")`` builds (4 bits, buckets of 512, uniform
   levels, linf norm: kernels B5, B6);
@@ -266,6 +271,7 @@ BITS, BUCKET = 4, 512
 RESNET50_PARAMS = 25_557_032  # the fused gradient buffer of the path
 BATCH, IMAGE = 64, 224
 WARMUP, STEPS = 2, 10
+BN_BATCH = 256  # the benchmark cell's images a card: the batch norms' shapes
 LR = 0.1 * BATCH / 256  # linear scaling: 10 steps without warm-up
 # bench.py's gpt_long_context_flash phase, at full width and depth.
 GPT_CONFIG = dict(vocab_size=32000, num_layers=6, num_heads=8, head_dim=64,
@@ -306,6 +312,21 @@ FLASH_KERNELS = {
 # launch: "fp32").
 BF16_ROUTES = dict.fromkeys(("flash_fwd", "flash_dkdv", "flash_dq"),
                            "wgmma_bf16")
+# Each batch norm of a model runs six kernels a training step
+# (models/norm_kernels.py): the statistics and their finalize, the apply
+# (ReLU and residual add folded in where the model has them), the backward
+# reduce and its finalize, and dx. ResNet-50 has 53 batch norms; Inception
+# V3 94, each through BatchNorm.forward (its ReLU apart); VGG-16 none, and
+# a model whose norms SyncBatchNorm replaced runs none of these kernels.
+BN_KERNELS = ("bn_stats", "bn_stats_finalize", "bn_apply", "bn_bwd_reduce",
+              "bn_bwd_finalize", "bn_bwd_apply")
+RESNET50_NORMS, INCEPTION_NORMS = 53, 94
+
+
+def norm_launches(norms: int):
+    return dict.fromkeys(BN_KERNELS, norms)
+
+
 # Launches a step of each path (the launch counts of every other kernel
 # must stay 0): the max-min reducer quantizes the rows and the reduced
 # chunk, decodes the rows for the residual and the gathered chunks, and
@@ -313,16 +334,23 @@ BF16_ROUTES = dict.fromkeys(("flash_fwd", "flash_dkdv", "flash_dq"),
 # dequantize-sum decodes every rank's row in one B6 launch.
 PATH_LAUNCHES = {
     "resnet": {"maxmin_quantize": 2, "maxmin_dequantize_sum": 1,
-               "maxmin_dequantize": 2},
+               "maxmin_dequantize": 2, **norm_launches(RESNET50_NORMS)},
     "vgg16": {"maxmin_quantize": 2, "maxmin_dequantize_sum": 1,
               "maxmin_dequantize": 2},
-    "resnet_uni": {"norm_quantize": 2, "norm_dequantize": 3},
-    "inception_v3": {"norm_quantize": 2, "norm_dequantize": 3},
+    "resnet_uni": {"norm_quantize": 2, "norm_dequantize": 3,
+                   **norm_launches(RESNET50_NORMS)},
+    "inception_v3": {"norm_quantize": 2, "norm_dequantize": 3,
+                     **norm_launches(INCEPTION_NORMS)},
     "vgg16_powersgd": {},
     "resnet_stochastic": {"maxmin_quantize_stochastic": 2,
                           "maxmin_dequantize_sum": 1,
-                          "maxmin_dequantize": 2},
+                          "maxmin_dequantize": 2,
+                          **norm_launches(RESNET50_NORMS)},
 }
+# backward_passes_per_step=2: the reducer's launches once a step, the batch
+# norms' once a pass.
+ACCUMULATED_LAUNCHES = {**PATH_LAUNCHES["resnet"],
+                        **norm_launches(2 * RESNET50_NORMS)}
 # The route every launch of a phase's packed kernels must take: the
 # buckets of 512 are read once into registers and the codes written packed;
 # the uniform table is searched by bisection; B3 and B4 read the packed
@@ -526,10 +554,11 @@ TRACE_KERNELS = {
 # step of each traced, and CAPTURE_ROUNDS alternating pairs of rounds of
 # CAPTURE_ROUND_STEPS steps. A path's launches a step (its phase's).
 CAPTURE_STEPS, CAPTURE_ROUNDS, CAPTURE_ROUND_STEPS = 8, 3, 5
+TRACE_MARGIN_S = 0.05  # idle host time on each side of a traced step
 CAPTURE_LAUNCHES = {"resnet": PATH_LAUNCHES["resnet"],
                     "resnet_uni": PATH_LAUNCHES["resnet_uni"],
                     "resnet_stochastic": PATH_LAUNCHES["resnet_stochastic"],
-                    "resnet_accumulated": PATH_LAUNCHES["resnet"],
+                    "resnet_accumulated": ACCUMULATED_LAUNCHES,
                     "gpt": MP_LAUNCHES["gpt_remat_full"]}
 # The CUDA kernels of every wrapper, as the device events of a trace name
 # them (a replayed graph counts nothing in the wrappers' counters).
@@ -541,6 +570,12 @@ GRAPH_KERNELS = {
     "flash_fwd": ("flash_fwd_",),
     "flash_dkdv": ("flash_dkdv_",),
     "flash_dq": ("flash_dq_",),
+    "bn_stats": ("bn_act_stats_kernel",),
+    "bn_stats_finalize": ("bn_act_stats_finalize_kernel",),
+    "bn_apply": ("bn_act_apply_kernel",),
+    "bn_bwd_reduce": ("bn_act_bwd_reduce_kernel",),
+    "bn_bwd_finalize": ("bn_act_bwd_finalize_kernel",),
+    "bn_bwd_apply": ("bn_act_bwd_apply_kernel",),
 }
 
 
@@ -1143,14 +1178,21 @@ def kernel_modules():
     return kernels, norm_kernels, flash
 
 
+def counted_modules():
+    """Every module whose ``LAUNCHES`` the phases read: the kernels'
+    modules and the batch norms' (``models/norm_kernels.py``)."""
+    from horovod_tpu_torch.models import norm_kernels as bn_kernels
+    return (*kernel_modules(), bn_kernels)
+
+
 def reset_launches() -> None:
-    for module in kernel_modules():
+    for module in counted_modules():
         module.reset_launches()
 
 
 def read_launches():
     """Every kernel's launch count."""
-    return {name: count for module in kernel_modules()
+    return {name: count for module in counted_modules()
             for name, count in module.LAUNCHES.items()}
 
 
@@ -1337,7 +1379,7 @@ def train_accumulated(hvd, dev):
     if any(passes != [0, 1] for passes in launched):
         raise AssertionError(f"{path}: reductions launched by the two "
                              f"passes {launched}, expected [0, 1] a step")
-    check_launches(path, launches, PATH_LAUNCHES["resnet"], routes=routes,
+    check_launches(path, launches, ACCUMULATED_LAUNCHES, routes=routes,
                    want_routes=PATH_ROUTES["resnet"])
     return launches
 
@@ -2761,6 +2803,228 @@ def measure_noncausal(flash, q, k, v, do, heads, sdpa_grad, rates,
     return out
 
 
+def resnet50_norms(batch: int = BN_BATCH, image: int = 224):
+    """(rows, C, variant) of ResNet-50's 53 batch norms at ``batch``
+    images: "relu" (the stem, each block's bn1 and bn2), "relu_res" (bn3:
+    the block's residual added before its ReLU), "none" (each stage's
+    projection)."""
+    norms = [(batch * (image // 2) ** 2, 64, "relu")]
+    side = image // 4
+    for i, blocks in enumerate((3, 4, 6, 3)):
+        filters = 64 * 2 ** i
+        for j in range(blocks):
+            out = side // 2 if i > 0 and j == 0 else side
+            norms += [(batch * side * side, filters, "relu"),
+                      (batch * out * out, filters, "relu"),
+                      (batch * out * out, 4 * filters, "relu_res")]
+            if j == 0:
+                norms.append((batch * out * out, 4 * filters, "none"))
+            side = out
+    return norms
+
+
+def bn_shapes():
+    """Each distinct (rows, C, variant) of :func:`resnet50_norms` and how
+    many of the 53 norms have it."""
+    return collections.Counter(resnet50_norms())
+
+
+def bn_inputs(dev, rows: int, c: int, seed: int):
+    """bf16 x (offset from 0, as convolutions' outputs are), residual and
+    dz as ``[rows, C]``, and fp32 weight, bias and running statistics."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale + shift
+
+    acts = [rand(rows, c, scale=s, shift=t).to(torch.bfloat16)
+            for s, t in ((2.0, 0.5), (1.0, 0.0), (1.0, 0.0))]
+    return (*acts, rand(c), rand(c), rand(c, scale=0.1),
+            rand(c).abs() + 0.5)
+
+
+def check_batch_norm(dev):
+    """The batch-norm kernels against their plain version in float64 on
+    the same bf16 inputs, at each distinct (rows, C, variant) of ResNet-50's
+    norms at ``BN_BATCH`` images (``tests/test_torch_port_batch_norm.py``
+    holds fp32, eval mode and ragged shapes): the output and dx (the latter
+    given ReLU's mask ``z > 0`` of the kernel's output; the kernel masks a
+    ReLU alone by its recomputed fp32 pre-activation, which agrees but
+    where a positive value rounds to 0) within 2^-8 of each value plus 1e-4
+    of the largest (one rounding of an fp32 value to bf16; fp32 statistics),
+    the residual's gradient exactly, dweight and dbias within 1e-5 of each
+    channel's sum of |terms|, the running statistics within 1e-5 relative
+    plus 1e-7; each call bitwise equal to a second one. Returns each
+    kernel's largest error over its bound."""
+    from horovod_tpu_torch.models import norm_kernels as nk
+    worst_of = dict.fromkeys(("bn_apply", "bn_bwd_apply", "bn_bwd_reduce",
+                              "bn_stats"), 0.0)
+
+    def over(got, want, rel, abs_share):
+        bound = rel * want.abs() + abs_share * float(want.abs().max())
+        return float(((got.double() - want).abs() / bound).max())
+
+    for (rows, c, variant), _ in sorted(bn_shapes().items()):
+        x, r, dz, w, b, rm, rv = bn_inputs(dev, rows, c, rows + c)
+        relu, res = variant != "none", variant == "relu_res"
+
+        def kernel():
+            wk, bk = w.clone().requires_grad_(), b.clone().requires_grad_()
+            xk = x.clone().requires_grad_()
+            rk = r.clone().requires_grad_() if res else None
+            mean, var = rm.clone(), rv.clone()
+            z = nk.batch_norm_act(xk, wk, bk, mean, var, True, 0.9, 1e-5,
+                                  rk, relu)
+            grads = torch.autograd.grad(
+                z, [xk, wk, bk] + ([rk] if res else []), dz)
+            return [z.detach(), *grads, mean, var]
+
+        got = kernel()
+        if not all(bitwise(a, b_) for a, b_ in zip(got, kernel())):
+            raise AssertionError(f"batch norm at {(rows, c, variant)}: two "
+                                 f"calls differ")
+        xd, wd, bd = (t.double().requires_grad_() for t in (x, w, b))
+        mean, var = rm.double(), rv.double()
+        want = nk.batch_norm_act_plain(
+            xd.detach(), wd.detach(), bd.detach(), mean.clone(), var.clone(),
+            True, 0.9, 1e-5, r.double() if res else None, relu)
+        y = nk.batch_norm_act_plain(xd, wd, bd, mean, var, True, 0.9, 1e-5)
+        dy = dz.double() * (got[0] > 0) if relu else dz.double()
+        dx, dw, db = torch.autograd.grad(y, [xd, wd, bd], dy)
+        xhat = (xd.detach() - xd.detach().mean(0)) * (
+            xd.detach().var(0, unbiased=False) + 1e-5).rsqrt()
+        errs = {"bn_apply": over(got[0], want, 2**-8, 1e-4),
+                "bn_bwd_apply": over(got[1], dx, 2**-8, 1e-4),
+                "bn_bwd_reduce": max(
+                    float(((got[2].double() - dw).abs() / (
+                        1e-5 * (dy * xhat).abs().sum(0) + 1e-7)).max()),
+                    float(((got[3].double() - db).abs() / (
+                        1e-5 * dy.abs().sum(0) + 1e-7)).max())),
+                "bn_stats": max(
+                    float(((got[-2].double() - mean).abs() / (
+                        1e-5 * mean.abs() + 1e-7)).max()),
+                    float(((got[-1].double() - var).abs() / (
+                        1e-5 * var.abs() + 1e-7)).max()))}
+        if res and not torch.equal(got[4].double(), dy):
+            raise AssertionError(f"batch norm at {(rows, c, variant)}: the "
+                                 f"residual's gradient differs")
+        for name, err in errs.items():
+            worst_of[name] = max(worst_of[name], err)
+        if max(errs.values()) > 1:
+            raise AssertionError(f"batch norm at {(rows, c, variant)}: "
+                                 f"errors over their bounds {errs}")
+        del x, r, dz, got, xd, want, y, dy, dx, xhat
+        free_memory()
+    return worst_of
+
+
+def measure_batch_norm(dev, launches, errors, rates):
+    """The batch-norm kernels' passes timed at each distinct (rows, C,
+    variant) of ResNet-50's norms at ``BN_BATCH`` images and summed over
+    the 53 norms, as a step runs them: ``ms`` of each pass (``bn_stats``
+    and ``bn_bwd_reduce`` with their finalize launch) beside its bound, the
+    bf16 bytes it must move at the memory rate (statistics x; apply x, the
+    residual and z; the backward reduce dz and x, and z and dy' under ReLU
+    after a residual add; dx dz or dy', x and dx). The ``bn_apply`` row
+    also carries the forward (statistics and apply) and ``bn_bwd_apply``
+    the backward: ``forward_ms``/``backward_ms``, their bounds, the plain
+    version's time (``plain_ms``: ``batch_norm_act_plain`` and its
+    autograd backward, on bf16 CUDA tensors) and the library yardstick's
+    (``library_ms``: ``F.batch_norm``, ``+`` where the block adds its
+    residual and ``F.relu``, and their autograd backward; the port never
+    calls it). Each time is CUDA events over a CUDA graph of 20 calls
+    replayed ``GRAPH_REPLAYS`` times (the device's time alone); inputs
+    under the 50 MB L2 (a step's last stages) may be read from it, as in a
+    step, where the convolution before the norm has just written them."""
+    from horovod_tpu_torch.models import norm_kernels as nk
+    passes = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
+    # bf16 passes over the activations, by variant (ReLU alone masks its
+    # backward by the pre-activation recomputed from x: no z).
+    moves = {"relu": (1, 2, 2, 3), "relu_res": (1, 3, 4, 3),
+             "none": (1, 2, 2, 3)}
+    ms = dict.fromkeys(passes + ("plain_fwd", "plain_both", "lib_fwd",
+                                 "lib_both"), 0.0)
+    bound = dict.fromkeys(passes, 0.0)
+    for (rows, c, variant), count in sorted(bn_shapes().items()):
+        x, r, dz, w, b, rm, rv = bn_inputs(dev, rows, c, rows + c)
+        relu, res = variant != "none", variant == "relu_res"
+        rr = r if res else None
+        mean, inv = nk.bn_stats(x, rm, rv, 0.9, 1e-5)
+        k = nk.Channels(mean, inv, False, 1e-5, w, b)
+        z = nk.bn_apply(x, rr, k, relu)
+        mask = nk.MASK_FROM_Z if res else (
+            nk.MASK_FROM_X if relu else nk.NO_MASK)
+        _, _, coef, dy = nk.bn_bwd_reduce(dz, x, k, mask, True, z)
+        timed = {
+            "bn_stats": lambda: nk.bn_stats(x, rm, rv, 0.9, 1e-5),
+            "bn_apply": lambda: nk.bn_apply(x, rr, k, relu),
+            "bn_bwd_reduce": lambda: nk.bn_bwd_reduce(dz, x, k, mask, True,
+                                                      z),
+            "bn_bwd_apply": (lambda: nk.bn_bwd_apply(dy, x, k, False, coef))
+            if res else (lambda: nk.bn_bwd_apply(dz, x, k, relu, coef))}
+        xg = x.detach().requires_grad_()
+        wg, bg = w.clone().requires_grad_(), b.clone().requires_grad_()
+
+        def plain():
+            return nk.batch_norm_act_plain(xg, wg, bg, rm.clone(), rv.clone(),
+                                           True, 0.9, 1e-5, rr, relu)
+
+        def library():
+            y = F.batch_norm(xg, rm.clone(), rv.clone(), wg, bg, True, 0.1,
+                             1e-5)
+            y = r + y if res else y
+            return F.relu(y) if relu else y
+
+        for name, fn in (("plain", plain), ("lib", library)):
+            timed[f"{name}_fwd"] = lambda fn=fn: fn().detach()
+            timed[f"{name}_both"] = lambda fn=fn: torch.autograd.grad(
+                fn(), [xg, wg, bg], dz)
+        for name, fn in timed.items():
+            ms[name] += count * time_ms(fn, graph=True)
+        for name, n in zip(passes, moves[variant]):
+            bound[name] += count * n * 2 * rows * c / rates[0] * 1e3
+        del x, r, dz, z, dy, xg, timed
+        free_memory()
+    rows_out = []
+    for name in passes:
+        row = {"name": name, "route": "cuda",
+               "source": "horovod_tpu_torch/csrc/batch_norm.cu",
+               "replaces": "none: PyTorch's channels-last batch norm, ReLU, "
+                           "add and threshold-backward passes (XLA's fusion "
+                           "in the JAX package)",
+               "launches": launches[name], "max_err_over_bound":
+                   errors[name], "ms": ms[name], "bound_ms": bound[name],
+               "bound_by": "bytes", "plain_ms": None, "library_ms": None}
+        if name in ("bn_stats", "bn_bwd_reduce"):
+            finalize = name.replace("_reduce", "") + "_finalize"
+            row["launches_finalize"] = launches[finalize]
+        rows_out.append(row)
+    forward, backward = rows_out[1], rows_out[3]
+    forward.update({
+        "forward_ms": ms["bn_stats"] + ms["bn_apply"],
+        "forward_bound_ms": bound["bn_stats"] + bound["bn_apply"],
+        "plain_ms": ms["plain_fwd"], "library_ms": ms["lib_fwd"],
+        "library": "F.batch_norm (+ residual) + F.relu, forward"})
+    backward.update({
+        "backward_ms": ms["bn_bwd_reduce"] + ms["bn_bwd_apply"],
+        "backward_bound_ms": bound["bn_bwd_reduce"] + bound["bn_bwd_apply"],
+        "plain_ms": ms["plain_both"] - ms["plain_fwd"],
+        "library_ms": ms["lib_both"] - ms["lib_fwd"],
+        "library": "autograd backward of F.batch_norm (+ residual) + "
+                   "F.relu"})
+    for row in rows_out:
+        log(f"kernel {row['name']}: {row['ms']:.4f} ms a ResNet-50 step of "
+            f"{BN_BATCH} images (bound {row['bound_ms']:.4f} ms by bytes)")
+    log(f"batch norm a ResNet-50 step of {BN_BATCH} images: forward "
+        f"{forward['forward_ms']:.4f} ms (bound "
+        f"{forward['forward_bound_ms']:.4f}, plain {forward['plain_ms']:.4f},"
+        f" library {forward['library_ms']:.4f}); backward "
+        f"{backward['backward_ms']:.4f} ms (bound "
+        f"{backward['backward_bound_ms']:.4f}, plain "
+        f"{backward['plain_ms']:.4f}, library {backward['library_ms']:.4f})")
+    return rows_out
+
+
 def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
                   noncausal_errors, parent=None):
     """B7, B8 and B9 at the GPT path's shape. Bound: the causal pairs this
@@ -2868,11 +3132,12 @@ def measure_flash(flash, dev, launches, errors, rates, noncausal_launches,
 # (k) the process-mode native core: ranks sharing the one card
 # ---------------------------------------------------------------------------
 
-def process_launches(n: int):
+def process_launches(n: int, norms: int = RESNET50_NORMS):
     """(k3)'s launches a step: B1 quantizes the fused group once; B4
     decodes it once for the error-feedback residual and once for each
-    rank's gathered payload."""
-    return {"maxmin_quantize": 1, "maxmin_dequantize": n + 1}
+    rank's gathered payload; the kernels of ``norms`` batch norms."""
+    return {"maxmin_quantize": 1, "maxmin_dequantize": n + 1,
+            **norm_launches(norms)}
 
 
 def process_menu(hvd, dev, r: int, n: int) -> int:
@@ -4443,8 +4708,11 @@ def torch_estimator_round(hvd, dev, form: str, data: str, store: str,
         run_id=run_id, shuffle=False, device=dev)
     history = _remote_fit_torch(est, data)
     res = clock.stats(f"(n3) {form}")
+    # SyncBatchNorm's form runs none of the batch-norm kernels.
     check_launches(f"(n3) {form}", res["launches"],
-                   process_launches(hvd.size()), EST_STEPS)
+                   process_launches(hvd.size(),
+                                    0 if form == "sync" else RESNET50_NORMS),
+                   EST_STEPS)
     res["history"] = history
     res["digest"] = same_weights(hvd, f"(n3) {form}", clock.trained)
     return res
@@ -4638,10 +4906,16 @@ def traced_step(fn, path: str):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # The profiler drops device events that its clock places outside
+        # the window, and minutes into a process a step's first kernels
+        # (ResNet-50's first batch norms) fell before it: a margin on each
+        # side keeps the step inside.
+        time.sleep(TRACE_MARGIN_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_MARGIN_S)
     prof.export_chrome_trace(path)
     counts, _, busy_ms = trace_device(path, GRAPH_KERNELS)
     os.remove(path)
@@ -4957,6 +5231,12 @@ def main() -> int:
         log(f"kernels: B7, B8 and B9 within their tolerances at 51 shapes "
             f"(bf16 on the tensor cores); errors at the GPT path's shape "
             f"{flash_err}, at the encoder's {noncausal_err}")
+        bn_errors = check_batch_norm(dev)
+        log(f"kernels: batch norm within its bounds at the "
+            f"{len(bn_shapes())} (rows, C, variant) of ResNet-50's 53 norms "
+            f"at {BN_BATCH} images, each "
+            f"call bitwise equal to a second; largest errors over their "
+            f"bounds {bn_errors}")
         # Each kernel's launches in the timed steps of the phase that
         # carries it (B3 and B4: the max-min phase).
         phases = {"resnet": train(hvd, dev),
@@ -4993,6 +5273,8 @@ def main() -> int:
         rows += measure_flash(flash, dev, flash_launches, flash_err, rates,
                               model_parallel["encoder"]["launches"],
                               noncausal_err, parent)
+        free_memory()
+        rows += measure_batch_norm(dev, launches, bn_errors, rates)
         free_memory()
         traced = train_traced(hvd, dev)
         free_memory()

@@ -13,6 +13,11 @@ give the same outputs:
   variance;
 * the last batch-norm scale of each block starts at zero.
 
+On CUDA each batch norm, with the ReLU after it and the block's residual
+add before that ReLU, runs as the hand-written kernels of
+:mod:`horovod_tpu_torch.models.norm_kernels` (:func:`norm_act`); on the CPU
+the same arithmetic is composed from PyTorch's operators.
+
 On the card, run it under ``torch.autocast("cuda", torch.bfloat16)`` with
 fp32 parameters, as the JAX package computes in bf16; logits come back in
 fp32.
@@ -22,11 +27,13 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple, Type, Union
+from typing import Optional, Sequence, Tuple, Type, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from . import norm_kernels
 
 
 def _same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -111,24 +118,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        # batch_norm updates the statistics it is given in place and saves
-        # them for backward, so it gets copies.
-        mean, var = self.running_mean.clone(), self.running_var.clone()
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
-                         1.0 - self.momentum, self.eps)
-        # PyTorch folds the unbiased batch variance into the running
-        # variance and flax the biased one: rescale the folded-in part by
-        # (n-1)/n.
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            self.running_mean.copy_(mean)
-            folded = var.sub(self.running_var, alpha=self.momentum)
-            self.running_var.mul_(self.momentum).add_(folded,
-                                                      alpha=(n - 1) / n)
-        return y
+        # The kernels of norm_kernels on CUDA, their plain version (the
+        # models' arithmetic before the kernels) on the CPU.
+        return norm_kernels.batch_norm_act(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            self.training, self.momentum, self.eps)
+
+
+def norm_act(bn: nn.Module, x: torch.Tensor,
+             residual: Optional[torch.Tensor] = None,
+             relu: bool = True) -> torch.Tensor:
+    """``act(bn(x) [+ residual])``, act ReLU or none. For the port's own
+    ``BatchNorm`` on a CUDA tensor, one family of kernels does it all
+    (``norm_kernels``); any other norm (``SyncBatchNorm``, the torch
+    frontend's after ``convert_sync_batchnorm``), or a tensor on the CPU,
+    goes through the module's own ``forward``, then ``+`` and ``F.relu``."""
+    if type(bn) is BatchNorm and x.is_cuda:
+        return norm_kernels.batch_norm_act(
+            x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+            bn.training, bn.momentum, bn.eps, residual, relu)
+    y = bn(x)
+    if residual is not None:
+        y = residual + y
+    return F.relu(y) if relu else y
 
 
 class ResNetBlock(nn.Module):
@@ -147,12 +159,11 @@ class ResNetBlock(nn.Module):
             self.norm_proj = BatchNorm(filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        y = norm_act(self.bn1, self.conv1(x))
         residual = x
         if self.conv_proj is not None:
             residual = self.norm_proj(self.conv_proj(x))
-        return F.relu(residual + y)
+        return norm_act(self.bn2, self.conv2(y), residual)
 
 
 class BottleneckResNetBlock(nn.Module):
@@ -173,13 +184,12 @@ class BottleneckResNetBlock(nn.Module):
             self.norm_proj = BatchNorm(filters * 4)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = norm_act(self.bn1, self.conv1(x))
+        y = norm_act(self.bn2, self.conv2(y))
         residual = x
         if self.conv_proj is not None:
             residual = self.norm_proj(self.conv_proj(x))
-        return F.relu(residual + y)
+        return norm_act(self.bn3, self.conv3(y), residual)
 
 
 class ResNet(nn.Module):
@@ -206,7 +216,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = norm_act(self.bn_init, self.conv_init(x))
         x, pad = _pad_same(x, 3, 2, value=-math.inf)
         x = F.max_pool2d(x, 3, 2, padding=pad)
         x = self.blocks(x)

@@ -28,7 +28,8 @@ CSRC = _PKG_DIR / "csrc"
 SOURCES = (CSRC / "maxmin.cu",
            CSRC / "norm.cu",
            CSRC / "flash_attention.cu",
-           CSRC / "flash_attention_wgmma.cu")
+           CSRC / "flash_attention_wgmma.cu",
+           CSRC / "batch_norm.cu")
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
